@@ -1,0 +1,52 @@
+"""Engine configuration of the page program: ``DetectorConfig`` and
+``EmbedderConfig`` of ``multimodal_embeddings_tpu/config.py``, copied so
+that the port and its runs import nothing of the JAX package.
+
+Each field here is the JAX field of the same name with the same default
+(``tests/test_torch_config.py`` holds the two together). Fields that select
+a path the port does not have are left out: the TPU conv paths
+(``s2d_stem``, ``pallas_convs``, ``pallas_mode``), the letterboxed views
+(``device_letterbox``) and mme5 weight quantisation (``quantize``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """Stage-1 DocLayout-YOLO settings (reference: 1_doclayout_bboxes.py:684-701,
+    deprecated_package/config.py:62-64)."""
+
+    image_size: int = 1024
+    conf_threshold: float = 0.1
+    iou_threshold: float = 0.45  # class-agnostic NMS after predict
+    grid_configs: Tuple[Tuple[int, int], ...] = ((2, 2), (3, 3), (4, 4))
+    overlap_percentage: float = 20.0
+    max_detections: int = 300  # static padding bound per view
+    # Architecture scale ("m" matches doclayout_yolo_docstructbench)
+    variant: str = "m"
+    weights_path: Optional[str] = None  # safetensors / torch .pt to load
+    # DocLayout-YOLO GL-CRM backbone blocks (the DocStructBench checkpoint
+    # is this architecture, not base v10 — arXiv 2410.12628)
+    glcrm: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedderConfig:
+    """Embedding model settings (reference: deprecated_package/config.py:51-58,
+    embedder.py:36-254)."""
+
+    model_name: str = "intfloat/mmE5-mllama-11b-instruct"
+    # "mme5" = Mllama-architecture parity path; "siglip" = fast ViT dual encoder
+    family: str = "siglip"
+    batch_size: int = 16  # whole-image batch (config.py:51)
+    region_batch_size: int = 48  # region-crop batch (config.py:52)
+    max_image_dim: int = 8000  # LANCZOS cap (config.py:18)
+    image_size: int = 448  # encoder input resolution (Mllama tile size: 560)
+    embed_dim: int = 768
+    dtype: str = "bfloat16"
+    weights_path: Optional[str] = None
+    prompt: str = "<|image|><|begin_of_text|> Represent the given image."

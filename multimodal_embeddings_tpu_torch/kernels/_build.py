@@ -1,0 +1,95 @@
+"""Build the package's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` next
+to the sources, then loaded with ``ctypes``. The hash covers the source and
+the flags, so an edited source rebuilds and an unchanged one is reused. The
+build directory is listed in ``.gitignore``; ``MMTPU_TORCH_BUILD_DIR``
+moves it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+class BuildInfo:
+    """What one build did: library path, seconds spent in nvcc (0 when the
+    cached library was reused) and the compiler's report (ptxas registers,
+    shared memory and spills)."""
+
+    def __init__(self, path: Path, seconds: float, log: str):
+        self.path = path
+        self.seconds = seconds
+        self.log = log
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("MMTPU_TORCH_BUILD_DIR", PKG_DIR / "_build"))
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+        "compiled on the machine with the card"
+    )
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags is already built; raises with nvcc's output on failure."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out_dir = build_dir()
+    lib = out_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent process never sees
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+
+
+def load(name: str):
+    """The loaded library of ``csrc/<name>.cu`` and its ``BuildInfo``,
+    built on the first call in the process."""
+    with _lock:
+        if name not in _loaded:
+            info = build(name)
+            _loaded[name] = (ctypes.CDLL(str(info.path)), info)
+        return _loaded[name]

@@ -1,0 +1,221 @@
+"""Whole-row encoder attention (K1) for the two lane-folded call sites.
+
+Replaces the Pallas TPU kernels of
+``multimodal_embeddings_tpu/kernels/encoder_attention.py``:
+``encoder_attention_blf`` (``_enc_attn_blf_kernel`` and its ``scratch``
+twin, same math) and ``encoder_attention_blf_packed``
+(``_enc_attn_blf_packed_kernel``). Both wrappers here launch ONE hand-written
+CUDA kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v
+through (batch, row, head) strides:
+
+* ``encoder_attention_blf``: q/k/v are separate ``(B, L, H·D)`` slabs, head
+  ``h`` at column ``h·D`` (the ViT's plain-matmul projections);
+* ``encoder_attention_blf_packed``: q/k/v are strided views of one
+  ``(B, L, H·(2kd+hd))`` slab, per head ``[q(kd) | k(kd) | v(hd)]`` (the
+  detector PSA block's conv output, ultralytics channel order).
+
+What bounds the kernel on an H100, and what its design does about it, is
+written at the top of the CUDA source. Numerics (both the kernel and the
+plain versions): f32 scores ``(q·k)·scale``, f32 ``exp(s − rowmax)`` and
+denominator, ``e`` cast to the input dtype before an f32-accumulated PV
+product, output ``/ max(denom, 1e-30)`` cast to the input dtype.
+
+Dispatch: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
+launches the kernel or raises. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import torch
+
+from multimodal_embeddings_tpu_torch.kernels import _build
+
+_SOURCE = "encoder_attention"
+# per-block dynamic shared memory an H100 grants (227 KB)
+_MAX_SMEM = 232448
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_DIM = 128
+
+
+@functools.cache
+def _lib():
+    """The built library with its C signatures declared (first call builds)."""
+    lib, _ = _build.load(_SOURCE)
+    lib.enc_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.enc_attn_smem_bytes.restype = ctypes.c_longlong
+    strides = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # batch, row, head
+    lib.enc_attn_launch.argtypes = (
+        [ctypes.c_int]
+        + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5
+        + strides * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.enc_attn_launch.restype = ctypes.c_int
+    return lib
+
+
+def build_info() -> _build.BuildInfo:
+    """Build (or reuse) the kernel library; returns its ``BuildInfo``."""
+    _lib()
+    return _build.load(_SOURCE)[1]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path and the kernel's reference)
+# ---------------------------------------------------------------------------
+
+
+def _attend_plain(q, k, v, scale: float) -> torch.Tensor:
+    """(B, H, L, D), (B, H, L, D), (B, H, L, Dv) → (B, H, L, Dv) in q's
+    dtype, with the module docstring's numerics."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    o = torch.matmul(e.to(q.dtype).float(), v.float())
+    return (o / denom.clamp_min(1e-30)).to(q.dtype)
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, l, f = x.shape
+    return x.reshape(b, l, heads, f // heads).transpose(1, 2)
+
+
+def _merge(o: torch.Tensor) -> torch.Tensor:
+    b, h, l, d = o.shape
+    return o.transpose(1, 2).reshape(b, l, h * d)
+
+
+def encoder_attention_blf_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """Plain version of ``encoder_attention_blf``."""
+    scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    o = _attend_plain(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale)
+    return _merge(o)
+
+
+def _split_packed(qkv, heads, key_dim):
+    b, l, f = qkv.shape
+    per_head = qkv.reshape(b, l, heads, f // heads).transpose(1, 2)
+    return (
+        per_head[..., :key_dim],
+        per_head[..., key_dim : 2 * key_dim],
+        per_head[..., 2 * key_dim :],
+    )
+
+
+def encoder_attention_blf_packed_reference(
+    qkv: torch.Tensor, heads: int, key_dim: int, head_dim: int
+) -> torch.Tensor:
+    """Plain version of ``encoder_attention_blf_packed``."""
+    q, k, v = _split_packed(qkv, heads, key_dim)
+    return _merge(_attend_plain(q, k, v, 1.0 / math.sqrt(key_dim)))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"encoder attention runs on cpu or cuda, not {dev}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError("q, k and v must share one device and dtype")
+        if t.dim() != 3 or t.stride(2) != 1:
+            raise ValueError(
+                f"expected (B, L, F) with unit feature stride, got "
+                f"{tuple(t.shape)} strides {t.stride()}"
+            )
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype} (float32 or bfloat16)")
+
+
+def _launch(q, k, v, heads, d, dv, head_strides, scale) -> torch.Tensor:
+    """One kernel launch: q/k/v are (B, L, ·) views with unit feature
+    stride; ``head_strides`` gives each operand's column offset per head."""
+    b, l = q.shape[0], q.shape[1]
+    if d > _MAX_DIM or dv > _MAX_DIM:
+        raise ValueError(f"head dims {d}/{dv} exceed {_MAX_DIM}")
+    lib = _lib()
+    smem = lib.enc_attn_smem_bytes(l, d, dv)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"L={l} needs {smem} B of shared memory per block "
+            f"(limit {_MAX_SMEM}): longer rows need a tiled-softmax kernel"
+        )
+    out = torch.empty((b, l, heads * dv), device=q.device, dtype=q.dtype)
+    args = []
+    for t, hs in zip((q, k, v, out), (*head_strides, dv)):
+        args += [t.stride(0), t.stride(1), hs]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.enc_attn_launch(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, l, heads, d, dv, *args, scale, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"encoder attention launch failed: cudaError {err}")
+    return out
+
+
+def encoder_attention_blf(
+    q: torch.Tensor,  # (B, L, H·D)
+    k: torch.Tensor,  # (B, L, H·D)
+    v: torch.Tensor,  # (B, L, H·Dv)
+    heads: int,
+) -> torch.Tensor:
+    """Unmasked whole-row attention over head-major ``(B, L, H·D)`` slabs,
+    scale ``1/√D``. Returns ``(B, L, H·Dv)`` in q's dtype."""
+    b, l, f = q.shape
+    if f % heads or v.shape[2] % heads or k.shape != q.shape:
+        raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape} / {heads}")
+    if v.shape[:2] != (b, l):
+        raise ValueError(f"v {tuple(v.shape)} does not match q {tuple(q.shape)}")
+    d, dv = f // heads, v.shape[2] // heads
+    if q.device.type == "cpu":
+        return encoder_attention_blf_reference(q, k, v, heads)
+    _check_cuda(q, k, v)
+    out = _launch(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d))
+    encoder_attention_blf.launches += 1
+    return out
+
+
+encoder_attention_blf.launches = 0
+
+
+def encoder_attention_blf_packed(
+    qkv: torch.Tensor,  # (B, L, heads·(2·key_dim + head_dim)), per head [q|k|v]
+    heads: int,
+    key_dim: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """Whole-row attention read straight off a packed per-head ``[q|k|v]``
+    slab, scale ``1/√key_dim``. Returns ``(B, L, heads·head_dim)`` in qkv's
+    dtype."""
+    b, l, f = qkv.shape
+    stride = 2 * key_dim + head_dim
+    if f != heads * stride:
+        raise ValueError(f"qkv width {f} != {heads}·(2·{key_dim}+{head_dim})")
+    if qkv.device.type == "cpu":
+        return encoder_attention_blf_packed_reference(qkv, heads, key_dim, head_dim)
+    _check_cuda(qkv)
+    q = qkv[..., :key_dim]
+    k = qkv[..., key_dim : 2 * key_dim]
+    v = qkv[..., 2 * key_dim :]
+    out = _launch(
+        q, k, v, heads, key_dim, head_dim, (stride,) * 3, 1.0 / math.sqrt(key_dim)
+    )
+    encoder_attention_blf_packed.launches += 1
+    return out
+
+
+encoder_attention_blf_packed.launches = 0

@@ -1,0 +1,39 @@
+"""LayoutDetector: the detection engine of the page program, in PyTorch.
+
+Port of ``multimodal_embeddings_tpu/models/detector.py::LayoutDetector``'s
+construction: the DocLayout-YOLO network of a ``DetectorConfig`` with
+parameters from a JAX flat dict, a JAX ``.npz`` checkpoint
+(``config.weights_path``) or a seed, in ``dtype`` on ``device``. The page
+program (``pipeline/fused.py``) runs it over all views of a page as one
+batch. The host-side per-image API (letterboxing, JSON regions, cache)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from multimodal_embeddings_tpu_torch.config import DetectorConfig
+from multimodal_embeddings_tpu_torch.models.weights import Flat, load_params
+from multimodal_embeddings_tpu_torch.models.yolo import DocLayoutYOLO
+
+
+class LayoutDetector:
+    def __init__(
+        self,
+        config: DetectorConfig = DetectorConfig(),
+        num_classes: int = 10,
+        seed: int = 0,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cpu",
+        params: Optional[Flat] = None,
+    ):
+        self.config = config
+        self.num_classes = num_classes
+        self.dtype = dtype
+        self.device = torch.device(device)
+        model = DocLayoutYOLO(num_classes, config.variant, glcrm=config.glcrm)
+        load_params(model, seed, params, config.weights_path)
+        self.model = model.to(self.device, dtype, memory_format=torch.channels_last).eval()

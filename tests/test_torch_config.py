@@ -1,0 +1,39 @@
+"""The port's engine configs against the JAX package's: every port field is
+the JAX field of the same name, type and default, and the JAX fields the
+port leaves out are exactly the ones it has no path for."""
+
+import dataclasses
+
+import pytest
+
+from multimodal_embeddings_tpu import config as jconfig
+from multimodal_embeddings_tpu_torch import config as tconfig
+
+LEFT_OUT = {
+    "DetectorConfig": {"s2d_stem", "pallas_convs", "pallas_mode", "device_letterbox"},
+    "EmbedderConfig": {"quantize"},
+}
+
+
+def _fields(cls):
+    return {f.name: f for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize("name", sorted(LEFT_OUT))
+def test_port_fields_match_the_jax_fields(name):
+    port, ref = _fields(getattr(tconfig, name)), _fields(getattr(jconfig, name))
+    assert set(ref) - set(port) == LEFT_OUT[name]
+    assert set(port) <= set(ref)
+    for field_name, field in port.items():
+        want = ref[field_name]
+        assert str(field.type) == str(want.type), field_name
+        assert field.default == want.default, field_name
+
+
+@pytest.mark.parametrize("name", sorted(LEFT_OUT))
+def test_port_defaults_build_the_jax_defaults(name):
+    """A port config carried across field by field is the JAX default config."""
+    port = getattr(tconfig, name)()
+    ref = getattr(jconfig, name)(**dataclasses.asdict(port))
+    assert ref == getattr(jconfig, name)()
+    assert getattr(tconfig, name).__dataclass_params__.frozen

@@ -1,0 +1,102 @@
+"""K1's plain PyTorch versions against the JAX Pallas kernels (interpret
+mode) at the production head geometry, small L, f32.
+
+Tolerance 1e-5 absolute: both sides compute the same f32 arithmetic and
+differ only in summation order over L ≤ 256 keys of O(1) terms."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.kernels.encoder_attention import (
+    encoder_attention_blf as jax_blf,
+    encoder_attention_blf_packed as jax_blf_packed,
+)
+from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
+
+torch.set_num_threads(2)
+ATOL = 1e-5
+
+
+def _randn(seed, shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("scratch", [False, True])
+@pytest.mark.parametrize("l", [64, 256])
+def test_blf_plain_matches_pallas(scratch, l):
+    """ViT geometry: H=12, D=64."""
+    q, k, v = (_randn(s, (2, l, 768)) for s in (1, 2, 3))
+    want = jax_blf(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=12,
+        interpret=True, scratch=scratch,
+    )
+    got = k1.encoder_attention_blf(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), heads=12
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("l", [64, 256])
+def test_blf_packed_plain_matches_pallas(l):
+    """PSA geometry: 4 heads of [q(36) | k(36) | v(72)]."""
+    qkv = _randn(4, (2, l, 4 * 144))
+    want = jax_blf_packed(
+        jnp.asarray(qkv), heads=4, key_dim=36, head_dim=72, interpret=True
+    )
+    got = k1.encoder_attention_blf_packed(torch.from_numpy(qkv), 4, 36, 72)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_blf_dv_differs_from_d():
+    q, k = _randn(5, (1, 64, 4 * 32)), _randn(6, (1, 64, 4 * 32))
+    v = _randn(7, (1, 64, 4 * 48))
+    want = jax_blf(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=4, interpret=True)
+    got = k1.encoder_attention_blf(*(torch.from_numpy(x) for x in (q, k, v)), heads=4)
+    assert got.shape == (1, 64, 4 * 48)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_plain_bf16_matches_pallas_bf16():
+    """The working dtype: bf16 in, bf16 out, e rounded to bf16 before PV on
+    both sides. Tolerance one bf16 ulp at |o| < 1 (2^-8): the f32 sums
+    differ in order and the final rounding may land on either side."""
+    q, k, v = (_randn(s, (2, 64, 768)) for s in (8, 9, 10))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = jax_blf(jq, jk, jv, heads=12, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = k1.encoder_attention_blf(tq, tk, tv, heads=12)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)), atol=2**-8
+    )
+
+
+def test_launch_counter_counts_only_kernel_launches():
+    q = torch.zeros(1, 16, 64)
+    before = k1.encoder_attention_blf.launches
+    k1.encoder_attention_blf(q, q, q, heads=1)  # CPU: plain version
+    assert k1.encoder_attention_blf.launches == before
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_non_cpu_tensor_never_takes_plain_path(packed):
+    """Only a CPU tensor reaches the plain version; any other device must
+    launch the kernel or raise."""
+    if packed:
+        with pytest.raises(ValueError):
+            k1.encoder_attention_blf_packed(torch.zeros(1, 16, 144, device="meta"), 1, 36, 72)
+    else:
+        q = torch.zeros(1, 16, 64, device="meta")
+        with pytest.raises(ValueError):
+            k1.encoder_attention_blf(q, q, q, heads=1)
+
+
+def test_shape_errors():
+    with pytest.raises(ValueError):
+        k1.encoder_attention_blf_packed(torch.zeros(1, 16, 100), 1, 36, 72)
+    with pytest.raises(ValueError):
+        q = torch.zeros(1, 16, 64)
+        k1.encoder_attention_blf(q, q, q, heads=3)

@@ -1,0 +1,153 @@
+"""The page program as a whole: the port's ``build_split_page_fn`` against
+the JAX package's, at the tiny detector of ``tests/test_fused.py`` (variant
+n, 128 px, full page + 2×2 views) and an L=256 ViT, in f32 on the CPU.
+
+With random weights every detection score lies within ~1e-5 of 0.5, closer
+than the float32 differences between two frameworks, so which of several
+near-equal boxes wins a tie may differ. So the stages are compared on
+identical inputs — head maps on JAX's views, crops from JAX's boxes,
+embeddings of JAX's crops — and end to end only through what a tie flip
+cannot move: the shapes, the valid count, unit-norm embeddings, and the
+sorted top-K scores. (The post-detector chain on tie-free head maps is
+compared exactly in ``test_torch_detect.py``.)
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.config import DetectorConfig as JDetectorConfig
+from multimodal_embeddings_tpu.config import EmbedderConfig as JEmbedderConfig
+from multimodal_embeddings_tpu.models.embedder import MultimodalEmbedder as JEmbedder
+from multimodal_embeddings_tpu.models.vision_encoder import DualEncoderConfig as JDual
+from multimodal_embeddings_tpu.models.vision_encoder import VisionConfig as JVision
+from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
+from multimodal_embeddings_tpu.models.yolo import DocLayoutYOLO as JYolo
+from multimodal_embeddings_tpu.ops.image import extract_views_matmul as jextract
+from multimodal_embeddings_tpu.pipeline import fused as jfused
+from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
+from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+from multimodal_embeddings_tpu_torch.models.vision_encoder import (
+    DualEncoderConfig,
+    VisionConfig,
+)
+from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
+from multimodal_embeddings_tpu_torch.ops.image import crop_and_resize_mxu
+from multimodal_embeddings_tpu_torch.pipeline import fused as tfused
+from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+torch.set_num_threads(2)
+
+PAGE_HW = (400, 300)
+K = 8
+DET = dict(image_size=128, variant="n", grid_configs=((2, 2),), max_detections=64)
+VIT = dict(image_size=256, patch_size=16, width=64, layers=2, heads=2)
+
+
+@pytest.fixture(scope="module")
+def both():
+    """Both page programs on one page, JAX tracing its Pallas kernels in
+    interpret mode. The detector's parameters come from the port's seeded
+    init (JAX's own init of it costs ~15 s of tracing); the embedder's from
+    the JAX engine."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_ENC_ATTN_BLF_INTERPRET", "1")
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        det_flat = export_jax_params(
+            LayoutDetector(DetectorConfig(**DET), dtype=torch.float32, seed=0).model
+        )
+        jdet = SimpleNamespace(
+            config=JDetectorConfig(**DET),
+            model=JYolo(num_classes=10, variant="n", glcrm=True, dtype=jnp.float32),
+            variables=unflatten_params(det_flat),
+        )
+        jemb = JEmbedder(
+            JEmbedderConfig(family="siglip", dtype="float32"),
+            model_config=JDual(vision=JVision(**VIT), embed_dim=64),
+        )
+        page = make_page(*PAGE_HW, seed=1)
+        jfn = jfused.build_split_page_fn(jdet, jemb, PAGE_HW, num_regions=K, embed_chunk=4)
+        jres = [np.array(x) for x in jfn(jnp.asarray(page))]
+        jdetect = jfused.build_fused_detect_fn(jdet, PAGE_HW, num_regions=K, emb_size=256)
+        jcrops = np.array(jdetect(jnp.asarray(page))[4])
+        jviews = np.array(
+            jextract(jnp.asarray(page, jnp.bfloat16), [(0, 0, 300, 400)], 128,
+                     dtype=jnp.bfloat16).astype(jnp.float32) / 255.0
+        )
+        jmaps = jdet.model.apply(jdet.variables, jnp.asarray(jviews))
+
+    tdet = LayoutDetector(DetectorConfig(**DET), dtype=torch.float32, params=det_flat)
+    temb = MultimodalEmbedder(
+        EmbedderConfig(family="siglip", dtype="float32"),
+        model_config=DualEncoderConfig(vision=VisionConfig(**VIT), embed_dim=64),
+        params=flatten_params(jemb.variables),
+    )
+    tfn = tfused.build_split_page_fn(tdet, temb, PAGE_HW, num_regions=K, embed_chunk=4)
+    tres = tfn(torch.from_numpy(page))
+    return SimpleNamespace(
+        page=page, jres=jres, jcrops=jcrops, jviews=jviews, jmaps=jmaps,
+        tdet=tdet, temb=temb, tfn=tfn, tres=tres,
+    )
+
+
+def test_output_contract(both):
+    r = both.tres
+    assert [tuple(x.shape) for x in r] == [tuple(x.shape) for x in both.jres]
+    assert r.valid.dtype == torch.bool and r.classes.dtype == torch.int32
+    assert int(r.valid.sum()) == int(both.jres[3].sum())
+    np.testing.assert_allclose(r.embeddings.norm(dim=-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_head_maps_on_jax_views(both):
+    """Tolerance 1e-4 on head logits: the detector test's bound."""
+    with torch.no_grad():
+        got = both.tdet.model(torch.from_numpy(both.jviews))
+    for (greg, gcls), (wreg, wcls) in zip(got, both.jmaps):
+        np.testing.assert_allclose(greg.numpy(), np.asarray(wreg), atol=1e-4)
+        np.testing.assert_allclose(gcls.numpy(), np.asarray(wcls), atol=1e-4)
+
+
+def test_crops_from_jax_boxes(both):
+    """Two uint8 steps over 255: pixels ride in bf16 through the row blend."""
+    got = crop_and_resize_mxu(
+        torch.from_numpy(both.page).bfloat16(), torch.from_numpy(both.jres[0]),
+        out_size=256, compute_dtype=torch.bfloat16,
+    ) / 255.0
+    np.testing.assert_allclose(got.numpy(), both.jcrops, atol=2 / 255)
+
+
+def test_embeddings_of_jax_crops(both):
+    """Unit-norm f32 embeddings of identical crops: 1e-5 absolute."""
+    got = both.temb.encode_image(torch.from_numpy(both.jcrops))
+    np.testing.assert_allclose(got.numpy(), both.jres[4], atol=1e-5)
+
+
+def test_sorted_top_k_scores(both):
+    """The K best scores the page yields, whichever near-tied boxes carry
+    them. Tolerance 2e-7: the scores' float32 spacing near 0.5 is 6e-8 and
+    the two head-map computations differ by float32 rounding."""
+    got = np.sort(both.tres.scores.numpy())
+    want = np.sort(both.jres[1])
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-7)
+
+
+def test_fused_page_fn_equals_split(both):
+    """One embed call over all crops gives the split program's result."""
+    fn = tfused.build_fused_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K)
+    res = fn(torch.from_numpy(both.page))
+    for a, b in zip(res, both.tres):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_split_halves_compose(both):
+    boxes, scores, classes, valid, crops = both.tfn.detect(torch.from_numpy(both.page))
+    assert crops.shape == (K, 256, 256, 3)
+    torch.testing.assert_close(boxes, both.tres.boxes, rtol=0, atol=0)
+    torch.testing.assert_close(both.tfn.embed(crops), both.tres.embeddings, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tfused.build_split_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K, embed_chunk=3)

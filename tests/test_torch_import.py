@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX, no JAX package, no library attention and
+no fallback around a kernel launch."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+import multimodal_embeddings_tpu_torch
+
+PKG = pathlib.Path(multimodal_embeddings_tpu_torch.__file__).parent
+REPO = PKG.parent
+MODULES = sorted(
+    "multimodal_embeddings_tpu_torch."
+    + ".".join(p.relative_to(PKG).with_suffix("").parts)
+    for p in PKG.rglob("*.py")
+    if p.name != "__init__.py"
+)
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter: import every port module (and chip_smoke),
+    then neither jax, flax nor the JAX package may be loaded."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'multimodal_embeddings_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_module_list_covers_the_slice():
+    for name in (
+        "kernels.encoder_attention", "kernels._build", "models.transformer",
+        "models.vision_encoder", "models.layers", "models.yolo", "models.yolo_decode",
+        "models.weights", "models.detector", "models.embedder", "ops.iou", "ops.nms",
+        "ops.edge_filter", "ops.grid", "ops.image", "pipeline.fused", "config",
+    ):
+        assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize(
+    "pattern",
+    [r"scaled_dot_product_attention", r"torch\.compile", r"\bcudnn\.(?!allow_tf32)",
+     r"^\s*try\s*:", r"^\s*(import|from)\s+(jax|flax|multimodal_embeddings_tpu)\b"],
+)
+def test_package_source_has_no(pattern):
+    """No library attention, no torch.compile, no try/except (so no kernel
+    launch can fall back), and no JAX."""
+    rx = re.compile(pattern, re.M)
+    hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py") if rx.search(p.read_text())]
+    assert not hits, hits
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    """Here torch has no CUDA: the script must exit non-zero and print no
+    result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,157 @@
+"""The parameter bridge between the JAX package and the port, and the
+port's seeded init."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+from flax.linen import unbox
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.models import layers as jl
+from multimodal_embeddings_tpu.models import transformer as jtr
+from multimodal_embeddings_tpu.models import vision_encoder as jve
+from multimodal_embeddings_tpu.models import yolo as jyolo
+from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
+from multimodal_embeddings_tpu_torch.config import DetectorConfig
+from multimodal_embeddings_tpu_torch.models import layers as tl
+from multimodal_embeddings_tpu_torch.models import transformer as ttr
+from multimodal_embeddings_tpu_torch.models import vision_encoder as tve
+from multimodal_embeddings_tpu_torch.models import yolo as tyolo
+from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+from multimodal_embeddings_tpu_torch.models.weights import (
+    export_jax_params,
+    init_random,
+    load_jax_params,
+)
+
+torch.set_num_threads(2)
+
+
+def _shapes(tree):
+    if not isinstance(tree, dict) or "params" in tree:  # abstract JAX init
+        tree = traverse_util.flatten_dict(unbox(tree), sep="/")
+    return {k: tuple(v.shape) for k, v in tree.items()}
+
+
+def _random_bn_flat(seed=0):
+    """A JAX ConvBnAct(8, 3) over 4 channels with random BatchNorm."""
+    x = jnp.zeros((1, 6, 6, 4))
+    flat = flatten_params(unbox(jl.ConvBnAct(8, 3).init(jax.random.PRNGKey(seed), x)))
+    rng = np.random.default_rng(seed)
+    for key in flat:
+        if key.endswith(("/var", "/scale")):
+            flat[key] = rng.uniform(0.5, 1.5, flat[key].shape).astype(np.float32)
+        elif key.endswith(("/mean", "/bias")):
+            flat[key] = rng.normal(size=flat[key].shape).astype(np.float32)
+    return flat
+
+
+@pytest.mark.parametrize("glcrm", [True, False])
+def test_detector_key_set_and_shapes_match_jax_m(glcrm):
+    """The full m-scale detector: every JAX parameter has a port home of the
+    converted shape (abstract JAX init: shapes only, no compute)."""
+    jmodel = jyolo.DocLayoutYOLO(num_classes=10, variant="m", glcrm=glcrm)
+    want = _shapes(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    got = _shapes(export_jax_params(tyolo.DocLayoutYOLO(10, "m", glcrm=glcrm)))
+    assert got == want
+
+
+def test_vit_b_key_set_and_shapes_match_jax():
+    cfg = dict(image_size=448, patch_size=16, width=768, layers=12, heads=12)
+    jmodel = jve.ViTower(jve.VisionConfig(**cfg), embed_dim=768)
+    want = _shapes(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 448, 448, 3))))
+    got = _shapes(export_jax_params(tve.ViTower(tve.VisionConfig(**cfg), 768)))
+    assert got == want
+
+
+def test_batchnorm_fold_formula():
+    flat = _random_bn_flat()
+    conv = load_jax_params(tl.ConvBnAct(4, 8, 3), flat)
+    k = flat["params/conv/kernel"]  # HWIO
+    g = flat["params/bn/scale"] / np.sqrt(flat["batch_stats/bn/var"] + np.float32(1e-3))
+    np.testing.assert_array_equal(
+        conv.conv.weight.detach().numpy(), np.transpose(k * g, (3, 2, 0, 1))
+    )
+    np.testing.assert_array_equal(
+        conv.conv.bias.detach().numpy(),
+        flat["params/bn/bias"] - flat["batch_stats/bn/mean"] * g,
+    )
+
+
+def test_attention_weights_reshape():
+    x = jnp.zeros((1, 16, 64))
+    flat = flatten_params(unbox(jtr.Attention(num_heads=4, head_dim=16).init(jax.random.PRNGKey(0), x)))
+    port = load_jax_params(ttr.Attention(64, 4, 16), flat)
+    np.testing.assert_array_equal(port.q.detach().numpy(), flat["params/q/kernel"].reshape(64, 64))
+    np.testing.assert_array_equal(port.o.detach().numpy(), flat["params/o/kernel"].reshape(64, 64))
+
+
+def test_round_trip_is_exact():
+    """JAX → port → JAX (identity BatchNorm) → port reproduces every port
+    parameter bit for bit, and the exported tree drives the JAX module to
+    the same output (1e-5: the JAX BatchNorm multiplies by rsqrt(1+eps)·
+    sqrt(1+eps), one or two roundings away from 1)."""
+    flat = _random_bn_flat(1)
+    first = load_jax_params(tl.ConvBnAct(4, 8, 3), flat)
+    exported = export_jax_params(first)
+    assert set(exported) == set(flat)
+    second = load_jax_params(tl.ConvBnAct(4, 8, 3), exported)
+    for a, b in zip(first.state_dict().values(), second.state_dict().values()):
+        assert torch.equal(a, b)
+    x = jnp.asarray(np.random.default_rng(0).normal(size=(2, 6, 6, 4)), jnp.float32)
+    jmod = jl.ConvBnAct(8, 3)
+    np.testing.assert_allclose(
+        np.asarray(jmod.apply(unflatten_params(exported), x)),
+        np.asarray(jmod.apply(unflatten_params(flat), x)), atol=1e-5,
+    )
+
+
+def test_bridge_refuses_mismatches():
+    flat = _random_bn_flat()
+    missing = {k: v for k, v in flat.items() if not k.endswith("bn/mean")}
+    with pytest.raises(KeyError):
+        load_jax_params(tl.ConvBnAct(4, 8, 3), missing)
+    with pytest.raises(ValueError, match="unused"):
+        load_jax_params(tl.ConvBnAct(4, 8, 3), {**flat, "params/extra/kernel": np.zeros(1)})
+    with pytest.raises(ValueError, match="shape mismatch"):
+        load_jax_params(tl.ConvBnAct(4, 16, 3), flat)
+
+
+def test_seeded_init_is_deterministic():
+    def state(seed):
+        model = init_random(tve.ViTower(tve.VisionConfig(64, 16, 32, 1, 2), 16), seed)
+        return [t.clone() for t in model.state_dict().values()]
+
+    a, b, c = state(0), state(0), state(1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+def test_seeded_init_distributions():
+    model = init_random(tl.ConvBnAct(64, 128, 3), 0)
+    std = model.conv.weight.std().item()
+    want = 1 / np.sqrt(64 * 9) / np.sqrt(1 + 1e-3)
+    assert abs(std - want) < 0.05 * want
+    assert torch.count_nonzero(model.conv.bias) == 0
+
+
+def test_npz_checkpoint_and_engine_dtype(tmp_path):
+    """The JAX package's .npz checkpoint format loads through
+    ``DetectorConfig.weights_path``; the engine casts to its dtype and keeps
+    convolution weights channels_last."""
+    cfg = DetectorConfig(image_size=64, variant="n")
+    flat = export_jax_params(LayoutDetector(cfg, dtype=torch.float32, seed=3).model)
+    path = tmp_path / "det.npz"
+    np.savez(path, **flat)
+    from_path = LayoutDetector(
+        DetectorConfig(image_size=64, variant="n", weights_path=str(path)),
+        dtype=torch.bfloat16,
+    )
+    from_flat = LayoutDetector(cfg, dtype=torch.bfloat16, params=flat)
+    for a, b in zip(from_path.model.parameters(), from_flat.model.parameters()):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    w = from_flat.model.backbone.stem.conv.weight
+    assert w.is_contiguous(memory_format=torch.channels_last)
