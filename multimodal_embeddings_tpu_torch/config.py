@@ -5,14 +5,14 @@ that the port and its runs import nothing of the JAX package.
 Each field here is the JAX field of the same name with the same default
 (``tests/test_torch_config.py`` holds the two together). Fields that select
 a path the port does not have are left out: the TPU conv paths
-(``s2d_stem``, ``pallas_convs``, ``pallas_mode``), the letterboxed views
-(``device_letterbox``) and mme5 weight quantisation (``quantize``).
+(``s2d_stem``, ``pallas_convs``, ``pallas_mode``) and the letterboxed views
+(``device_letterbox``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +50,7 @@ class EmbedderConfig:
     dtype: str = "bfloat16"
     weights_path: Optional[str] = None
     prompt: str = "<|image|><|begin_of_text|> Represent the given image."
+    # weight-only quantized storage for the mme5 family
+    # (models/quantized.py): False | True/"int8" | "int8-mixed" (bf16
+    # vision, int8 text); the JAX package's "int4" forms are not ported yet
+    quantize: Any = False

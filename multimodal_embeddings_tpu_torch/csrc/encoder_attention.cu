@@ -1,20 +1,26 @@
 // Whole-row encoder self-attention for Hopper (sm_90a), one kernel for the
-// two lane-folded call sites of the page program.
+// three attention call sites of the page programs.
 //
 // Replaces the Pallas TPU kernels `_enc_attn_blf_kernel` /
-// `_enc_attn_blf_scratch_kernel` (encoder_attention_blf) and
-// `_enc_attn_blf_packed_kernel` (encoder_attention_blf_packed) of
-// multimodal_embeddings_tpu/kernels/encoder_attention.py. Both compute, per
-// (batch, head), an unmasked softmax over whole score rows:
+// `_enc_attn_blf_scratch_kernel` (encoder_attention_blf),
+// `_enc_attn_blf_packed_kernel` (encoder_attention_blf_packed) and
+// `_enc_attn_kernel` (encoder_attention, and encoder_attention_padded which
+// calls it) of multimodal_embeddings_tpu/kernels/encoder_attention.py. All
+// compute, per (batch, head), a softmax over whole score rows whose keys are
+// the prefix [0, valid_len) of the L rows:
 //
-//   s = (q . k) * scale              f32
+//   s = (q . k) * scale              f32, keys j < valid_len
 //   e = exp(s - rowmax(s))           f32
 //   denom = sum(e)                   f32
 //   o = (cast_T(e) @ v) / max(denom, 1e-30), accumulated in f32, cast to T
 //
-// Operands are addressed through (batch, row, head) strides, so one kernel
-// reads both the split (B, L, H*D) q/k/v slabs of the ViT and the packed
-// per-head [q(kd) | k(kd) | v(hd)] slab of the detector's PSA block.
+// Keys at or past valid_len are skipped: the TPU kernel gives them the score
+// -1e30, whose e is exactly 0 in f32 once one valid key exists. Every one of
+// the L rows is still a query (the Mllama vision tower carries its 7 padding
+// rows through every layer). Operands are addressed through (batch, row,
+// head) strides, so one kernel reads the split (B, L, H*D) q/k/v slabs of the
+// ViT and of the Mllama tower as well as the packed per-head
+// [q(kd) | k(kd) | v(hd)] slab of the detector's PSA block.
 //
 // What bounds it on this card: the arithmetic (4*L*L*D flops per head) runs
 // here on CUDA cores out of shared memory, so shared-memory load bandwidth
@@ -25,7 +31,7 @@
 // the shared-memory loads to about one per two FMAs. Loads are scalar: the
 // packed k slice starts 72 bytes into each head, which is not 16-byte aligned,
 // and kd = 36 / hd = 72 are not multiples of a vector width. L = 784 is not a
-// multiple of the tiles; rows and keys past L are masked.
+// multiple of the tiles; rows past L and keys past valid_len are masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,9 +95,10 @@ inline size_t smem_bytes(int L, int D, int DV) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     enc_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int L, int D,
-                    int DV, Strides qs, Strides ks, Strides vs, Strides os,
-                    float scale) {
+                    const T* __restrict__ v, T* __restrict__ o, int L, int NV,
+                    int D, int DV, Strides qs, Strides ks, Strides vs,
+                    Strides os, float scale) {
+  // NV = valid_len: keys [0, NV) take part, 1 <= NV <= L
   extern __shared__ __align__(16) float smem[];
   const int LP = score_stride(L);
   const int DP = k_stride(D);
@@ -120,12 +127,12 @@ __global__ void __launch_bounds__(THREADS)
   // scores: thread owns key jj of each tile for rows rg*4 .. rg*4+3
   const int jj = tid % KT;
   const int rg = tid / KT;
-  for (int j0 = 0; j0 < L; j0 += KT) {
+  for (int j0 = 0; j0 < NV; j0 += KT) {
     __syncthreads();  // previous tile consumed (and Q stored, first pass)
     for (int p = tid; p < KT * D; p += THREADS) {
       const int j = p / D, d = p % D;
       const int key = j0 + j;
-      sKV[j * DP + d] = key < L ? to_f32(kb[(long long)key * ks.row + d]) : 0.f;
+      sKV[j * DP + d] = key < NV ? to_f32(kb[(long long)key * ks.row + d]) : 0.f;
     }
     __syncthreads();
     float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
@@ -140,7 +147,7 @@ __global__ void __launch_bounds__(THREADS)
       acc3 = fmaf(qv.w, kv, acc3);
     }
     const int key = j0 + jj;
-    if (key < L) {
+    if (key < NV) {
       float* s = sS + (rg * 4) * LP + key;
       s[0] = acc0 * scale;
       s[LP] = acc1 * scale;
@@ -156,31 +163,32 @@ __global__ void __launch_bounds__(THREADS)
   for (int r = warp; r < TQ; r += THREADS / 32) {
     float* srow = sS + r * LP;
     float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
+    for (int j = lane; j < NV; j += 32) m = fmaxf(m, srow[j]);
     m = warp_max(m);
     float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
+    for (int j = lane; j < NV; j += 32) {
       const float e = expf(srow[j] - m);
       sum += e;
       srow[j] = to_f32(from_f32<T>(e));
     }
     sum = warp_sum(sum);
-    if (lane < LP - L) srow[L + lane] = 0.f;  // float4 tail reads see 0
+    // float4 tail reads of the last key tile see 0 (NV rounded up to 4 <= LP)
+    if (lane < ((NV + 3) & ~3) - NV) srow[NV + lane] = 0.f;
     if (lane == 0) sDen[r] = sum;
   }
 
   // PV: item p = (row group, column c) holds 4 rows of one output column
   const int nitems = (TQ / 4) * DV;
   float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  for (int j0 = 0; j0 < L; j0 += KT) {
+  for (int j0 = 0; j0 < NV; j0 += KT) {
     __syncthreads();  // scores final (first pass) / previous V tile consumed
     for (int p = tid; p < KT * DV; p += THREADS) {
       const int j = p / DV, c = p % DV;
       const int key = j0 + j;
-      sKV[j * DV + c] = key < L ? to_f32(vb[(long long)key * vs.row + c]) : 0.f;
+      sKV[j * DV + c] = key < NV ? to_f32(vb[(long long)key * vs.row + c]) : 0.f;
     }
     __syncthreads();
-    const int jn = min(KT, L - j0);
+    const int jn = min(KT, NV - j0);
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
       const int p = tid + it * THREADS;
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int L, int H, int D, int DV, Strides qs, Strides ks,
+                   int L, int NV, int H, int D, int DV, Strides qs, Strides ks,
                    Strides vs, Strides os, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(L, D, DV);
   cudaError_t err = cudaFuncSetAttribute(
@@ -234,8 +242,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((L + TQ - 1) / TQ, H, B);
   enc_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, D, DV, qs, ks, vs, os,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), L, NV, D, DV, qs, ks, vs,
+      os, scale);
   return cudaGetLastError();
 }
 
@@ -249,27 +257,29 @@ long long enc_attn_smem_bytes(int L, int D, int DV) {
   return (long long)smem_bytes(L, D, DV);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. Keys [0, valid_len) attend. Strides are
+// in elements. Returns the cudaError_t of the launch (0 = launched).
 int enc_attn_launch(int dtype, const void* q, const void* k, const void* v,
-                    void* o, int B, int L, int H, int D, int DV,
+                    void* o, int B, int L, int H, int D, int DV, int valid_len,
                     long long q_batch, int q_row, int q_head,
                     long long k_batch, int k_row, int k_head,
                     long long v_batch, int v_row, int v_head,
                     long long o_batch, int o_row, int o_head, float scale,
                     void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || D <= 0 || DV <= 0 || D > MAX_DIM ||
-      DV > MAX_DIM || H > 65535 || B > 65535)
+      DV > MAX_DIM || H > 65535 || B > 65535 || valid_len < 1 ||
+      valid_len > L)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_batch, q_row, q_head}, ks{k_batch, k_row, k_head},
       vs{v_batch, v_row, v_head}, os{o_batch, o_row, o_head};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(q, k, v, o, B, L, H, D, DV, qs, ks, vs, os, scale, s);
+    err = launch<float>(q, k, v, o, B, L, valid_len, H, D, DV, qs, ks, vs, os,
+                        scale, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, o, B, L, H, D, DV, qs, ks, vs, os,
-                                scale, s);
+    err = launch<__nv_bfloat16>(q, k, v, o, B, L, valid_len, H, D, DV, qs, ks,
+                                vs, os, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

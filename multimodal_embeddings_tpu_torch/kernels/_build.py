@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict = {}
 _loaded: dict = {}
 
 
@@ -87,8 +88,11 @@ def build(name: str) -> BuildInfo:
 
 def load(name: str):
     """The loaded library of ``csrc/<name>.cu`` and its ``BuildInfo``,
-    built on the first call in the process."""
+    built on the first call in the process. Different sources build
+    concurrently when loaded from several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _loaded:
             info = build(name)
             _loaded[name] = (ctypes.CDLL(str(info.path)), info)

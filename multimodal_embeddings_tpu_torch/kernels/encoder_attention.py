@@ -1,24 +1,35 @@
-"""Whole-row encoder attention (K1) for the two lane-folded call sites.
+"""Whole-row encoder attention (K1) for the page programs' three call sites.
 
 Replaces the Pallas TPU kernels of
 ``multimodal_embeddings_tpu/kernels/encoder_attention.py``:
 ``encoder_attention_blf`` (``_enc_attn_blf_kernel`` and its ``scratch``
-twin, same math) and ``encoder_attention_blf_packed``
-(``_enc_attn_blf_packed_kernel``). Both wrappers here launch ONE hand-written
-CUDA kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v
-through (batch, row, head) strides:
+twin, same math), ``encoder_attention_blf_packed``
+(``_enc_attn_blf_packed_kernel``) and ``encoder_attention`` /
+``encoder_attention_padded`` (``_enc_attn_kernel`` with its static
+``valid_len`` key mask). All three wrappers here launch ONE hand-written CUDA
+kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v through
+(batch, row, head) strides and attends over the key prefix
+``[0, valid_len)``:
 
 * ``encoder_attention_blf``: q/k/v are separate ``(B, L, H·D)`` slabs, head
   ``h`` at column ``h·D`` (the ViT's plain-matmul projections);
 * ``encoder_attention_blf_packed``: q/k/v are strided views of one
   ``(B, L, H·(2kd+hd))`` slab, per head ``[q(kd) | k(kd) | v(hd)]`` (the
-  detector PSA block's conv output, ultralytics channel order).
+  detector PSA block's conv output, ultralytics channel order);
+* ``encoder_attention``: ``(B, L, H, D)`` operands and a key prefix
+  ``valid_len`` (the Mllama vision tower: 1601 valid of 1608 rows). The JAX
+  ``encoder_attention_padded`` pads L to 16 for the TPU's sublanes; the
+  kernel takes any L, so this one wrapper stands for both.
 
 What bounds the kernel on an H100, and what its design does about it, is
 written at the top of the CUDA source. Numerics (both the kernel and the
 plain versions): f32 scores ``(q·k)·scale``, f32 ``exp(s − rowmax)`` and
 denominator, ``e`` cast to the input dtype before an f32-accumulated PV
 product, output ``/ max(denom, 1e-30)`` cast to the input dtype.
+
+Keys at or past ``valid_len`` are left out, which is what the TPU kernel's
+score of −1e30 comes to (its ``e`` is exactly 0 in f32); every row is still
+a query.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its kernel launches in
@@ -51,7 +62,7 @@ def _lib():
     lib.enc_attn_launch.argtypes = (
         [ctypes.c_int]
         + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 5
+        + [ctypes.c_int] * 6
         + strides * 4
         + [ctypes.c_float, ctypes.c_void_p]
     )
@@ -70,9 +81,11 @@ def build_info() -> _build.BuildInfo:
 # ---------------------------------------------------------------------------
 
 
-def _attend_plain(q, k, v, scale: float) -> torch.Tensor:
+def _attend_plain(q, k, v, scale: float, valid_len=None) -> torch.Tensor:
     """(B, H, L, D), (B, H, L, D), (B, H, L, Dv) → (B, H, L, Dv) in q's
-    dtype, with the module docstring's numerics."""
+    dtype, with the module docstring's numerics; keys ``[0, valid_len)``."""
+    if valid_len is not None:
+        k, v = k[..., :valid_len, :], v[..., :valid_len, :]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
@@ -118,6 +131,17 @@ def encoder_attention_blf_packed_reference(
     return _merge(_attend_plain(q, k, v, 1.0 / math.sqrt(key_dim)))
 
 
+def encoder_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len=None
+) -> torch.Tensor:
+    """Plain version of ``encoder_attention``."""
+    o = _attend_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        1.0 / math.sqrt(q.shape[3]), valid_len,
+    )
+    return o.transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -131,18 +155,19 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
             raise ValueError("q, k and v must share one device and dtype")
-        if t.dim() != 3 or t.stride(2) != 1:
+        if t.stride(-1) != 1:
             raise ValueError(
-                f"expected (B, L, F) with unit feature stride, got "
-                f"{tuple(t.shape)} strides {t.stride()}"
+                f"expected a unit feature stride, got {tuple(t.shape)} "
+                f"strides {t.stride()}"
             )
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype} (float32 or bfloat16)")
 
 
-def _launch(q, k, v, heads, d, dv, head_strides, scale) -> torch.Tensor:
+def _launch(q, k, v, heads, d, dv, head_strides, scale, valid_len) -> torch.Tensor:
     """One kernel launch: q/k/v are (B, L, ·) views with unit feature
-    stride; ``head_strides`` gives each operand's column offset per head."""
+    stride; ``head_strides`` gives each operand's column offset per head.
+    Returns ``(B, L, heads·dv)``."""
     b, l = q.shape[0], q.shape[1]
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {_MAX_DIM}")
@@ -160,7 +185,7 @@ def _launch(q, k, v, heads, d, dv, head_strides, scale) -> torch.Tensor:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.enc_attn_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, l, heads, d, dv, *args, scale, stream,
+        out.data_ptr(), b, l, heads, d, dv, valid_len, *args, scale, stream,
     )
     if err != 0:
         raise RuntimeError(f"encoder attention launch failed: cudaError {err}")
@@ -184,7 +209,7 @@ def encoder_attention_blf(
     if q.device.type == "cpu":
         return encoder_attention_blf_reference(q, k, v, heads)
     _check_cuda(q, k, v)
-    out = _launch(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d))
+    out = _launch(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d), l)
     encoder_attention_blf.launches += 1
     return out
 
@@ -212,10 +237,39 @@ def encoder_attention_blf_packed(
     k = qkv[..., key_dim : 2 * key_dim]
     v = qkv[..., 2 * key_dim :]
     out = _launch(
-        q, k, v, heads, key_dim, head_dim, (stride,) * 3, 1.0 / math.sqrt(key_dim)
+        q, k, v, heads, key_dim, head_dim, (stride,) * 3,
+        1.0 / math.sqrt(key_dim), l,
     )
     encoder_attention_blf_packed.launches += 1
     return out
 
 
 encoder_attention_blf_packed.launches = 0
+
+
+def encoder_attention(
+    q: torch.Tensor,  # (B, L, H, D)
+    k: torch.Tensor,  # (B, L, H, D)
+    v: torch.Tensor,  # (B, L, H, Dv)
+    valid_len=None,
+) -> torch.Tensor:
+    """Whole-row attention over the keys ``[0, valid_len)`` (all L when
+    None), scale ``1/√D``; every row is a query. Returns ``(B, L, H, Dv)``
+    in q's dtype."""
+    b, l, h, d = q.shape
+    if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != (b, l, h):
+        raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape}")
+    n = l if valid_len is None else valid_len
+    if not 1 <= n <= l:
+        raise ValueError(f"valid_len {valid_len} outside [1, {l}]")
+    if q.device.type == "cpu":
+        return encoder_attention_reference(q, k, v, valid_len)
+    _check_cuda(q, k, v)
+    dv = v.shape[3]
+    heads = (q.stride(2), k.stride(2), v.stride(2))
+    out = _launch(q, k, v, h, d, dv, heads, 1.0 / math.sqrt(d), n)
+    encoder_attention.launches += 1
+    return out.view(b, l, h, dv)
+
+
+encoder_attention.launches = 0

@@ -3,7 +3,9 @@
 Port of ``multimodal_embeddings_tpu/models/detector.py::LayoutDetector``'s
 construction: the DocLayout-YOLO network of a ``DetectorConfig`` with
 parameters from a JAX flat dict, a JAX ``.npz`` checkpoint
-(``config.weights_path``) or a seed, in ``dtype`` on ``device``. The page
+(``config.weights_path``) or a seed, in ``dtype`` on ``device`` (the card
+unless the caller asks for the CPU; asking for the card where there is none
+raises). The page
 program (``pipeline/fused.py``) runs it over all views of a page as one
 batch. The host-side per-image API (letterboxing, JSON regions, cache)
 is not ported yet.
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 
 from multimodal_embeddings_tpu_torch.config import DetectorConfig
-from multimodal_embeddings_tpu_torch.models.weights import Flat, load_params
+from multimodal_embeddings_tpu_torch.models.weights import Flat, load_params, resolve_device
 from multimodal_embeddings_tpu_torch.models.yolo import DocLayoutYOLO
 
 
@@ -27,13 +29,13 @@ class LayoutDetector:
         num_classes: int = 10,
         seed: int = 0,
         dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device="cuda",
         params: Optional[Flat] = None,
     ):
         self.config = config
         self.num_classes = num_classes
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         model = DocLayoutYOLO(num_classes, config.variant, glcrm=config.glcrm)
         load_params(model, seed, params, config.weights_path)
         self.model = model.to(self.device, dtype, memory_format=torch.channels_last).eval()

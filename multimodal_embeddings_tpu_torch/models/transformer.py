@@ -1,43 +1,75 @@
-"""Transformer primitives of the ViT tower, in PyTorch.
+"""Transformer primitives of the ViT and Mllama towers, in PyTorch.
 
-Port of ``multimodal_embeddings_tpu/models/transformer.py``'s
-``FastLayerNorm``, ``Attention`` (its ``_proj_blf`` form), ``GeluMLP`` and
-``EncoderBlock``. Dense weights are stored as the JAX package stores them,
-``(in, out)``, and applied as ``x @ W`` (``models/weights.py`` converts).
+Port of ``multimodal_embeddings_tpu/models/transformer.py``: ``RMSNorm``,
+``FastLayerNorm``, the RoPE tables, ``sdpa``, ``Attention``, ``SwiGLU``,
+``GeluMLP``, ``EncoderBlock``, ``GatedEncoderBlock``, ``LlamaBlock``,
+``CrossAttentionBlock`` and ``last_token_pool``. Dense weights are stored as
+the JAX package stores them, ``(in, out)`` with the JAX kernel's axes
+flattened, and applied as ``x @ W``; ``quantize`` swaps in the int8
+``Int8Dense`` (``models/quantized.py``). ``models/weights.py`` converts.
+
+Types follow the JAX modules: ``dtype`` is the compute type that norms
+cast their output to and int8 projections run in; a float Dense computes
+in its weight's type. Gates and norm scales are kept in f32 (see
+``models/quantized.py::storage_dtype``), so ``x + tanh(gate)·h`` promotes
+to f32 exactly where the JAX modules do.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from multimodal_embeddings_tpu_torch.kernels.encoder_attention import (
+    encoder_attention,
     encoder_attention_blf,
 )
+from multimodal_embeddings_tpu_torch.models.quantized import Int8Dense
+
+NEG_INF = -1e30
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense``: ``x @ weight (+ bias)``, weight ``(in, out)``."""
+    """``flax.linen.Dense``/``DenseGeneral`` with the contraction and output
+    axes flattened: ``x @ weight (+ bias)``, weight ``(in, out)``, computed
+    in the weight's dtype. ``kernel_shape`` is the JAX kernel's shape
+    (``(C, H, D)``, ``(H, D, C)``, …), which the weight bridge reads and
+    writes."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(
+        self, in_features: int, out_features: int, bias: bool = True, kernel_shape=None
+    ):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.kernel_shape = tuple(kernel_shape or (in_features, out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.t(), self.bias)
+        w = self.weight
+        b = None if self.bias is None else self.bias.to(w.dtype)
+        return F.linear(x.to(w.dtype), w.t(), b)
+
+
+def _dense(in_f, out_f, bias, kernel_shape, quantize, dtype):
+    if quantize:
+        return Int8Dense(in_f, out_f, bias=bias, dtype=dtype)
+    return Dense(in_f, out_f, bias=bias, kernel_shape=kernel_shape)
 
 
 class FastLayerNorm(nn.Module):
     """LayerNorm with the JAX fallback's arithmetic: f32 statistics by the
     one-pass formula ``var = max(mean(x²) − mean², 0)``, eps 1e-6, result
-    cast back to the input dtype (not ``F.layer_norm``'s two-pass
-    variance)."""
+    cast to ``dtype`` (the input's when None) — not ``F.layer_norm``'s
+    two-pass variance."""
 
-    def __init__(self, features: int, eps: float = 1e-6):
+    def __init__(self, features: int, eps: float = 1e-6, dtype=None):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -47,52 +79,281 @@ class FastLayerNorm(nn.Module):
         var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
         rstd = torch.rsqrt(var + self.eps)
         y = (xf - mean) * (rstd * self.scale.float()) + self.bias.float()
-        return y.to(x.dtype)
+        return y.to(self.dtype or x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """f32 ``x·rsqrt(mean(x²) + eps)·scale``, eps 1e-5, cast to ``dtype``
+    (the input's when None)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        normed = x32 * torch.rsqrt(var + self.eps)
+        return (normed * self.scale.float()).to(self.dtype or x.dtype)
+
+
+def rope_frequencies(head_dim: int, length: int, theta: float, device=None):
+    """Llama-3 RoPE tables ``(cos, sin)`` of shape ``(length, head_dim/2)``,
+    f32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv_freq = 1.0 / (theta**exponent)
+    t = torch.arange(length, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, L, H, D); rotate the halves ``(x[..., :D/2], x[..., D/2:])``."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos = cos[None, : x.shape[1], None, :]
+    sin = sin[None, : x.shape[1], None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sdpa(
+    q: torch.Tensor,  # (B, Lq, H, D)
+    k: torch.Tensor,  # (B, Lk, KVH, D)
+    v: torch.Tensor,  # (B, Lk, KVH, Dv)
+    mask: Optional[torch.Tensor] = None,  # bool, broadcast to (B, H, Lq, Lk)
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention with the JAX package's XLA-path numerics (``sdpa`` without
+    a kernel). KV head ``i`` serves query heads ``i·rep … i·rep+rep−1``.
+
+    bf16: logits are rounded to bf16, masked with −1e30, divided by √D in
+    f32; ``e`` is rounded to bf16 BEFORE both the f32 denominator and the
+    f32-accumulated PV product. f32: softmax of the scaled, masked logits,
+    then PV. (K1's contract differs: its denominator sums the unrounded
+    ``e``.)"""
+    h, d = q.shape[2], q.shape[3]
+    if k.shape[2] != h:
+        rep = h // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    lq, lk = q.shape[1], k.shape[1]
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k)
+    if q.dtype == torch.bfloat16:
+        if causal:
+            keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
+            logits = logits.masked_fill(~keep, NEG_INF)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, NEG_INF)
+        lf = logits.float() / math.sqrt(d)
+        p16 = torch.exp(lf - lf.amax(dim=-1, keepdim=True)).to(v.dtype)
+        denom = p16.float().sum(dim=-1)  # (B, H, Lq)
+        out = torch.einsum("bhlm,bmhd->blhd", p16.float(), v.float())
+        return (out / denom.transpose(1, 2)[..., None]).to(v.dtype)
+    logits = logits.float() / math.sqrt(d)
+    if causal:
+        keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhlm,bmhd->blhd", probs, v)
 
 
 class Attention(nn.Module):
-    """Unmasked multi-head self-attention: plain ``(B, L, C) @ (C, H·D)``
-    projections, the K1 kernel on the ``(B, L, H·D)`` slabs, and
-    ``(B, L, H·D) @ (H·D, C)`` out. Every length goes through K1 (the JAX
-    package's [256, 1664] window and ``% 16`` gate are TPU VMEM limits)."""
+    """Multi-head attention with optional GQA, RoPE, q/k RMSNorm and a
+    separate kv input. Self-attention with none of those runs on K1: over
+    all keys through ``encoder_attention_blf`` on the ``(B, L, H·D)``
+    projections (the ViT), over a key prefix ``key_valid_len`` through
+    ``encoder_attention`` (the Mllama vision tower's 1601 of 1608). Every
+    length goes to K1 (the JAX package's [256, 1664] window and ``% 16``
+    gate are TPU VMEM rules). Everything else runs ``sdpa``; a key prefix
+    is only taken on the K1 path."""
 
-    def __init__(self, width: int, num_heads: int, head_dim: int):
+    def __init__(
+        self,
+        width: int,
+        num_heads: int,
+        head_dim: int,
+        num_kv_heads: Optional[int] = None,
+        use_rope: bool = False,
+        use_qk_norm: bool = False,
+        rope_theta: float = 500000.0,
+        quantize: bool = False,
+        dtype=None,
+    ):
         super().__init__()
         self.num_heads = num_heads
-        inner = num_heads * head_dim
-        self.q = nn.Parameter(torch.empty(width, inner))
-        self.k = nn.Parameter(torch.empty(width, inner))
-        self.v = nn.Parameter(torch.empty(width, inner))
-        self.o = nn.Parameter(torch.empty(inner, width))
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = head_dim
+        self.use_rope = use_rope
+        self.use_qk_norm = use_qk_norm
+        self.rope_theta = rope_theta
+        h, kvh, d = num_heads, self.num_kv_heads, head_dim
+        self.q = _dense(width, h * d, False, (width, h, d), quantize, dtype)
+        self.k = _dense(width, kvh * d, False, (width, kvh, d), quantize, dtype)
+        self.v = _dense(width, kvh * d, False, (width, kvh, d), quantize, dtype)
+        self.o = _dense(h * d, width, False, (h, d, width), quantize, dtype)
+        if use_qk_norm:
+            self.q_norm = RMSNorm(d, dtype=dtype)
+            self.k_norm = RMSNorm(d, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q = x @ self.q
-        k = x @ self.k
-        v = x @ self.v
-        o = encoder_attention_blf(q, k, v, heads=self.num_heads)
-        return o @ self.o
+    def forward(
+        self,
+        x: torch.Tensor,
+        kv: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        causal: bool = False,
+        key_valid_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        b, l, _ = x.shape
+        h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        src = x if kv is None else kv
+        q, k, v = self.q(x), self.k(src), self.v(src)
+        if (
+            kv is None and mask is None and not causal and kvh == h
+            and not self.use_rope and not self.use_qk_norm
+        ):
+            if key_valid_len is None or key_valid_len >= l:
+                o = encoder_attention_blf(q, k, v, heads=h)
+            else:
+                o = encoder_attention(
+                    q.view(b, l, h, d), k.view(b, l, h, d), v.view(b, l, h, d),
+                    valid_len=key_valid_len,
+                ).reshape(b, l, h * d)
+            return self.o(o)
+        q = q.view(b, l, h, d)
+        k = k.view(b, -1, kvh, d)
+        v = v.view(b, -1, kvh, d)
+        if self.use_qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.use_rope:
+            cos, sin = rope_frequencies(d, max(l, k.shape[1]), self.rope_theta, x.device)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        o = sdpa(q, k, v, mask=mask, causal=causal)
+        return self.o(o.reshape(b, l, h * d))
 
 
 class GeluMLP(nn.Module):
-    def __init__(self, width: int, hidden: int):
+    def __init__(self, width: int, hidden: int, quantize: bool = False, dtype=None):
         super().__init__()
-        self.fc1 = Dense(width, hidden)
-        self.fc2 = Dense(hidden, width)
+        self.fc1 = _dense(width, hidden, True, None, quantize, dtype)
+        self.fc2 = _dense(hidden, width, True, None, quantize, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+class SwiGLU(nn.Module):
+    def __init__(self, width: int, hidden: int, quantize: bool = False, dtype=None):
+        super().__init__()
+        self.gate = _dense(width, hidden, False, None, quantize, dtype)
+        self.up = _dense(width, hidden, False, None, quantize, dtype)
+        self.down = _dense(hidden, width, False, None, quantize, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
 
-    def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(
+        self, width: int, num_heads: int, mlp_ratio: float = 4.0,
+        quantize: bool = False, dtype=None,
+    ):
         super().__init__()
-        self.ln1 = FastLayerNorm(width)
-        self.attn = Attention(width, num_heads, width // num_heads)
-        self.ln2 = FastLayerNorm(width)
-        self.mlp = GeluMLP(width, int(width * mlp_ratio))
+        self.ln1 = FastLayerNorm(width, dtype=dtype)
+        self.attn = Attention(
+            width, num_heads, width // num_heads, quantize=quantize, dtype=dtype
+        )
+        self.ln2 = FastLayerNorm(width, dtype=dtype)
+        self.mlp = GeluMLP(width, int(width * mlp_ratio), quantize, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, mask=None, key_valid_len=None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask=mask, key_valid_len=key_valid_len)
         return x + self.mlp(self.ln2(x))
+
+
+class GatedEncoderBlock(nn.Module):
+    """Mllama global-transformer layer: ``x += tanh(gate_attn)·attn`` and
+    ``x += tanh(gate_ffn)·mlp``."""
+
+    def __init__(
+        self, width: int, num_heads: int, mlp_ratio: float = 4.0,
+        quantize: bool = False, dtype=None,
+    ):
+        super().__init__()
+        self.gate_attn = nn.Parameter(torch.zeros(1))
+        self.gate_ffn = nn.Parameter(torch.zeros(1))
+        self.ln1 = FastLayerNorm(width, dtype=dtype)
+        self.attn = Attention(
+            width, num_heads, width // num_heads, quantize=quantize, dtype=dtype
+        )
+        self.ln2 = FastLayerNorm(width, dtype=dtype)
+        self.mlp = GeluMLP(width, int(width * mlp_ratio), quantize, dtype)
+
+    def forward(self, x, mask=None, key_valid_len=None) -> torch.Tensor:
+        h = self.attn(self.ln1(x), mask=mask, key_valid_len=key_valid_len)
+        x = x + torch.tanh(self.gate_attn) * h
+        return x + torch.tanh(self.gate_ffn) * self.mlp(self.ln2(x))
+
+
+class LlamaBlock(nn.Module):
+    """Llama-3 decoder block: RMSNorm + causal GQA-RoPE attention + SwiGLU."""
+
+    def __init__(
+        self, width: int, num_heads: int, num_kv_heads: int, head_dim: int,
+        mlp_hidden: int, rope_theta: float = 500000.0, quantize: bool = False,
+        dtype=None,
+    ):
+        super().__init__()
+        self.attn_norm = RMSNorm(width, dtype=dtype)
+        self.attn = Attention(
+            width, num_heads, head_dim, num_kv_heads, use_rope=True,
+            rope_theta=rope_theta, quantize=quantize, dtype=dtype,
+        )
+        self.mlp_norm = RMSNorm(width, dtype=dtype)
+        self.mlp = SwiGLU(width, mlp_hidden, quantize, dtype)
+
+    def forward(self, x, mask=None) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), mask=mask, causal=True)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class CrossAttentionBlock(nn.Module):
+    """Mllama gated cross-attention block: the text stream attends to the
+    vision states through tanh-gated residuals."""
+
+    def __init__(
+        self, width: int, num_heads: int, num_kv_heads: int, head_dim: int,
+        mlp_hidden: int, quantize: bool = False, dtype=None,
+    ):
+        super().__init__()
+        self.attn_gate = nn.Parameter(torch.zeros(1))
+        self.mlp_gate = nn.Parameter(torch.zeros(1))
+        self.attn_norm = RMSNorm(width, dtype=dtype)
+        self.cross_attn = Attention(
+            width, num_heads, head_dim, num_kv_heads, use_qk_norm=True,
+            quantize=quantize, dtype=dtype,
+        )
+        self.mlp_norm = RMSNorm(width, dtype=dtype)
+        self.mlp = SwiGLU(width, mlp_hidden, quantize, dtype)
+
+    def forward(self, x, vision_states, cross_mask=None) -> torch.Tensor:
+        h = self.cross_attn(self.attn_norm(x), kv=vision_states, mask=cross_mask)
+        x = x + torch.tanh(self.attn_gate) * h
+        return x + torch.tanh(self.mlp_gate) * self.mlp(self.mlp_norm(x))
+
+
+def last_token_pool(
+    hidden: torch.Tensor, attention_mask: torch.Tensor, normalize: bool = True
+) -> torch.Tensor:
+    """The mmE5 embedding contract: the hidden state at index
+    ``sum(attention_mask) − 1`` of each row, optionally L2-normalised."""
+    idx = attention_mask.sum(dim=1).long() - 1
+    pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    if normalize:
+        pooled = pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    return pooled

@@ -11,12 +11,21 @@ scope path:
   ``mean``/``var`` batch stats) folded into one weight and bias, eps 1e-3
   (the formula of ``layers.py::_FoldedConvBn``);
 * ``DenseGeneral`` ``(C, H, D)`` → ``(C, H·D)``; out projection
-  ``(H, D, C)`` → ``(H·D, C)``;
-* ``Dense``, LayerNorm, ``pos_embed`` and biases as they are.
+  ``(H, D, C)`` → ``(H·D, C)`` (each port ``Dense`` keeps the JAX
+  kernel's shape);
+* ``Dense``, LayerNorm, RMSNorm, ``pos_embed``, gates, tile tables,
+  ``Embed/embedding``, biases and the int8 ``kernel_q``/``kernel_scale``
+  leaves of a quantized tree as they are (a parameter the bridge has no
+  rule for is read under its own path).
 
 Every port parameter must be filled and every JAX key under the prefix
 used, with matching shapes, or the load raises. ``export_jax_params`` is the
 inverse, with BatchNorm exported as an identity around the folded conv.
+
+``build_mme5`` makes the mmE5 model straight on its device: parameters are
+materialized there in their storage types (``models/quantized.py``) and
+filled from a JAX tree or with seeded synthetic values, so the 11B tree
+never passes through the host.
 """
 
 from __future__ import annotations
@@ -29,11 +38,12 @@ import torch
 from torch import nn
 
 from multimodal_embeddings_tpu_torch.models.layers import BN_EPS, ConvBnAct
-from multimodal_embeddings_tpu_torch.models.transformer import (
-    Attention,
-    Dense,
-    FastLayerNorm,
+from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig, MmE5Embedder
+from multimodal_embeddings_tpu_torch.models.quantized import (
+    materialize,
+    synthetic_int8_init,
 )
+from multimodal_embeddings_tpu_torch.models.transformer import Dense, FastLayerNorm
 
 Flat = Dict[str, np.ndarray]
 
@@ -111,11 +121,17 @@ def _load_conv_bn(m: ConvBnAct, path: str, read: _Reader) -> None:
 
 def _load_conv(m: nn.Conv2d, path: str, read: _Reader) -> None:
     _set(m.weight, _hwio_to_oihw(read("params", _join(path, "kernel"))), path)
-    _set(m.bias, read("params", _join(path, "bias")), path)
+    if m.bias is not None:
+        _set(m.bias, read("params", _join(path, "bias")), path)
 
 
 def _load_dense(m: Dense, path: str, read: _Reader) -> None:
-    _set(m.weight, read("params", _join(path, "kernel")), path)
+    k = read("params", _join(path, "kernel"))
+    if tuple(k.shape) != m.kernel_shape:
+        raise ValueError(
+            f"shape mismatch at {path}: port {m.kernel_shape} vs JAX {tuple(k.shape)}"
+        )
+    _set(m.weight, k.reshape(m.weight.shape), path)
     if m.bias is not None:
         _set(m.bias, read("params", _join(path, "bias")), path)
 
@@ -125,20 +141,11 @@ def _load_ln(m: FastLayerNorm, path: str, read: _Reader) -> None:
     _set(m.bias, read("params", _join(path, "bias")), path)
 
 
-def _load_attention(m: Attention, path: str, read: _Reader) -> None:
-    for name in ("q", "k", "v"):
-        k = read("params", _join(path, name, "kernel"))  # (C, H, D)
-        _set(getattr(m, name), k.reshape(k.shape[0], -1), _join(path, name))
-    o = read("params", _join(path, "o/kernel"))  # (H, D, C)
-    _set(m.o, o.reshape(-1, o.shape[-1]), _join(path, "o"))
-
-
 _LOADERS: Dict[type, Callable] = {
     ConvBnAct: _load_conv_bn,
     nn.Conv2d: _load_conv,
     Dense: _load_dense,
     FastLayerNorm: _load_ln,
-    Attention: _load_attention,
 }
 
 
@@ -174,15 +181,16 @@ def load_jax_params(module: nn.Module, flat: Flat, prefix: str = "") -> nn.Modul
 
 
 def export_jax_params(module: nn.Module, prefix: str = "") -> Flat:
-    """The port's parameters as a JAX ``flatten_params`` dict (f32 numpy).
-    Folded convs export with an identity BatchNorm (mean 0, var 1, scale
-    ``sqrt(1 + eps)``), so ``load_jax_params`` of the result reproduces the
-    module exactly."""
+    """The port's parameters as a JAX ``flatten_params`` dict (numpy: f32
+    floats, int8 as int8). Folded convs export with an identity BatchNorm
+    (mean 0, var 1, scale ``sqrt(1 + eps)``), so ``load_jax_params`` of the
+    result reproduces the module exactly."""
     flat: Flat = {}
 
     def put(collection, path, value):
         key = "/".join(filter(None, [collection, prefix, path]))
-        flat[key] = value.detach().float().cpu().numpy()
+        value = value.detach().cpu()
+        flat[key] = (value.float() if value.is_floating_point() else value).numpy()
 
     def visit(obj, path):
         if isinstance(obj, nn.Parameter):
@@ -200,20 +208,15 @@ def export_jax_params(module: nn.Module, prefix: str = "") -> Flat:
         elif isinstance(obj, nn.Conv2d):
             put("params", _join(path, "kernel"),
                 torch.from_numpy(_oihw_to_hwio(obj.weight.detach().float().cpu().numpy())))
-            put("params", _join(path, "bias"), obj.bias)
-        elif isinstance(obj, Dense):
-            put("params", _join(path, "kernel"), obj.weight)
             if obj.bias is not None:
                 put("params", _join(path, "bias"), obj.bias)
-        elif isinstance(obj, FastLayerNorm):
+        elif isinstance(obj, Dense):
+            put("params", _join(path, "kernel"), obj.weight.reshape(obj.kernel_shape))
+            if obj.bias is not None:
+                put("params", _join(path, "bias"), obj.bias)
+        else:  # FastLayerNorm
             put("params", _join(path, "scale"), obj.scale)
             put("params", _join(path, "bias"), obj.bias)
-        else:  # Attention
-            h = obj.num_heads
-            for name in ("q", "k", "v"):
-                w = getattr(obj, name)
-                put("params", _join(path, name, "kernel"), w.reshape(w.shape[0], h, -1))
-            put("params", _join(path, "o/kernel"), obj.o.reshape(h, -1, obj.o.shape[1]))
 
     _walk(module, "", visit)
     return flat
@@ -225,7 +228,8 @@ def init_random(module: nn.Module, seed: int = 0) -> nn.Module:
     LeCun-normal with zero bias (folded BatchNorm at its init stats), Dense
     and attention ``N(0, 0.02)``, LayerNorm ones/zeros, ``pos_embed``
     ``N(0, 0.02)``. Runs on the CPU in f32, so every device and dtype
-    starts from the same values."""
+    starts from the same values. (The mmE5 model draws on its own device
+    instead: ``build_mme5``.)"""
     gen = torch.Generator().manual_seed(seed)
 
     def normal(t: torch.Tensor, std: float) -> None:
@@ -248,12 +252,9 @@ def init_random(module: nn.Module, seed: int = 0) -> nn.Module:
             normal(obj.weight, 0.02)
             if obj.bias is not None:
                 nn.init.zeros_(obj.bias)
-        elif isinstance(obj, FastLayerNorm):
+        else:  # FastLayerNorm
             nn.init.ones_(obj.scale)
             nn.init.zeros_(obj.bias)
-        else:  # Attention
-            for name in ("q", "k", "v", "o"):
-                normal(getattr(obj, name), 0.02)
 
     module.float()
     _walk(module, "", visit)
@@ -271,3 +272,31 @@ def load_params(
     if params is None:
         return init_random(module, seed)
     return load_jax_params(module.float(), params, prefix)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. Asking for CUDA where there is no
+    CUDA device raises: an engine never lands on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
+def build_mme5(
+    config: MllamaConfig, dtype: torch.dtype, device, seed: int = 0,
+    params: Optional[Flat] = None, weights_path: Optional[str] = None,
+) -> MmE5Embedder:
+    """The mmE5 model on ``device``, computing in ``dtype``, its parameters
+    from a JAX flat dict, else a JAX ``.npz`` checkpoint, else
+    ``synthetic_int8_init(seed)`` drawn on ``device``."""
+    with torch.device("meta"):
+        model = MmE5Embedder(config, dtype)
+    materialize(model, device, dtype)
+    if params is None and weights_path:
+        params = load_npz(weights_path)
+    if params is None:
+        synthetic_int8_init(model, seed)
+    else:
+        load_jax_params(model, params)
+    return model.eval()

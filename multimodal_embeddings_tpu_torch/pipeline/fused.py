@@ -10,12 +10,15 @@ device:
 3. per-view boxes to page coordinates, the internal-edge filter, the
    class-aware cross-view NMS over the strongest candidates, and the top-K
    regions by score;
-4. the K regions cropped from the full page and embedded by the ViT tower.
+4. the K regions cropped from the full page and embedded: by the ViT tower
+   (siglip), or CLIP-normalised and embedded single-tile by the mmE5 model
+   with the prompt (mme5).
 
 PyTorch runs eagerly, so the JAX package's program-shaping arguments
-(``closure_weights``, ``embed_closure``, ``auto_layouts``) have no
-counterpart. The letterboxed views, the mme5 family (``embed_tiles``,
-``text_chunk``) and the multi-page batch functions are not ported yet.
+(``closure_weights``, ``embed_closure``, ``auto_layouts``) and its XLA cost
+analysis have no counterpart. The letterboxed views, the mme5 family's
+decoupled ``text_chunk`` and 4-tile ``embed_tiles`` paths and the multi-page
+batch functions are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
 from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
 from multimodal_embeddings_tpu_torch.models.yolo_decode import (
     decode_predictions,
     top_k,
@@ -184,18 +188,27 @@ def build_split_page_fn(
 ):
     """``fn(page_uint8) → PageResult``: one detect+crop call, then the
     crops embedded ``embed_chunk`` at a time (the serving split; the
-    headline runs ``embed_chunk = num_regions``). The two halves are
-    exposed as ``fn.detect(page)`` and ``fn.embed(crops)``."""
+    headline runs ``embed_chunk = num_regions``, the mme5 page 8). The two
+    halves are exposed as ``fn.detect(page)`` and ``fn.embed(crops)``; the
+    mme5 family normalises crops with the CLIP mean and std first."""
     if num_regions % embed_chunk:
         raise ValueError(f"embed_chunk {embed_chunk} must divide {num_regions}")
     detect_fn = build_fused_detect_fn(
         detector, page_hw, num_regions, embedder.image_size,
         letterbox=letterbox, edge_filter=edge_filter,
     )
+    normalise = embedder.config.family == "mme5"
+    mean = torch.tensor(IMAGE_MEAN, device=embedder.device)
+    std = torch.tensor(IMAGE_STD, device=embedder.device)
+
+    def embed_chunk_fn(crops: torch.Tensor) -> torch.Tensor:
+        if normalise:
+            crops = (crops - mean.to(crops.dtype)) / std.to(crops.dtype)
+        return embedder.encode_image(crops)
 
     def embed(crops: torch.Tensor) -> torch.Tensor:
         return torch.cat([
-            embedder.encode_image(crops[i : i + embed_chunk])
+            embed_chunk_fn(crops[i : i + embed_chunk])
             for i in range(0, num_regions, embed_chunk)
         ])
 

@@ -11,7 +11,7 @@ from multimodal_embeddings_tpu_torch import config as tconfig
 
 LEFT_OUT = {
     "DetectorConfig": {"s2d_stem", "pallas_convs", "pallas_mode", "device_letterbox"},
-    "EmbedderConfig": {"quantize"},
+    "EmbedderConfig": set(),
 }
 
 

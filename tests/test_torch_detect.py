@@ -57,11 +57,11 @@ def test_doclayout_yolo_head_maps(monkeypatch):
     # parameters in the JAX layout from the port's seeded init (JAX's own
     # init of this model costs ~15 s of eager tracing here)
     flat = randomize_norms(
-        export_jax_params(LayoutDetector(cfg, dtype=torch.float32).model)
+        export_jax_params(LayoutDetector(cfg, dtype=torch.float32, device="cpu").model)
     )
     jmodel = jyolo.DocLayoutYOLO(num_classes=10, variant="n", glcrm=True)
     want = jax.jit(jmodel.apply)(unflatten_params(flat), jnp.asarray(images))
-    det = LayoutDetector(cfg, dtype=torch.float32, params=flat)
+    det = LayoutDetector(cfg, dtype=torch.float32, device="cpu", params=flat)
     with torch.no_grad():
         got = det.model(torch.from_numpy(images))
     assert len(got) == len(want) == 3

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from multimodal_embeddings_tpu.kernels.encoder_attention import (
     encoder_attention_blf as jax_blf,
     encoder_attention_blf_packed as jax_blf_packed,
+    encoder_attention_padded as jax_padded,
 )
 from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
 
@@ -72,6 +73,38 @@ def test_plain_bf16_matches_pallas_bf16():
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want.astype(jnp.float32)), atol=2**-8
     )
+
+
+@pytest.mark.parametrize("l,valid_len,dv", [(21, 17, 16), (40, 33, 24), (40, 1, 16)])
+def test_masked_plain_matches_pallas_padded(l, valid_len, dv):
+    """The Mllama key prefix: JAX pads L to 16 and masks keys past
+    valid_len with −1e30; the port leaves them out. Every row, padded or
+    not, is a query on both sides."""
+    q, k = _randn(11, (2, l, 3, 16)), _randn(12, (2, l, 3, 16))
+    v = _randn(13, (2, l, 3, dv))
+    want = jax_padded(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      valid_len=valid_len, interpret=True)
+    got = k1.encoder_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                               valid_len=valid_len)
+    assert got.shape == (2, l, 3, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_masked_wrapper_checks():
+    q = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError):
+        k1.encoder_attention(q, q, q, valid_len=0)
+    with pytest.raises(ValueError):
+        k1.encoder_attention(q, q, q, valid_len=9)
+    with pytest.raises(ValueError):
+        k1.encoder_attention(q, q[:, :7], q, valid_len=4)
+    before = k1.encoder_attention.launches
+    full = k1.encoder_attention(q + 1, q, q + 2)
+    assert k1.encoder_attention.launches == before  # CPU: plain version
+    torch.testing.assert_close(full, torch.full_like(q, 2.0))
+    with pytest.raises(ValueError):
+        m = q.to("meta")
+        k1.encoder_attention(m, m, m, valid_len=4)
 
 
 def test_launch_counter_counts_only_kernel_launches():

@@ -1,6 +1,7 @@
 """The page program as a whole: the port's ``build_split_page_fn`` against
 the JAX package's, at the tiny detector of ``tests/test_fused.py`` (variant
-n, 128 px, full page + 2×2 views) and an L=256 ViT, in f32 on the CPU.
+n, 128 px, full page + 2×2 views) with an L=256 ViT (siglip) and with the
+tiny int8-mixed mmE5 model on 28 px crops (mme5), in f32 on the CPU.
 
 With random weights every detection score lies within ~1e-5 of 0.5, closer
 than the float32 differences between two frameworks, so which of several
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 
 from multimodal_embeddings_tpu.config import DetectorConfig as JDetectorConfig
 from multimodal_embeddings_tpu.config import EmbedderConfig as JEmbedderConfig
+from multimodal_embeddings_tpu.models import mme5 as jm
 from multimodal_embeddings_tpu.models.embedder import MultimodalEmbedder as JEmbedder
 from multimodal_embeddings_tpu.models.vision_encoder import DualEncoderConfig as JDual
 from multimodal_embeddings_tpu.models.vision_encoder import VisionConfig as JVision
@@ -32,6 +34,7 @@ from multimodal_embeddings_tpu.pipeline import fused as jfused
 from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
 from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
 from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
 from multimodal_embeddings_tpu_torch.models.vision_encoder import (
     DualEncoderConfig,
     VisionConfig,
@@ -59,7 +62,7 @@ def both():
         mp.setenv("MMTPU_ENC_ATTN_BLF_INTERPRET", "1")
         mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
         det_flat = export_jax_params(
-            LayoutDetector(DetectorConfig(**DET), dtype=torch.float32, seed=0).model
+            LayoutDetector(DetectorConfig(**DET), dtype=torch.float32, device="cpu", seed=0).model
         )
         jdet = SimpleNamespace(
             config=JDetectorConfig(**DET),
@@ -81,10 +84,13 @@ def both():
         )
         jmaps = jdet.model.apply(jdet.variables, jnp.asarray(jviews))
 
-    tdet = LayoutDetector(DetectorConfig(**DET), dtype=torch.float32, params=det_flat)
+    tdet = LayoutDetector(
+        DetectorConfig(**DET), dtype=torch.float32, device="cpu", params=det_flat
+    )
     temb = MultimodalEmbedder(
         EmbedderConfig(family="siglip", dtype="float32"),
         model_config=DualEncoderConfig(vision=VisionConfig(**VIT), embed_dim=64),
+        device="cpu",
         params=flatten_params(jemb.variables),
     )
     tfn = tfused.build_split_page_fn(tdet, temb, PAGE_HW, num_regions=K, embed_chunk=4)
@@ -151,3 +157,53 @@ def test_split_halves_compose(both):
     torch.testing.assert_close(both.tfn.embed(crops), both.tres.embeddings, rtol=0, atol=0)
     with pytest.raises(ValueError):
         tfused.build_split_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K, embed_chunk=3)
+
+
+@pytest.fixture(scope="module")
+def mme5(both):
+    """The mme5 branch of both page programs on the same page and detector:
+    the JAX engine's synthetic int8-mixed tree bridged into the port."""
+    jemb = JEmbedder(
+        JEmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
+        model_config=jm.MllamaConfig.tiny(),
+    )
+    jdet = SimpleNamespace(
+        config=JDetectorConfig(**DET),
+        model=JYolo(num_classes=10, variant="n", glcrm=True, dtype=jnp.float32),
+        variables=unflatten_params(export_jax_params(both.tdet.model)),
+    )
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        jfn = jfused.build_split_page_fn(jdet, jemb, PAGE_HW, num_regions=K, embed_chunk=4)
+        jres = [np.array(x) for x in jfn(jnp.asarray(both.page))]
+        jdetect = jfused.build_fused_detect_fn(jdet, PAGE_HW, num_regions=K, emb_size=28)
+        jcrops = np.array(jdetect(jnp.asarray(both.page))[4])
+    temb = MultimodalEmbedder(
+        EmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
+        model_config=MllamaConfig.tiny(), device="cpu", params=flatten_params(jemb.variables),
+    )
+    tfn = tfused.build_split_page_fn(both.tdet, temb, PAGE_HW, num_regions=K, embed_chunk=4)
+    return SimpleNamespace(jres=jres, jcrops=jcrops, tfn=tfn,
+                           tres=tfn(torch.from_numpy(both.page)))
+
+
+def test_mme5_output_contract(mme5):
+    r = mme5.tres
+    assert [tuple(x.shape) for x in r] == [tuple(x.shape) for x in mme5.jres]
+    assert r.embeddings.shape == (K, 64)
+    assert int(r.valid.sum()) == int(mme5.jres[3].sum())
+    np.testing.assert_allclose(r.embeddings.norm(dim=-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_mme5_embeddings_of_jax_crops(mme5):
+    """CLIP-normalised, then the prompt and the crop through the tiny
+    int8-mixed model, chunk by chunk: 1e-5 absolute on unit vectors."""
+    assert mme5.jcrops.shape == (K, 28, 28, 3)
+    got = mme5.tfn.embed(torch.from_numpy(mme5.jcrops))
+    np.testing.assert_allclose(got.numpy(), mme5.jres[4], atol=1e-5)
+
+
+def test_mme5_sorted_top_k_scores(mme5):
+    """The detect half is the siglip page's: same scores (see above)."""
+    np.testing.assert_allclose(np.sort(mme5.tres.scores.numpy()), np.sort(mme5.jres[1]),
+                               rtol=0, atol=2e-7)

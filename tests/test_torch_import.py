@@ -45,6 +45,8 @@ def test_module_list_covers_the_slice():
         "models.vision_encoder", "models.layers", "models.yolo", "models.yolo_decode",
         "models.weights", "models.detector", "models.embedder", "ops.iou", "ops.nms",
         "ops.edge_filter", "ops.grid", "ops.image", "pipeline.fused", "config",
+        "kernels.quantization", "models.quantized", "models.mme5",
+        "models.mllama_processor", "models.tokenizer",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 

@@ -103,7 +103,8 @@ def test_embedder_takes_the_dual_encoders_vision_scope():
     want = dual.apply(unflatten_params(flat), jnp.asarray(images), method=dual.encode_image)
     port_cfg = tve.DualEncoderConfig(vision=tve.VisionConfig(**VIT), embed_dim=32)
     embedder = MultimodalEmbedder(
-        EmbedderConfig(family="siglip", dtype="float32"), model_config=port_cfg, params=flat
+        EmbedderConfig(family="siglip", dtype="float32"), model_config=port_cfg,
+        device="cpu", params=flat,
     )
     got = embedder.encode_image(torch.from_numpy(images))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

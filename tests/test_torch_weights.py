@@ -1,6 +1,8 @@
 """The parameter bridge between the JAX package and the port, and the
 port's seeded init."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -11,17 +13,21 @@ from flax.linen import unbox
 import jax.numpy as jnp
 
 from multimodal_embeddings_tpu.models import layers as jl
+from multimodal_embeddings_tpu.models import mme5 as jm
 from multimodal_embeddings_tpu.models import transformer as jtr
 from multimodal_embeddings_tpu.models import vision_encoder as jve
 from multimodal_embeddings_tpu.models import yolo as jyolo
 from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
-from multimodal_embeddings_tpu_torch.config import DetectorConfig
+from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
 from multimodal_embeddings_tpu_torch.models import layers as tl
+from multimodal_embeddings_tpu_torch.models import mme5 as tm
 from multimodal_embeddings_tpu_torch.models import transformer as ttr
 from multimodal_embeddings_tpu_torch.models import vision_encoder as tve
 from multimodal_embeddings_tpu_torch.models import yolo as tyolo
 from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
 from multimodal_embeddings_tpu_torch.models.weights import (
+    build_mme5,
     export_jax_params,
     init_random,
     load_jax_params,
@@ -85,8 +91,12 @@ def test_attention_weights_reshape():
     x = jnp.zeros((1, 16, 64))
     flat = flatten_params(unbox(jtr.Attention(num_heads=4, head_dim=16).init(jax.random.PRNGKey(0), x)))
     port = load_jax_params(ttr.Attention(64, 4, 16), flat)
-    np.testing.assert_array_equal(port.q.detach().numpy(), flat["params/q/kernel"].reshape(64, 64))
-    np.testing.assert_array_equal(port.o.detach().numpy(), flat["params/o/kernel"].reshape(64, 64))
+    np.testing.assert_array_equal(
+        port.q.weight.detach().numpy(), flat["params/q/kernel"].reshape(64, 64)
+    )
+    np.testing.assert_array_equal(
+        port.o.weight.detach().numpy(), flat["params/o/kernel"].reshape(64, 64)
+    )
 
 
 def test_round_trip_is_exact():
@@ -143,15 +153,93 @@ def test_npz_checkpoint_and_engine_dtype(tmp_path):
     ``DetectorConfig.weights_path``; the engine casts to its dtype and keeps
     convolution weights channels_last."""
     cfg = DetectorConfig(image_size=64, variant="n")
-    flat = export_jax_params(LayoutDetector(cfg, dtype=torch.float32, seed=3).model)
+    flat = export_jax_params(LayoutDetector(cfg, dtype=torch.float32, device="cpu", seed=3).model)
     path = tmp_path / "det.npz"
     np.savez(path, **flat)
     from_path = LayoutDetector(
         DetectorConfig(image_size=64, variant="n", weights_path=str(path)),
         dtype=torch.bfloat16,
+        device="cpu",
     )
-    from_flat = LayoutDetector(cfg, dtype=torch.bfloat16, params=flat)
+    from_flat = LayoutDetector(cfg, dtype=torch.bfloat16, device="cpu", params=flat)
     for a, b in zip(from_path.model.parameters(), from_flat.model.parameters()):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
     w = from_flat.model.backbone.stem.conv.weight
     assert w.is_contiguous(memory_format=torch.channels_last)
+
+
+def _mme5_full_width(quantize):
+    """The 11B widths at a depth the test can trace: vision 2 local + 1
+    global layers, text 2 layers with cross-attention at 1."""
+    def cut(cfg):
+        return dataclasses.replace(
+            cfg,
+            vision=dataclasses.replace(cfg.vision, layers=2, global_layers=1,
+                                       intermediate_layers=(0, 1)),
+            text=dataclasses.replace(cfg.text, layers=2, cross_attn_layers=(1,)),
+            quantize=quantize,
+        )
+    return cut(jm.MllamaConfig.mme5_11b()), cut(tm.MllamaConfig.mme5_11b())
+
+
+@pytest.mark.parametrize("quantize", [False, "int8-mixed", True])
+def test_mme5_key_set_and_shapes_match_jax(quantize):
+    """At the 11B widths: every JAX leaf has a port home of its JAX shape
+    (abstract JAX init; the port on the meta device, read through the
+    bridge's own shape rules)."""
+    jcfg, tcfg = _mme5_full_width(quantize)
+    ids = jnp.zeros((1, 8), jnp.int32)
+    want = _shapes(jax.eval_shape(
+        jm.MmE5Embedder(jcfg).init, jax.random.PRNGKey(0), ids, jnp.ones_like(ids),
+        jnp.zeros((1, 1, 560, 560, 3)),
+    ))
+    with torch.device("meta"):
+        port = tm.MmE5Embedder(tcfg)
+    got = {}
+    for name, mod in port.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            shape = tuple(p.shape)
+            if isinstance(mod, ttr.Dense) and pname == "weight":
+                pname, shape = "kernel", mod.kernel_shape
+            elif isinstance(mod, torch.nn.Conv2d):
+                pname, shape = "kernel", tuple(p.shape[i] for i in (2, 3, 1, 0))
+            got["/".join(["params", name.replace(".", "/"), pname])] = shape
+    assert got == want
+
+
+def test_mme5_round_trip_is_exact():
+    """JAX tree (int8 leaves included) → port → JAX reproduces every leaf
+    bit for bit, with its dtype."""
+    cfg = dataclasses.replace(jm.MllamaConfig.tiny(), quantize="int8-mixed")
+    ids = jnp.zeros((1, 8), jnp.int32)
+    struct = jax.eval_shape(
+        jm.MmE5Embedder(cfg).init, jax.random.PRNGKey(0), ids, jnp.ones_like(ids),
+        jnp.zeros((1, 1, 28, 28, 3)),
+    )
+    rng = np.random.default_rng(0)
+    flat = {
+        key: rng.integers(-127, 128, leaf.shape).astype(np.int8) if leaf.dtype == np.int8
+        else rng.normal(size=leaf.shape).astype(np.float32)
+        for key, leaf in traverse_util.flatten_dict(unbox(struct), sep="/").items()
+    }
+    tcfg = dataclasses.replace(tm.MllamaConfig.tiny(), quantize="int8-mixed")
+    port = build_mme5(tcfg, torch.float32, "cpu", params=flat)
+    out = export_jax_params(port)
+    assert set(out) == set(flat)
+    for key, val in flat.items():
+        assert out[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(out[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("engine", ["detector", "siglip", "mme5"])
+def test_engines_default_to_the_card(engine):
+    """Built without a device, an engine goes to CUDA; where there is none
+    it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if engine == "detector":
+            LayoutDetector(DetectorConfig(image_size=64, variant="n"))
+        else:
+            MultimodalEmbedder(EmbedderConfig(family=engine),
+                               model_config=tm.MllamaConfig.tiny() if engine == "mme5" else None)
