@@ -7,9 +7,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions; both TF32 flags are set off and printed;
-2. the build: the encoder-attention kernel (K1) and the int8 weight matmul
-   (K2), each compiled by its own ``nvcc`` for ``sm_90a`` from
-   ``multimodal_embeddings_tpu_torch/csrc``, both started together;
+2. the build: the encoder-attention kernel (K1), the int8 weight matmul
+   (K2), the int4 weight matmul (K3) and flash attention (K4), each
+   compiled by its own ``nvcc`` for ``sm_90a`` from
+   ``multimodal_embeddings_tpu_torch/csrc``, all started together;
 3. K1 against its plain PyTorch version at the ViT page's shapes — ViT
    ``(48, 784, 768)`` H=12 in bf16 and f32, PSA ``(30, 1024, 576)``
    4×(36|36|72) in bf16 — errors against stated tolerances, the median
@@ -38,7 +39,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. the card against the CPU for mmE5: the 11B widths at reduced depth,
    ``int8-mixed``, built once in f32 on the CPU from a seed, carried to the
    card in bf16 through the weight bridge; two of the page's crops,
-   cosine ≥ 0.999.
+   cosine ≥ 0.999;
+10. K4 against its plain version: the Qwen vision shape ``(1, 4960, 16,
+    80)`` and the causal GQA text shape ``(1, 2560, 40/8, 128)`` in bf16,
+    timed beside SDPA and the bound, and edge cases (L = 1, 127, 129,
+    4960; lengths 1, L−1, L; Dk ≠ Dv; causal; f32);
+11. K3 against its plain version at the Qwen2.5-VL-32B decoder's shapes
+    (M = 1 and M = 1535; ``lm_head`` at M = 1), ragged and single-group
+    shapes, bf16 and f32; decode shapes timed back to back over weight
+    copies larger than L2, cuBLAS bf16 ``x @ W`` beside as context;
+12. the full-width Qwen2.5-VL-32B int4 page parse at native resolution:
+    the model built on the card from seed 0, a 2200×1700 synthetic page
+    smart-resized to 1120×868 (4960 patches, a 1535-token prompt); one
+    warm-up page through ``DocumentParser.parse``, then 2 timed pages of
+    prefill + 128 steps of the fixed-length loop; prefill ms, ms per step,
+    s per page, peak memory; launch counts (K4 4 per page, K3 449 per
+    prefill and per step, K1 and K2 none); finite logits; the early-exit
+    loop with EOS forced at step 64 equal to the fixed loop; profiles of
+    the prefill and of 8 decode steps;
+13. the card against the CPU for Qwen: the 32B widths at 2 vision (one
+    full-attention) and 2 text layers, f32 on the CPU with the plain
+    kernels, bf16 on the card, same weights and page; last-position logit
+    cosine ≥ 0.999.
 
 It prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -108,6 +130,34 @@ def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(calls, reps: int = 5) -> float:
+    """Device time per call of ``calls`` run back to back: the card sleeps
+    while the host enqueues them, so the wrappers' host time is not timed
+    (``median_ms`` times one call from an idle card, host time included)."""
+    import torch
+
+    for call in calls[:2]:
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for call in calls:
+        call()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(int((2 * host + 1e-3) * 2e9))  # cycles at <= 2 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for call in calls:
+            call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    return statistics.median(times)
+
+
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     """The least time the card could take: max(flops / peak rate of the
     type, bytes / HBM rate), in ms, and which of the two bounds it."""
@@ -160,12 +210,14 @@ def card() -> str:
     return smi
 
 
-def build(k1, k2) -> None:
+def build(*modules) -> None:
+    """Build every kernel library, one ``nvcc`` per source, all at once:
+    ``modules`` are (label, kernel module) pairs."""
     phase("2. build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        infos = list(pool.map(lambda m: m.build_info(), (k1, k2)))
-    for label, info in zip(("K1", "K2"), infos):
+    with ThreadPoolExecutor(len(modules)) as pool:
+        infos = list(pool.map(lambda lm: lm[1].build_info(), modules))
+    for (label, _), info in zip(modules, infos):
         print(f"{label} library {info.path.name}: nvcc {info.seconds:.1f} s")
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -512,8 +564,8 @@ def int8_checks(k2) -> dict:
     return results
 
 
-def profile_page(fn, page) -> None:
-    """Device time of one page by kernel family (torch.profiler)."""
+def profile_run(label: str, run) -> None:
+    """Device time of ``run()`` by kernel family (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -521,11 +573,11 @@ def profile_page(fn, page) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(page)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    families = {"K1 enc_attn": 0.0, "K2 int8_mm": 0.0, "GEMM (cuBLAS)": 0.0,
-                "conv (cuDNN)": 0.0, "other": 0.0}
+    families = {"K1 enc_attn": 0.0, "K2 int8_mm": 0.0, "K3 int4": 0.0, "K4 flash": 0.0,
+                "GEMM (cuBLAS)": 0.0, "conv (cuDNN)": 0.0, "other": 0.0}
     counts = dict.fromkeys(families, 0)
     kernels = []
     for ev in prof.key_averages():
@@ -536,6 +588,10 @@ def profile_page(fn, page) -> None:
             fam = "K1 enc_attn"
         elif "int8_mm" in name:
             fam = "K2 int8_mm"
+        elif "int4_mm" in name or "int4_gemv" in name:
+            fam = "K3 int4"
+        elif "flash_bf16" in name or "flash_f32" in name:
+            fam = "K4 flash"
         elif any(s in name for s in ("conv", "cudnn", "implicit", "fprop")):
             fam = "conv (cuDNN)"  # before GEMM: cuDNN names its kernels *_implicit_gemm_*
         elif any(s in name for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")):
@@ -547,7 +603,7 @@ def profile_page(fn, page) -> None:
         counts[fam] += ev.count
         kernels.append((ms, ev.count, ev.key))
     busy = sum(families.values())
-    print(f"profiled page: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+    print(f"profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
           f"(kernel time summed), idle {100 * (1 - busy / wall):.1f}%")
     for fam, t in sorted(families.items(), key=lambda kv: -kv[1]):
         print(f"  {fam}: {t:.1f} ms over {counts[fam]} launches ({100 * t / busy:.1f}%)")
@@ -654,7 +710,7 @@ def mme5_page(k1, k2, detector):
     print(f"detect+crop {statistics.mean(det_ms):.1f} ms/page, vision tower "
           f"{statistics.mean(vis_ms):.1f} ms/page, text stack {statistics.mean(txt_ms):.1f} "
           f"ms/page")
-    profile_page(fn, pages[-1])
+    profile_run("page", lambda: fn(pages[-1]))
     return launches, crops, embs, config
 
 
@@ -693,18 +749,452 @@ def mme5_card_vs_cpu(crops, config) -> None:
     check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
 
 
+# K4 against its plain version: both round p to bf16 against the same
+# per-128-key running max, but their f32 scores differ in the last bits
+# (other summation orders), so a p near a rounding boundary may round to
+# the neighbouring bf16 value, moving the output by up to 2^-8·p·|v|/sum.
+# Where a few keys dominate a row and their values cancel, that is many
+# steps of the output's own magnitude (H100 readings: 1 step at L <= 127,
+# up to 88,272 steps at |o| ~ 1e-5 at the causal text shape). So the gate
+# is, per output, 2 bf16 steps at |o| plus 2^-7 of the attention-weighted
+# mean of |v| (every p of the row flipping at once would move it 2^-8 of
+# that), and a mean error under 5% of the mean bf16 step: flips are rare,
+# a systematic fault (a whole-row max, an unrounded p in PV, a wrong row)
+# moves a large share of the outputs by a step or more.
+K4_MEAN_STEP_SHARE = 0.05
+QWEN_VISION_ATTN = (1, 4960, 16, 16, 80, 80)  # B, L, H, KVH, Dk, Dv
+QWEN_TEXT_ATTN = (1, 2560, 40, 8, 128, 128)
+
+
+def flash_bound(b, l, h, kvh, dk, dv, lengths, causal, dtype) -> tuple:
+    """K4's work for this run's data: QK and PV over the keys each query
+    row attends (below its length, and at or before it when causal); q and
+    o over the H query heads, k and v over the KVH heads, each once."""
+    import torch
+
+    elem = torch.finfo(dtype).bits // 8
+    pairs = 0
+    for n in lengths:
+        pairs += sum(min(n, i + 1) for i in range(l)) if causal else l * n
+    flops = 2.0 * h * pairs * (dk + dv)
+    nbytes = elem * b * l * (h * dk + kvh * dk + kvh * dv + h * dv)
+    return bound_ms(flops, nbytes, dtype)
+
+
+def flash_compare(k4, name, q, k, v, lengths, causal, timed) -> dict:
+    """K4 against its plain version on the same inputs; with ``timed``, the
+    kernel's, the plain version's and SDPA's median times and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    got = k4.flash_attention(q, k, v, lengths=lengths, causal=causal)
+    want = k4.flash_attention_reference(q, k, v, lengths, causal)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == q.dtype, f"{name}: {got.shape} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item()}
+    note = ""
+    if q.dtype == torch.bfloat16:
+        weighted = k4.flash_attention_reference(q, k, v.abs(), lengths, causal).float()
+        allowed = MAX_BF16_STEPS * bf16_step(want) + 2.0**-7 * weighted
+        ratio = (err / allowed).max().item()
+        share = out["mean_abs_err"] / bf16_step(want).mean().item()
+        check(ratio <= 1.0, f"{name}: error {ratio:.3g}x its bound")
+        check(share <= K4_MEAN_STEP_SHARE,
+              f"{name}: mean err {share:.3g} of a bf16 step > {K4_MEAN_STEP_SHARE}")
+        note = (f" ({bf16_steps(got, want):g} bf16 steps at |o|, err/allowed {ratio:.3f}, "
+                f"mean/step {share:.2e})")
+    else:
+        check(out["max_abs_err"] <= ATOL_F32_MAX,
+              f"{name}: max err {out['max_abs_err']} > {ATOL_F32_MAX}")
+    line = f"{name}: max_abs_err {out['max_abs_err']:.3e}{note}"
+    if timed:
+        b, l, h, dk = q.shape
+        kvh, dv = k.shape[2], v.shape[3]
+        lens = [l] * b if lengths is None else [min(int(n), l) for n in lengths.tolist()]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if lengths is not None:
+            mask = (torch.arange(l, device=q.device)[None, :] < lengths[:, None])[:, None, None]
+        out["ms"] = median_ms(lambda: k4.flash_attention(q, k, v, lengths=lengths, causal=causal))
+        out["plain_ms"] = median_ms(
+            lambda: k4.flash_attention_reference(q, k, v, lengths, causal), runs=5)
+        out["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=kvh != h))
+        out["bound_ms"], out["bound_by"] = flash_bound(b, l, h, kvh, dk, dv, lens, causal,
+                                                       q.dtype)
+        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+                 f"sdpa {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
+                 f"({out['bound_by']})")
+    print(line, flush=True)
+    return out
+
+
+def flash_checks(k4) -> dict:
+    """K4 against its plain version at the Qwen shapes and edge cases."""
+    import torch
+
+    phase("10. K4 flash attention against its plain version (Qwen shapes)")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    results = {}
+    b, l, h, kvh, dk, dv = QWEN_VISION_ATTN
+    # q and k are the rotated tensors, v a strided slice of the fused qkv
+    qkv = randn(b, l, 3, h, dk)
+    results["vision"] = flash_compare(
+        k4, f"vision ({b},{l},{h},{dk}) bf16", randn(b, l, h, dk), randn(b, l, h, dk),
+        qkv[:, :, 2], None, False, timed=True)
+    b, l, h, kvh, dk, dv = QWEN_TEXT_ATTN
+    results["text"] = flash_compare(
+        k4, f"text causal ({b},{l},{h}/{kvh},{dk}) bf16", randn(b, l, h, dk),
+        randn(b, l, kvh, dk), randn(b, l, kvh, dv), None, True, timed=True)
+    # edges: ragged L against the 64-row and 128-key tiles, lengths 1, L-1
+    # and L, Dk != Dv, GQA, causal, f32
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for l in (1, 127, 129, 4960):
+        for causal in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                lens = sorted({1, max(1, l - 1), l})
+                lengths = torch.tensor([lens[i % len(lens)] for i in range(2)],
+                                       dtype=torch.int32, device=dev)
+                res = flash_compare(
+                    k4, f"edge L={l} causal={causal} lengths={lengths.tolist()} "
+                        f"Dk=40 Dv=56 4/2 heads {str(dtype).split('.')[-1]}",
+                    randn(2, l, 4, 40, dtype=dtype), randn(2, l, 2, 40, dtype=dtype),
+                    randn(2, l, 2, 56, dtype=dtype), lengths, causal, timed=False)
+                worst[dtype] = max(worst[dtype], res["max_abs_err"])
+                if l == 4960 and dtype == torch.float32:
+                    break  # one f32 pass at 4960 is enough (the f32 form is for checks)
+    print(f"edge cases: max_abs_err bf16 {worst[torch.bfloat16]:.3e} "
+          f"f32 {worst[torch.float32]:.3e}")
+    return results
+
+
+# (M, K, N) of the Qwen2.5-VL-32B decoder: per layer q, o (5120, 5120),
+# k, v (5120, 1024), gate, up (5120, 27648), down (27648, 5120); lm_head
+# (5120, 152064) on the last position only. M = 1 per decode step, M = 1535
+# for the prefill.
+K3_SHAPES = {
+    "q,o": (5120, 5120, 2), "k,v": (5120, 1024, 2), "gate,up": (5120, 27648, 2),
+    "down": (27648, 5120, 1),
+}
+K3_PREFILL_M = 1535
+K3_HEADLINE = "decode gate,up (1,5120)x(5120,27648)"
+
+
+def int4_checks(k3) -> dict:
+    """K3 against its plain version at the 32B decoder's shapes."""
+    import torch
+
+    phase("11. K3 int4 matmul against its plain version (Qwen2.5-VL-32B shapes)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = torch.device("cuda")
+
+    def operands(m, k, n, n_groups, dtype):
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        scale = torch.randn((n_groups, n), generator=gen, device=dev) * 0.02
+        return x, packed, scale
+
+    def run(name, m, k, n, n_groups, dtype, timed):
+        x, packed, scale = operands(m, k, n, n_groups, dtype)
+        got = k3.int4_matmul(x, packed, scale)
+        want = k3.int4_matmul_reference(x, packed, scale)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == (m, n), f"{name}: {got.dtype} {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        err = (got.float() - want.float()).abs()
+        w_abs = k3.dequantize_int4(k3.Q4Tensor(packed, scale), torch.float32).abs_()
+        order = 2 * k * 2.0**-24 * (x.to(torch.bfloat16).float().abs() @ w_abs)
+        del w_abs
+        allowed = order + (MAX_BF16_STEPS * bf16_step(want) if dtype == torch.bfloat16 else 0)
+        ratio = (err / allowed).max().item()
+        check(ratio <= 1.0, f"{name}: error {ratio:.3g}x its bound")
+        out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+               "bound_share": ratio}
+        note = ""
+        if dtype == torch.bfloat16:
+            share = out["mean_abs_err"] / bf16_step(want).mean().item()
+            check(share <= K2_MEAN_STEP_SHARE,
+                  f"{name}: mean err {share:.3g} of a bf16 step > {K2_MEAN_STEP_SHARE}")
+            note = f" mean/step {share:.2e}"
+        line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {out['max_abs_err']:.3e} "
+                f"mean_abs_err {out['mean_abs_err']:.3e}{note} err/allowed {ratio:.3f}")
+        if timed:
+            w = k3.dequantize_int4(k3.Q4Tensor(packed, scale), dtype)
+            if m == 1:
+                # device time of back-to-back launches over weight copies
+                # totalling more than the 50 MB L2, as the decode step
+                # streams 449 weights cold
+                wbytes = packed.numel() + scale.numel() * 4
+                copies = [(packed, scale)] + [
+                    (packed.clone(), scale.clone())
+                    for _ in range(-(-128 * 2**20 // wbytes) - 1)
+                ]
+                calls = [lambda p=p, s=s: k3.int4_matmul(x, p, s) for p, s in copies]
+                out["ms"] = device_ms(calls * max(1, 64 // len(calls)))
+                out["host_ms"] = median_ms(lambda: k3.int4_matmul(x, packed, scale))
+                del copies, calls
+            else:
+                out["ms"] = median_ms(lambda: k3.int4_matmul(x, packed, scale))
+            out["plain_ms"] = median_ms(lambda: k3.int4_matmul_reference(x, packed, scale),
+                                        runs=5, warmup=1)
+            out["cublas_ms"] = (device_ms([lambda: x @ w] * 32) if m == 1
+                                else median_ms(lambda: x @ w))
+            del w
+            out["bound_ms"], out["bound_by"] = bound_ms(
+                2.0 * m * k * n,
+                m * k * x.element_size() + k * n // 2 + 4 * n_groups * n
+                + m * n * x.element_size(),
+                torch.bfloat16,
+            )
+            line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+                     f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) "
+                     f"[context: cuBLAS bf16 x@W {out['cublas_ms']:.4f} ms]")
+            if "host_ms" in out:
+                line += f" one call from an idle card {out['host_ms']:.4f} ms"
+        print(line, flush=True)
+        return out
+
+    results = {}
+    for m in (1, K3_PREFILL_M):
+        for label, (k, n, _) in K3_SHAPES.items():
+            name = f"{'decode' if m == 1 else 'prefill'} {label} ({m},{k})x({k},{n})"
+            results[name] = run(name, m, k, n, k // 128, torch.bfloat16, timed=True)
+    name = "decode lm_head (1,5120)x(5120,152064)"
+    results[name] = run(name, 1, 5120, 152064, 40, torch.bfloat16, timed=True)
+    results["f32"] = run("f32 k,v (1535,5120)x(5120,1024)", K3_PREFILL_M, 5120, 1024, 40,
+                         torch.float32, timed=True)
+    for m, k, n, groups in ((37, 200, 136, 1), (1, 8, 16, 1), (130, 72, 200, 1),
+                            (300, 1024, 1030, 8), (5, 384, 40, 3), (9, 256, 24, 2),
+                            (3, 5120, 1030, 40), (2, 2048, 520, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            run(f"ragged ({m},{k})x({k},{n}) {groups} group(s)", m, k, n, groups, dtype,
+                timed=False)
+    step = sum(results[f"decode {lab} (1,{k})x({k},{n})"]["ms"] * cnt
+               for lab, (k, n, cnt) in K3_SHAPES.items()) * 64
+    step += results[name]["ms"]
+    bound = sum(results[f"decode {lab} (1,{k})x({k},{n})"]["bound_ms"] * cnt
+                for lab, (k, n, cnt) in K3_SHAPES.items()) * 64 + results[name]["bound_ms"]
+    pre = sum(results[f"prefill {lab} ({K3_PREFILL_M},{k})x({k},{n})"]["ms"] * cnt
+              for lab, (k, n, cnt) in K3_SHAPES.items()) * 64
+    print(f"K3 per decode step (449 launches) from these medians: {step:.2f} ms "
+          f"(bound {bound:.2f} ms); per prefill (448 launches at M={K3_PREFILL_M}, "
+          f"lm_head apart): {pre:.1f} ms")
+    return results
+
+
+QWEN_PAGE_HW = PAGE_HW  # a 2200x1700 page, smart-resized to 1120x868
+QWEN_MAX_PIXELS = 1280 * 28 * 28  # the notebook's native-resolution budget
+QWEN_NEW_TOKENS = 128
+QWEN_TIMED_PAGES = 2
+QWEN_FORCE_EOS_AT = 64
+QWEN_PEAK_LIMIT = 30 * 2**30
+
+
+def qwen_inputs(parser, tmpdir: str):
+    """Synthetic pages as PNG files (the user surface takes paths), and the
+    first page's model input through the parser's own sizing, resize and
+    prompt: (paths, ids (1, L), pixels (1, H, W, 3), (input_w, input_h))."""
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import preprocess_page
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+    paths = []
+    for i in range(1 + QWEN_TIMED_PAGES):
+        path = f"{tmpdir}/page{i}.png"
+        Image.fromarray(make_page(*QWEN_PAGE_HW, seed=i)).save(path)
+        paths.append(path)
+    image = Image.open(paths[1]).convert("RGB")
+    size = parser._input_size(image)
+    pixels = preprocess_page(image, *size)
+    ids = parser._prompt_ids(*size, QWEN_NEW_TOKENS)
+    return paths, ids, pixels, size
+
+
+def qwen_page(kernels: dict):
+    """The Qwen2.5-VL-32B int4 page parse at full width and depth; returns
+    the launch counts of the timed pages, the first timed page's prompt and
+    pixels, and the config."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import (
+        DocumentParser,
+        clean_and_format_html,
+        extract_bbox_elements,
+        preprocess_page,
+    )
+    from multimodal_embeddings_tpu_torch.models.quantized import param_bytes
+    from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig, build_generate_fns
+    from multimodal_embeddings_tpu_torch.models.tokenizer import ByteTokenizer
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen
+
+    phase("12. full-width Qwen2.5-VL-32B int4 page parse (native resolution)")
+    config = QwenVLConfig.qwen25_vl_32b_int4()
+    t0 = time.perf_counter()
+    model = build_qwen(config, torch.bfloat16, "cuda", seed=0)
+    torch.cuda.synchronize()
+    nbytes = param_bytes(model)
+    print(f"build on the card: {time.perf_counter() - t0:.1f} s; parameters "
+          f"{nbytes / 1e9:.3f} GB ({nbytes} bytes)")
+    parser = DocumentParser(model, ByteTokenizer(), dynamic_resolution=True,
+                            max_pixels=QWEN_MAX_PIXELS, device="cuda")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        paths, ids, pixels, (in_w, in_h) = qwen_inputs(parser, tmpdir)
+        prompt_len = ids.shape[1]
+        n_pad = int((ids == config.image_pad_id).sum())
+        print(f"page {QWEN_PAGE_HW[0]}x{QWEN_PAGE_HW[1]} -> model input {in_h}x{in_w}, "
+              f"{(in_h // 14) * (in_w // 14)} patches, prompt {prompt_len} tokens "
+              f"({n_pad} image pads)")
+
+        # warm-up: the user entry point, DocumentParser.parse (early-exit loop)
+        t0 = time.perf_counter()
+        html, h0, w0 = parser.parse(paths[0], max_new_tokens=QWEN_NEW_TOKENS)
+        torch.cuda.synchronize()
+        check((h0, w0) == (in_h, in_w), f"warm-up input size {(h0, w0)}")
+        print(f"warm-up parse(): {time.perf_counter() - t0:.1f} s, {len(html)} characters "
+              f"of HTML, {len(extract_bbox_elements(html))} bbox elements, "
+              f"{len(clean_and_format_html(html))} characters cleaned")
+
+        prefill, decode = build_generate_fns(model, prompt_len, QWEN_NEW_TOKENS,
+                                             early_stop=False)
+        dev = next(model.parameters()).device
+        torch.cuda.reset_peak_memory_stats()
+        for wrapper in kernels.values():
+            wrapper.launches = 0
+        pre_ms, step_ms, page_s, tokens = [], [], [], []
+        for path in paths[1:]:
+            t0 = time.perf_counter()
+            image = Image.open(path).convert("RGB")
+            size = parser._input_size(image)
+            px = torch.from_numpy(preprocess_page(image, *size)).to(dev)
+            tok = torch.from_numpy(parser._prompt_ids(*size, QWEN_NEW_TOKENS)).long().to(dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            last, caches, delta = prefill(tok, px)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(bool(torch.isfinite(last).all()), "non-finite prefill logits")
+            out = decode(last, caches, delta)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            html = parser.decode_tokens(out[0].cpu().numpy())
+            extract_bbox_elements(html)
+            clean_and_format_html(html)
+            page_s.append(time.perf_counter() - t0)
+            pre_ms.append((t2 - t1) * 1e3)
+            step_ms.append((t3 - t2) * 1e3 / QWEN_NEW_TOKENS)
+            tokens.append(out.cpu())
+            del caches
+        launches = {name: w.launches for name, w in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+    layers = config.text.layers
+    want = {
+        "flash_attention": len(config.vision.fullatt_block_indexes) * QWEN_TIMED_PAGES,
+        "int4_matmul": (7 * layers + 1) * (1 + QWEN_NEW_TOKENS) * QWEN_TIMED_PAGES,
+        "encoder_attention": 0, "encoder_attention_blf": 0,
+        "encoder_attention_blf_packed": 0, "int8_matmul": 0,
+    }
+    check(launches == want, f"launches {launches} != {want}")
+    check(peak < QWEN_PEAK_LIMIT, f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"prefill ms {statistics.mean(pre_ms):.1f} (pages: "
+          + ", ".join(f"{x:.1f}" for x in pre_ms) + ")")
+    print(f"decode ms/step {statistics.mean(step_ms):.2f} over {QWEN_NEW_TOKENS} steps "
+          f"(pages: " + ", ".join(f"{x:.2f}" for x in step_ms) + ")")
+    print(f"s/page {statistics.mean(page_s):.2f} (pages: "
+          + ", ".join(f"{x:.2f}" for x in page_s) + ")")
+    print(f"launches over {QWEN_TIMED_PAGES} pages: K4 {launches['flash_attention']}, "
+          f"K3 {launches['int4_matmul']}, K1 {launches['encoder_attention']} + "
+          f"{launches['encoder_attention_blf']} + {launches['encoder_attention_blf_packed']}, "
+          f"K2 {launches['int8_matmul']}")
+    print(f"peak device memory: {peak / 2**30:.2f} GiB")
+    print(f"tokens of page 1 (first 16): {tokens[0][0, :16].tolist()}")
+
+    # early exit with EOS forced at one step gives the fixed loop's tokens
+    tok = torch.from_numpy(ids).long().to(dev)
+    px = torch.from_numpy(pixels).to(dev)
+    force = torch.tensor([QWEN_FORCE_EOS_AT], dtype=torch.int32, device=dev)
+    _, decode_early = build_generate_fns(model, prompt_len, QWEN_NEW_TOKENS, early_stop=True)
+    t0 = time.perf_counter()
+    early = decode_early(*prefill(tok, px), force).cpu()
+    torch.cuda.synchronize()
+    early_s = time.perf_counter() - t0
+    fixed = decode(*prefill(tok, px), force).cpu()
+    check(torch.equal(early, fixed), "early_stop tokens differ from the fixed loop's")
+    check(torch.equal(fixed[:, :QWEN_FORCE_EOS_AT], tokens[0][:, :QWEN_FORCE_EOS_AT]),
+          "forced-EOS tokens differ from the unforced page's before the stop")
+    check(bool((fixed[:, QWEN_FORCE_EOS_AT:] == config.eos_id).all()), "EOS not pinned")
+    print(f"early_stop with EOS forced at step {QWEN_FORCE_EOS_AT}: tokens equal to the "
+          f"fixed loop's; {early_s:.2f} s")
+
+    cache = []
+    profile_run("prefill", lambda: cache.append(prefill(tok, px)))
+    _, steps = build_generate_fns(model, prompt_len, 8, early_stop=False)
+    profile_run("8 decode steps", lambda: steps(*cache.pop()))
+    del model, parser
+    return launches, ids, pixels, config
+
+
+def qwen_card_vs_cpu(ids, pixels, config) -> None:
+    """Prefill logits of the 32B widths at reduced depth: the card in bf16
+    against the CPU in f32 with the plain kernels, same weights."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen, export_jax_params
+
+    phase("13. Qwen2.5-VL-32B int4: card (bf16) against the CPU (f32, plain kernels)")
+    reduced = dataclasses.replace(
+        config,
+        vision=dataclasses.replace(config.vision, layers=2, fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(config.text, layers=2),
+    )
+    t0 = time.perf_counter()
+    cpu = build_qwen(reduced, torch.float32, "cpu", seed=0)
+    gpu = build_qwen(reduced, torch.bfloat16, "cuda", params=export_jax_params(cpu))
+    print(f"set-up (CPU f32 build, bridge to the card in bf16): {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want, _, _ = cpu(torch.from_numpy(ids).long(), torch.from_numpy(pixels),
+                         cache_len=ids.shape[1], last_only=True)
+        cpu_s = time.perf_counter() - t0
+        dev = next(gpu.parameters()).device
+        got, _, _ = gpu(torch.from_numpy(ids).long().to(dev), torch.from_numpy(pixels).to(dev),
+                        cache_len=ids.shape[1], last_only=True)
+    got = got[:, -1].float().cpu()
+    want = want[:, -1]
+    check(bool(torch.isfinite(got).all()), "non-finite card logits")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    print(f"last-position logits, cosine card vs cpu: {[round(c, 6) for c in cos.tolist()]} "
+          f"(CPU prefill {cpu_s:.1f} s)")
+    check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
+    from multimodal_embeddings_tpu_torch.kernels import flash_attention as k4
     from multimodal_embeddings_tpu_torch.kernels import quantization as k2
+    from multimodal_embeddings_tpu_torch.kernels import quantization_int4 as k3
 
     start = time.perf_counter()
     smi = card()
-    build(k1, k2)
+    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4))
     checks = kernel_checks(k1)
     vit_launches, crops, embs, model_config, detector = full_slice(k1)
     card_vs_cpu(crops, embs, model_config)
@@ -712,6 +1202,24 @@ def main() -> int:
     int8 = int8_checks(k2)
     mme5_launches, mme5_crops, _, mme5_config = mme5_page(k1, k2, detector)
     mme5_card_vs_cpu(mme5_crops, mme5_config)
+    del detector, crops, embs, mme5_crops
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = flash_checks(k4)
+    int4 = int4_checks(k3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrappers = {
+        "flash_attention": k4.flash_attention, "int4_matmul": k3.int4_matmul,
+        "encoder_attention": k1.encoder_attention,
+        "encoder_attention_blf": k1.encoder_attention_blf,
+        "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
+        "int8_matmul": k2.int8_matmul,
+    }
+    qwen_launches, ids, pixels, qwen_config = qwen_page(wrappers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_card_vs_cpu(ids, pixels, qwen_config)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -727,23 +1235,42 @@ def main() -> int:
     vit, psa = checks[("vit", torch.bfloat16)], checks["psa"]
     k2_head = dict(int8[K2_HEADLINE])
     k2_head["max_abs_err"] = max(int8[s]["max_abs_err"] for s in K2_SHAPES)
+    k3_head = dict(int4[K3_HEADLINE])
+    k3_head["max_abs_err"] = max(r["max_abs_err"] for r in int4.values())
+    k4_head = dict(flash["vision"])
+    k4_head["max_abs_err"] = max(r["max_abs_err"] for r in flash.values())
     kernels = [
         entry("encoder_attention_blf", src, f"{ref}:327", vit_launches["blf"],
-              {"vit_page": vit_launches["blf"], "mme5_page": mme5_launches["blf"]},
+              {"vit_page": vit_launches["blf"], "mme5_page": mme5_launches["blf"],
+               "qwen_page": qwen_launches["encoder_attention_blf"]},
               "(48,784,768) H=12 bf16", vit),
         entry("encoder_attention_blf_packed", src, f"{ref}:458", vit_launches["packed"],
-              {"vit_page": vit_launches["packed"], "mme5_page": mme5_launches["packed"]},
+              {"vit_page": vit_launches["packed"], "mme5_page": mme5_launches["packed"],
+               "qwen_page": qwen_launches["encoder_attention_blf_packed"]},
               "(30,1024,576) 4x(36|36|72) bf16", psa),
         entry("encoder_attention", src, f"{ref}:523 (and encoder_attention_padded :619)",
-              mme5_launches["masked"], {"mme5_page": mme5_launches["masked"]},
+              mme5_launches["masked"], {"mme5_page": mme5_launches["masked"],
+                                        "qwen_page": qwen_launches["encoder_attention"]},
               "(8,1608,16,80) valid 1601 bf16", masked[torch.bfloat16]),
         entry("int8_matmul", "multimodal_embeddings_tpu_torch/csrc/int8_matmul.cu",
               "multimodal_embeddings_tpu/kernels/quantization.py:219",
-              mme5_launches["int8"], {"mme5_page": mme5_launches["int8"]},
+              mme5_launches["int8"], {"mme5_page": mme5_launches["int8"],
+                                      "qwen_page": qwen_launches["int8_matmul"]},
               K2_HEADLINE + " bf16 (max_abs_err over the five text shapes)",
               k2_head, library=False),
+        entry("int4_matmul", "multimodal_embeddings_tpu_torch/csrc/int4_matmul.cu",
+              "multimodal_embeddings_tpu/kernels/quantization_int4.py:166",
+              qwen_launches["int4_matmul"], {"qwen_page": qwen_launches["int4_matmul"]},
+              K3_HEADLINE + " bf16 (max_abs_err over every checked shape)",
+              k3_head, library=False),
+        entry("flash_attention", "multimodal_embeddings_tpu_torch/csrc/flash_attention.cu",
+              "multimodal_embeddings_tpu/kernels/flash_attention.py:112",
+              qwen_launches["flash_attention"], {"qwen_page": qwen_launches["flash_attention"]},
+              "(1,4960,16,80) bf16 non-causal (max_abs_err over it and the causal text "
+              "shape)", k4_head),
     ]
-    kernels[-1]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
+    kernels[3]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
+    kernels[4]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,202 @@
+"""Document-parsing CLI: page image → "QwenVL HTML" with data-bbox
+attributes, plus the notebook's two post-processing artifacts.
+
+Port of ``multimodal_embeddings_tpu/cli/parse.py`` with the same flags,
+sizes and artifacts: per page ``<stem>.qwen.html`` (raw), ``<stem>.clean.html``
+and, with ``--draw_bbox``, ``<stem>_bbox.jpg``; ``parse_index.json`` for the
+run. ``--weights`` reads a JAX package ``.npz`` checkpoint through the weight
+bridge; without it the model runs synthetic weights from seed 0.
+``--device`` (default ``cuda``) picks the device; the model computes in
+bf16 on the card and in f32 on the CPU.
+
+    python -m multimodal_embeddings_tpu_torch.cli.parse --input_folder pages \\
+        --output_folder out --size tiny --device cpu --max_new_tokens 8
+
+``--pipeline_parallel`` and ``--data_parallel`` above 1 and ``--continuous``
+are not ported and exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+
+import torch
+
+logger = logging.getLogger("multimodal_embeddings_tpu_torch.cli.parse")
+
+SIZES = (
+    "tiny", "tiny-int8", "3b", "3b-int8", "3b-int4", "7b", "7b-int8",
+    "32b", "32b-int8", "32b-int4",
+)
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".webp", ".tiff", ".tif", ".bmp")
+
+
+def get_image_paths(input_folder: str):
+    """Recursive, extension-filtered, sorted discovery."""
+    image_paths = []
+    for root, _, files in os.walk(input_folder):
+        for file in files:
+            if os.path.splitext(file)[1].lower() in IMAGE_EXTENSIONS:
+                image_paths.append(os.path.join(root, file))
+    return sorted(image_paths)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Parse pages into QwenVL HTML with data-bbox attributes"
+    )
+    parser.add_argument("--input_folder", default="newspaper_images")
+    parser.add_argument("--output_folder", default="6_parsed_html")
+    parser.add_argument("--size", choices=SIZES, default="3b")
+    parser.add_argument("--weights", default=None, help="JAX package .npz checkpoint")
+    parser.add_argument("--image_size", type=int, default=448)
+    parser.add_argument("--max_new_tokens", type=int, default=1024)
+    parser.add_argument("--dynamic_resolution", action="store_true",
+                        help="Qwen2.5-VL native-aspect smart_resize grids")
+    parser.add_argument("--max_pixels", type=int, default=None)
+    parser.add_argument("--pipeline_parallel", type=int, default=1, help="not ported")
+    parser.add_argument("--data_parallel", type=int, default=1, help="not ported")
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="pages per generate call (DocumentParser.parse_batch)")
+    parser.add_argument("--continuous", action="store_true", help="not ported")
+    parser.add_argument("--chunk", type=int, default=64)
+    parser.add_argument("--draw_bbox", action="store_true")
+    parser.add_argument("--skip_errors", action="store_true",
+                        help="log-and-continue on per-page failures")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return parser
+
+
+def make_config(size: str):
+    from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig
+
+    return {
+        "tiny": QwenVLConfig.tiny,
+        "tiny-int8": lambda: dataclasses.replace(QwenVLConfig.tiny(), quantize=True),
+        "3b": QwenVLConfig.qwen25_vl_3b,
+        "3b-int8": QwenVLConfig.qwen25_vl_3b_int8,
+        "3b-int4": QwenVLConfig.qwen25_vl_3b_int4,
+        "7b": QwenVLConfig.qwen25_vl_7b,
+        "7b-int8": QwenVLConfig.qwen25_vl_7b_int8,
+        "32b": QwenVLConfig.qwen25_vl_32b,
+        "32b-int8": QwenVLConfig.qwen25_vl_32b_int8,
+        "32b-int4": QwenVLConfig.qwen25_vl_32b_int4,
+    }[size]()
+
+
+def make_document_parser(
+    size: str,
+    weights: str | None,
+    image_size: int,
+    dynamic_resolution: bool,
+    max_pixels: int | None,
+    device="cuda",
+):
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import DocumentParser
+    from multimodal_embeddings_tpu_torch.models.tokenizer import ByteTokenizer
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen, resolve_device
+
+    dev = resolve_device(device)
+    config = make_config(size)
+    if size.startswith("tiny"):
+        image_size = min(image_size, 56)
+    unit = config.vision.patch_size * config.vision.merge_size
+    image_size = max(unit, (image_size // unit) * unit)
+    compute = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    if not weights:
+        logger.warning("document parser (%s) running with seeded synthetic weights "
+                       "(no checkpoint configured)", size)
+    model = build_qwen(config, compute, dev, seed=0, weights_path=weights)
+    return DocumentParser(model, ByteTokenizer(), image_size=image_size,
+                          dynamic_resolution=dynamic_resolution, max_pixels=max_pixels,
+                          device=dev)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import (
+        clean_and_format_html,
+        draw_bbox,
+        extract_bbox_elements,
+    )
+
+    if args.pipeline_parallel > 1 or args.data_parallel > 1 or args.continuous:
+        raise SystemExit("--pipeline_parallel, --data_parallel and --continuous are not "
+                         "ported to the PyTorch package")
+    paths = get_image_paths(args.input_folder)
+    if not paths:
+        logger.error("no images in %s", args.input_folder)
+        return 1
+    os.makedirs(args.output_folder, exist_ok=True)
+    parser_obj = make_document_parser(
+        args.size, args.weights, args.image_size, args.dynamic_resolution, args.max_pixels,
+        device=args.device,
+    )
+    n_done = 0
+    index = []
+    batch = max(1, args.batch_size)
+    for start in range(0, len(paths), batch):
+        chunk = paths[start : start + batch]
+        parsed = _parse_chunk(parser_obj, chunk, batch, args)
+        for path, result in zip(chunk, parsed):
+            stem = os.path.splitext(os.path.basename(path))[0]
+            if result is None:
+                continue
+            html, in_h, in_w = result
+            raw_path = os.path.join(args.output_folder, f"{stem}.qwen.html")
+            with open(raw_path, "w") as f:
+                f.write(html)
+            with open(os.path.join(args.output_folder, f"{stem}.clean.html"), "w") as f:
+                f.write(clean_and_format_html(html))
+            n_boxes = len(extract_bbox_elements(html))
+            if args.draw_bbox:
+                draw_bbox(path, in_w, in_h, html,
+                          os.path.join(args.output_folder, f"{stem}_bbox.jpg"))
+            index.append({
+                "image_path": path,
+                "input_width": in_w,
+                "input_height": in_h,
+                "n_bbox_elements": n_boxes,
+                "html": os.path.basename(raw_path),
+            })
+            n_done += 1
+            logger.info("parsed %s: %d bbox elements", stem, n_boxes)
+    with open(os.path.join(args.output_folder, "parse_index.json"), "w") as f:
+        json.dump(index, f, indent=2)
+    logger.info("parsed %d/%d pages", n_done, len(paths))
+    return 0
+
+
+def _parse_chunk(parser_obj, chunk, batch, args):
+    """One chunk of pages; with ``--skip_errors`` a failing batch is retried
+    page by page and a failing page yields None."""
+    def one(path):
+        return parser_obj.parse(path, max_new_tokens=args.max_new_tokens)
+
+    run = (lambda: parser_obj.parse_batch(chunk, max_new_tokens=args.max_new_tokens)
+           ) if batch > 1 else (lambda: [one(chunk[0])])
+    if not args.skip_errors:
+        return run()
+    return _guarded(run, lambda: [_guarded(lambda p=p: one(p), lambda: None) for p in chunk])
+
+
+def _guarded(fn, fallback):
+    """``fn()``, or ``fallback()`` when it raises (the CLI's --skip_errors
+    contract; the kernels' wrappers themselves never fall back)."""
+    import contextlib
+
+    result = []
+    with contextlib.suppress(Exception):
+        result.append(fn())
+    if result:
+        return result[0]
+    logger.error("parse failed; skipped")
+    return fallback()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,19 +6,25 @@ Port of ``multimodal_embeddings_tpu/models/quantized.py``:
   int8 ``kernel_q`` with a ``(1, out)`` f32 ``kernel_scale`` and an
   optional bias, applied through K2 (``kernels/quantization.py``) in the
   compute dtype;
+* ``Int4Dense``: the drop-in of ``Int4DenseGeneral``, an ``(in/2, out)``
+  uint8 ``kernel_q4`` of packed nibbles with ``(n_groups, out)`` f32 group
+  scales and an optional bias, applied through K3
+  (``kernels/quantization_int4.py``); ``quant_dense_cls`` maps a
+  ``quantize`` flag to the drop-in. Biases keep the JAX module's
+  features-shaped bias (``(heads, head_dim)`` for a q/k/v projection);
 * ``storage_dtype``: what each parameter is stored as — int8 stays int8,
   ``kernel_scale`` and every 1-D parameter (norm scales, biases, gates,
   ``class_embedding``) stay f32, every other float tensor takes the
   compute dtype (the JAX modules cast those kernels to it at use);
 * ``synthetic_int8_init``: seeded random weights drawn on the target
   device, in their storage types, with ``synthetic_int8_init``'s
-  distributions (int8 uniform in [−127, 127], floats N(0, 0.02) rounded to
-  bf16 when a tensor holds more than 1e6 values, 1-D leaves 0.02) — the
-  11B tree never exists on the host (the JAX package's f32 twin is 44 GB);
+  distributions (int8 uniform in [−127, 127], packed int4 bytes uniform in
+  [0, 255], floats N(0, 0.02) rounded to bf16 when a tensor holds more than
+  1e6 values, 1-D leaves 0.02) — the 11B and 32B trees never exist on the
+  host;
 * ``param_bytes``.
 
-The ``int4`` storage (``Int4DenseGeneral``, K3) and ``quantize_dense_tree``
-are not ported yet.
+``quantize_dense_tree`` (quantizing a float tree) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,26 +33,64 @@ import torch
 from torch import nn
 
 from multimodal_embeddings_tpu_torch.kernels.quantization import QTensor, int8_apply
+from multimodal_embeddings_tpu_torch.kernels.quantization_int4 import (
+    Q4Tensor,
+    int4_apply,
+    int4_group_size,
+)
 
 
 class Int8Dense(nn.Module):
     """``x @ (kernel_q · kernel_scale) (+ bias)`` with x cast to ``dtype``;
     the output is in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = False, dtype=None):
+    def __init__(
+        self, in_features: int, out_features: int, bias: bool = False, dtype=None,
+        bias_shape=None,
+    ):
         super().__init__()
         self.dtype = dtype
         self.kernel_q = nn.Parameter(
             torch.zeros(in_features, out_features, dtype=torch.int8), requires_grad=False
         )
         self.kernel_scale = nn.Parameter(torch.ones(1, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.bias = nn.Parameter(torch.zeros(bias_shape or (out_features,))) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = int8_apply(x.to(self.dtype or x.dtype), QTensor(self.kernel_q, self.kernel_scale))
         if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
+            y = y + self.bias.reshape(-1).to(y.dtype)
         return y
+
+
+class Int4Dense(nn.Module):
+    """``bf16(x) @ dequant(kernel_q4, kernel_scale) (+ bias)`` with x cast to
+    ``dtype``; the output is in ``dtype``."""
+
+    def __init__(
+        self, in_features: int, out_features: int, bias: bool = False, dtype=None,
+        bias_shape=None, group_size: int = 128,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        g = int4_group_size(in_features, group_size)
+        self.kernel_q4 = nn.Parameter(  # nibbles 8: q = 0
+            torch.full((in_features // 2, out_features), 0x88, dtype=torch.uint8),
+            requires_grad=False,
+        )
+        self.kernel_scale = nn.Parameter(torch.ones(in_features // g, out_features))
+        self.bias = nn.Parameter(torch.zeros(bias_shape or (out_features,))) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int4_apply(x.to(self.dtype or x.dtype), Q4Tensor(self.kernel_q4, self.kernel_scale))
+        if self.bias is not None:
+            y = y + self.bias.reshape(-1).to(y.dtype)
+        return y
+
+
+def quant_dense_cls(quantize):
+    """``True``/``"int8"`` → ``Int8Dense``; ``"int4"`` → ``Int4Dense``."""
+    return Int4Dense if quantize == "int4" else Int8Dense
 
 
 def storage_dtype(name: str, param: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
@@ -84,6 +128,9 @@ def synthetic_int8_init(module: nn.Module, seed: int = 0) -> nn.Module:
         if p.dtype == torch.int8:
             p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=device,
                                   dtype=torch.int8))
+        elif p.dtype == torch.uint8:  # packed int4 nibbles
+            p.copy_(torch.randint(0, 256, p.shape, generator=gen, device=device,
+                                  dtype=torch.uint8))
         elif p.dim() == 1:
             p.fill_(0.02)
         else:
@@ -94,5 +141,6 @@ def synthetic_int8_init(module: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def param_bytes(module: nn.Module) -> int:
-    """Total parameter storage in bytes (int8 counts 1, bf16 2, f32 4)."""
+    """Total parameter storage in bytes (int8 and uint8 count 1, bf16 2,
+    f32 4)."""
     return sum(p.numel() * p.element_size() for p in module.parameters())

@@ -5,8 +5,10 @@ Port of ``multimodal_embeddings_tpu/models/transformer.py``: ``RMSNorm``,
 ``GeluMLP``, ``EncoderBlock``, ``GatedEncoderBlock``, ``LlamaBlock``,
 ``CrossAttentionBlock`` and ``last_token_pool``. Dense weights are stored as
 the JAX package stores them, ``(in, out)`` with the JAX kernel's axes
-flattened, and applied as ``x @ W``; ``quantize`` swaps in the int8
-``Int8Dense`` (``models/quantized.py``). ``models/weights.py`` converts.
+flattened, and applied as ``x @ W``; a bias keeps the JAX bias's shape
+(``(3, H, D)`` for a fused qkv projection) and is flattened at use.
+``quantize`` swaps in the int8 ``Int8Dense`` or the packed-int4
+``Int4Dense`` (``models/quantized.py``). ``models/weights.py`` converts.
 
 Types follow the JAX modules: ``dtype`` is the compute type that norms
 cast their output to and int8 projections run in; a float Dense computes
@@ -28,7 +30,8 @@ from multimodal_embeddings_tpu_torch.kernels.encoder_attention import (
     encoder_attention,
     encoder_attention_blf,
 )
-from multimodal_embeddings_tpu_torch.models.quantized import Int8Dense
+from multimodal_embeddings_tpu_torch.kernels.flash_attention import flash_attention
+from multimodal_embeddings_tpu_torch.models.quantized import quant_dense_cls
 
 NEG_INF = -1e30
 
@@ -41,23 +44,27 @@ class Dense(nn.Module):
     writes."""
 
     def __init__(
-        self, in_features: int, out_features: int, bias: bool = True, kernel_shape=None
+        self, in_features: int, out_features: int, bias: bool = True, kernel_shape=None,
+        bias_shape=None,
     ):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.bias = nn.Parameter(torch.zeros(bias_shape or (out_features,))) if bias else None
         self.kernel_shape = tuple(kernel_shape or (in_features, out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
-        b = None if self.bias is None else self.bias.to(w.dtype)
+        b = None if self.bias is None else self.bias.reshape(-1).to(w.dtype)
         return F.linear(x.to(w.dtype), w.t(), b)
 
 
-def _dense(in_f, out_f, bias, kernel_shape, quantize, dtype):
+def _dense(in_f, out_f, bias, kernel_shape, quantize, dtype, bias_shape=None):
+    """A float ``Dense``, or for ``quantize`` True/``"int8"``/``"int4"`` its
+    quantized drop-in computing in ``dtype``."""
     if quantize:
-        return Int8Dense(in_f, out_f, bias=bias, dtype=dtype)
-    return Dense(in_f, out_f, bias=bias, kernel_shape=kernel_shape)
+        return quant_dense_cls(quantize)(in_f, out_f, bias=bias, dtype=dtype,
+                                         bias_shape=bias_shape)
+    return Dense(in_f, out_f, bias=bias, kernel_shape=kernel_shape, bias_shape=bias_shape)
 
 
 class FastLayerNorm(nn.Module):
@@ -118,29 +125,91 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+# the JAX package's dispatch thresholds as they run on a TPU: the flash
+# kernel from 2048 tokens, the whole-row kernel for unmasked self-attention
+# of [256, 1664] tokens (multiples of 16, head dims up to 128)
+FLASH_MIN_LEN = 2048
+ENC_ATTN_MIN_LEN, ENC_ATTN_MAX_LEN = 256, 1664
+
+
+def _enc_attn_eligible(q, k, v, mask, causal, pad_to_16: bool = False) -> bool:
+    if causal or mask is not None:
+        return False
+    if q.shape[1] != k.shape[1] or q.shape[2] != k.shape[2]:
+        return False  # self-attention, no GQA broadcast
+    if v.shape[:3] != q.shape[:3]:
+        return False
+    l = q.shape[1]
+    if pad_to_16:
+        l = -(-l // 16) * 16
+    if not (ENC_ATTN_MIN_LEN <= l <= ENC_ATTN_MAX_LEN) or l % 16:
+        return False
+    return q.shape[3] <= 128 and v.shape[3] <= 128
+
+
 def sdpa(
     q: torch.Tensor,  # (B, Lq, H, D)
     k: torch.Tensor,  # (B, Lk, KVH, D)
     v: torch.Tensor,  # (B, Lk, KVH, Dv)
     mask: Optional[torch.Tensor] = None,  # bool, broadcast to (B, H, Lq, Lk)
     causal: bool = False,
+    kv_lengths: Optional[torch.Tensor] = None,  # (B,) valid key prefix lengths
+    key_valid_len: Optional[int] = None,  # a static valid key prefix shared by all rows
 ) -> torch.Tensor:
-    """Attention with the JAX package's XLA-path numerics (``sdpa`` without
-    a kernel). KV head ``i`` serves query heads ``i·rep … i·rep+rep−1``.
+    """Attention with the JAX package's dispatch as it runs on a TPU:
 
-    bf16: logits are rounded to bf16, masked with −1e30, divided by √D in
-    f32; ``e`` is rounded to bf16 BEFORE both the f32 denominator and the
-    f32-accumulated PV product. f32: softmax of the scaled, masked logits,
-    then PV. (K1's contract differs: its denominator sums the unrounded
-    ``e``.)"""
-    h, d = q.shape[2], q.shape[3]
-    if k.shape[2] != h:
-        rep = h // k.shape[2]
+    * ``key_valid_len`` → K1 (``encoder_attention``) where the whole-row
+      kernel is eligible (L padded to 16), else a key mask;
+    * ``kv_lengths`` at Lq = Lk ≥ 2048, non-causal → K4 (``flash_attention``),
+      else a key mask;
+    * unmasked self-attention with Lq = Lk ≥ 2048 (causal or not, GQA or
+      not) → K4;
+    * unmasked non-causal self-attention without GQA at L ∈ [256, 1664],
+      L % 16 = 0, head dims ≤ 128 → K1;
+    * a single query row with GQA (decode) folds the query heads into the
+      query axis, so K/V are read once;
+    * everything else runs the XLA-path numerics below. KV head ``i`` serves
+      query heads ``i·rep … i·rep+rep−1``.
+
+    XLA path, bf16: logits are rounded to bf16, masked with −1e30, divided by
+    √D in f32; ``e`` is rounded to bf16 BEFORE both the f32 denominator and
+    the f32-accumulated PV product. f32 (or mixed, e.g. an f32 query against
+    a bf16 cache): softmax of the scaled, masked logits in f32, the
+    probabilities cast to v's dtype, then PV. (K1's and K4's contract
+    differs: their denominator sums the unrounded ``e``.)"""
+    lq, lk = q.shape[1], k.shape[1]
+    if key_valid_len is not None:
+        if key_valid_len >= lk:
+            key_valid_len = None
+        elif mask is None and not causal and _enc_attn_eligible(q, k, v, None, False, True):
+            return encoder_attention(q, k, v, valid_len=key_valid_len)
+        else:
+            mask = (torch.arange(lk, device=q.device) < key_valid_len)[None, None, None, :]
+    if kv_lengths is not None:
+        if not causal and lq == lk and lq >= FLASH_MIN_LEN:
+            return flash_attention(q, k, v, lengths=kv_lengths)
+        keep = torch.arange(lk, device=q.device)[None, :] < kv_lengths.to(q.device)[:, None]
+        mask = keep[:, None, None, :]
+    if mask is None and lq == lk and lq >= FLASH_MIN_LEN:
+        return flash_attention(q, k, v, causal=causal)
+    if _enc_attn_eligible(q, k, v, mask, causal):
+        return encoder_attention(q, k, v)
+
+    b, h, d = q.shape[0], q.shape[2], q.shape[3]
+    kvh = k.shape[2]
+    if kvh != h and lq == 1 and not causal and (mask is None or mask.shape[2] == 1):
+        # GQA decode fold: (B, 1, H, D) → (B, rep, KVH, D), same dot products
+        rep = h // kvh
+        qf = q.reshape(b, lq, kvh, rep, d).transpose(2, 3).reshape(b, lq * rep, kvh, d)
+        out = sdpa(qf, k, v, mask=mask)
+        out = out.reshape(b, lq, rep, kvh, -1).transpose(2, 3)
+        return out.reshape(b, lq, h, -1)
+    if kvh != h:
+        rep = h // kvh
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    lq, lk = q.shape[1], k.shape[1]
-    logits = torch.einsum("blhd,bmhd->bhlm", q, k)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
+        logits = torch.einsum("blhd,bmhd->bhlm", q, k)
         if causal:
             keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
             logits = logits.masked_fill(~keep, NEG_INF)
@@ -151,7 +220,8 @@ def sdpa(
         denom = p16.float().sum(dim=-1)  # (B, H, Lq)
         out = torch.einsum("bhlm,bmhd->blhd", p16.float(), v.float())
         return (out / denom.transpose(1, 2)[..., None]).to(v.dtype)
-    logits = logits.float() / math.sqrt(d)
+    work = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("blhd,bmhd->bhlm", q.to(work), k.to(work)).float() / math.sqrt(d)
     if causal:
         keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, NEG_INF)

@@ -14,18 +14,21 @@ scope path:
   ``(H, D, C)`` → ``(H·D, C)`` (each port ``Dense`` keeps the JAX
   kernel's shape);
 * ``Dense``, LayerNorm, RMSNorm, ``pos_embed``, gates, tile tables,
-  ``Embed/embedding``, biases and the int8 ``kernel_q``/``kernel_scale``
-  leaves of a quantized tree as they are (a parameter the bridge has no
-  rule for is read under its own path).
+  ``Embed/embedding``, biases (in the JAX bias's shape: ``(3, H, D)`` for the
+  Qwen vision tower's fused qkv, ``(H, D)`` for a decoder q/k/v), the int8
+  ``kernel_q``/``kernel_scale`` and the packed int4 uint8
+  ``kernel_q4``/``kernel_scale`` leaves of a quantized tree as they are (a
+  parameter the bridge has no rule for is read under its own path).
 
 Every port parameter must be filled and every JAX key under the prefix
 used, with matching shapes, or the load raises. ``export_jax_params`` is the
 inverse, with BatchNorm exported as an identity around the folded conv.
 
-``build_mme5`` makes the mmE5 model straight on its device: parameters are
-materialized there in their storage types (``models/quantized.py``) and
-filled from a JAX tree or with seeded synthetic values, so the 11B tree
-never passes through the host.
+``build_mme5`` and ``build_qwen`` make the mmE5 and Qwen2.5-VL models
+straight on their device: parameters are materialized there in their
+storage types (``models/quantized.py``) and filled from a JAX tree or with
+seeded synthetic values, so the 11B and 32B trees never pass through the
+host.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from torch import nn
 
 from multimodal_embeddings_tpu_torch.models.layers import BN_EPS, ConvBnAct
 from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig, MmE5Embedder
+from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig, QwenVLModel
 from multimodal_embeddings_tpu_torch.models.quantized import (
     materialize,
     synthetic_int8_init,
@@ -182,7 +186,7 @@ def load_jax_params(module: nn.Module, flat: Flat, prefix: str = "") -> nn.Modul
 
 def export_jax_params(module: nn.Module, prefix: str = "") -> Flat:
     """The port's parameters as a JAX ``flatten_params`` dict (numpy: f32
-    floats, int8 as int8). Folded convs export with an identity BatchNorm
+    floats, int8 and uint8 as they are). Folded convs export with an identity BatchNorm
     (mean 0, var 1, scale ``sqrt(1 + eps)``), so ``load_jax_params`` of the
     result reproduces the module exactly."""
     flat: Flat = {}
@@ -283,15 +287,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_mme5(
-    config: MllamaConfig, dtype: torch.dtype, device, seed: int = 0,
-    params: Optional[Flat] = None, weights_path: Optional[str] = None,
-) -> MmE5Embedder:
-    """The mmE5 model on ``device``, computing in ``dtype``, its parameters
-    from a JAX flat dict, else a JAX ``.npz`` checkpoint, else
-    ``synthetic_int8_init(seed)`` drawn on ``device``."""
+def _build(factory, dtype, device, seed, params, weights_path) -> nn.Module:
     with torch.device("meta"):
-        model = MmE5Embedder(config, dtype)
+        model = factory()
     materialize(model, device, dtype)
     if params is None and weights_path:
         params = load_npz(weights_path)
@@ -300,3 +298,27 @@ def build_mme5(
     else:
         load_jax_params(model, params)
     return model.eval()
+
+
+def build_mme5(
+    config: MllamaConfig, dtype: torch.dtype, device, seed: int = 0,
+    params: Optional[Flat] = None, weights_path: Optional[str] = None,
+) -> MmE5Embedder:
+    """The mmE5 model on ``device``, computing in ``dtype``, its parameters
+    from a JAX flat dict, else a JAX ``.npz`` checkpoint, else
+    ``synthetic_int8_init(seed)`` drawn on ``device``."""
+    return _build(lambda: MmE5Embedder(config, dtype), dtype, device, seed, params,
+                  weights_path)
+
+
+def build_qwen(
+    config: QwenVLConfig, dtype: torch.dtype, device, seed: int = 0,
+    params: Optional[Flat] = None, weights_path: Optional[str] = None,
+) -> QwenVLModel:
+    """The Qwen2.5-VL model on ``device`` (the card unless asked for the
+    CPU), computing in ``dtype``, its parameters from a JAX flat dict, else
+    a JAX ``.npz`` checkpoint, else ``synthetic_int8_init(seed)`` drawn on
+    ``device`` (every float matrix N(0, 0.02), 1-D leaves 0.02, int8 and
+    packed int4 storage uniform)."""
+    return _build(lambda: QwenVLModel(config, dtype), dtype, resolve_device(device), seed,
+                  params, weights_path)

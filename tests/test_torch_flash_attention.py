@@ -1,0 +1,187 @@
+"""Flash attention (K4): the port's plain version against the JAX Pallas
+kernel in interpret mode, and the port's ``sdpa`` dispatch against JAX
+``sdpa``.
+
+Tolerances. f32: the two sum the same products in different orders, 2e-6
+absolute on outputs of magnitude ≤ 1 (random keys, softmax-weighted
+averages of N(0, 1) values). bf16: both round ``p`` to bf16 against the same
+per-block running max and sum in f32; outputs may still round to the
+neighbouring bf16 value, so 2 bf16 steps at the output's magnitude (2^-7
+relative) plus 1e-3 absolute for outputs near zero."""
+
+import importlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.models import transformer as jtr
+from multimodal_embeddings_tpu_torch.kernels import flash_attention as tfa
+from multimodal_embeddings_tpu_torch.kernels import encoder_attention as tk1
+from multimodal_embeddings_tpu_torch.models import transformer as ttr
+
+# the JAX kernels package re-exports the function under the module's name
+jfa = importlib.import_module("multimodal_embeddings_tpu.kernels.flash_attention")
+torch.set_num_threads(2)
+
+
+def _inputs(seed, b, l, h, kvh, dk, dv):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, l, h, dk)).astype(np.float32)
+    k = rng.normal(size=(b, l, kvh, dk)).astype(np.float32)
+    v = rng.normal(size=(b, l, kvh, dv)).astype(np.float32)
+    return q, k, v
+
+
+CASES = [
+    # (b, l, h, kvh, dk, dv, causal, lengths)
+    (1, 130, 2, 2, 16, 16, False, None),
+    (2, 129, 4, 2, 16, 16, True, None),  # GQA 2, causal, ragged L
+    (2, 200, 2, 1, 24, 40, False, (200, 57)),  # Dk != Dv, lengths
+    (1, 127, 3, 3, 32, 32, True, (100,)),  # causal with lengths
+    (1, 1, 2, 1, 16, 8, False, None),
+    (2, 256, 5, 1, 16, 16, True, (1, 255)),  # GQA 5, lengths 1 and L-1
+]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_pallas_f32(case):
+    b, l, h, kvh, dk, dv, causal, lengths = case
+    q, k, v = _inputs(l + h, b, l, h, kvh, dk, dv)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    want = jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        lengths=None if lens is None else jnp.asarray(lens), causal=causal, interpret=True,
+    )
+    got = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        lengths=None if lens is None else torch.from_numpy(lens), causal=causal,
+    )
+    assert got.shape == (b, l, h, dv) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[2], CASES[5]])
+def test_plain_matches_pallas_bf16(case):
+    b, l, h, kvh, dk, dv, causal, lengths = case
+    q, k, v = _inputs(l + 7, b, l, h, kvh, dk, dv)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    want = jfa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        lengths=None if lens is None else jnp.asarray(lens), causal=causal, interpret=True,
+    )
+    got = tfa.flash_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        lengths=None if lens is None else torch.from_numpy(lens), causal=causal,
+    )
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7, atol=1e-3)
+
+
+def test_block_loop_rounds_p_per_block():
+    """bf16: the block loop is not a whole-row softmax — rounding p against
+    each block's running max gives other bits than one max over the row,
+    and the block loop is the one that equals the Pallas kernel bit for
+    bit here."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(3, 1, 384, 2, 2, 16, 16))
+    got = tfa.flash_attention(q, k, v)
+    whole = tk1.encoder_attention_reference(q, k, v)
+    want = jfa.flash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+                               interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert (got.float() - want).abs().max() <= (whole.float() - want).abs().max()
+    assert not torch.equal(got, whole)
+
+
+def test_launch_counter_and_dispatch():
+    q = torch.zeros(1, 4, 2, 8)
+    before = tfa.flash_attention.launches
+    tfa.flash_attention(q, q, q)  # CPU: plain version
+    assert tfa.flash_attention.launches == before
+    with pytest.raises(ValueError):  # only a CPU tensor takes the plain version
+        tfa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q[:, :3], q)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 3, 8))
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, lengths=torch.ones(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_takes_k4_at_2048(causal, monkeypatch):
+    """Port ``sdpa`` at L = 2048 (the flash threshold) goes to K4 and agrees
+    with JAX ``sdpa`` (the XLA path on the CPU) in f32."""
+    b, l, h, kvh, d = 1, 2048, 2, 1, 16
+    q, k, v = _inputs(11, b, l, h, kvh, d, d)
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(ttr, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got = ttr.sdpa(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    want = jtr.sdpa(*(jnp.asarray(a) for a in (q, k, v)), causal=causal)
+    assert calls == [1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+def test_sdpa_kv_lengths_takes_k4_at_2048(monkeypatch):
+    b, l, h, d = 2, 2048, 2, 16
+    q, k, v = _inputs(12, b, l, h, h, d, d)
+    lens = np.asarray([2048, 700], np.int32)
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(ttr, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got = ttr.sdpa(*(torch.from_numpy(a) for a in (q, k, v)),
+                   kv_lengths=torch.from_numpy(lens))
+    want = jtr.sdpa(*(jnp.asarray(a) for a in (q, k, v)), kv_lengths=jnp.asarray(lens))
+    assert calls == [1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "l,kvh,mask,causal,want_route",
+    [(2047, 2, False, False, "xla"), (1024, 2, False, False, "k1"), (1030, 2, False, False, "xla"),
+     (1024, 1, False, False, "xla"), (1024, 2, True, False, "xla"), (512, 2, False, True, "xla"),
+     (2048, 1, False, True, "k4"), (128, 2, False, False, "xla")],
+)
+def test_sdpa_dispatch_order(l, kvh, mask, causal, want_route, monkeypatch):
+    """The JAX package's order on a TPU: flash at L ≥ 2048 unmasked, the
+    whole-row kernel for unmasked non-causal self-attention without GQA at
+    L ∈ [256, 1664], L % 16 = 0, else the XLA path."""
+    routes = []
+    monkeypatch.setattr(ttr, "flash_attention", lambda *a, **kw: routes.append("k4"))
+    monkeypatch.setattr(ttr, "encoder_attention", lambda *a, **kw: routes.append("k1"))
+    q = torch.zeros(1, l, 2, 8)
+    k = torch.zeros(1, l, kvh, 8)
+    m = torch.ones(1, 1, 1, l, dtype=torch.bool) if mask else None
+    out = ttr.sdpa(q, k, k, mask=m, causal=causal)
+    assert routes == ([] if want_route == "xla" else [want_route])
+    if want_route == "xla":
+        assert out.shape == (1, l, 2, 8)
+
+
+@pytest.mark.parametrize("l,valid,want_route", [(1608, 1601, "k1"), (100, 90, "xla"),
+                                                (1600, 1600, "k1"), (1608, 1608, "xla"),
+                                                (2048, 2000, "xla")])
+def test_sdpa_key_valid_len_dispatch(l, valid, want_route, monkeypatch):
+    """A static key prefix goes to K1 where the whole-row kernel takes L
+    padded to 16 (else a key mask on the XLA path); a prefix covering every
+    key is no mask at all."""
+    routes = []
+    monkeypatch.setattr(ttr, "encoder_attention",
+                        lambda *a, **kw: routes.append(("k1", kw.get("valid_len"))))
+    rng = np.random.default_rng(l)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, l, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    out = ttr.sdpa(q, k, v, key_valid_len=valid)
+    if want_route == "k1":
+        assert routes == [("k1", None if valid >= l else valid)]
+    else:
+        assert routes == []
+        want = jtr.sdpa(*(jnp.asarray(t.numpy()) for t in (q, k, v)), key_valid_len=valid)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-6)

@@ -46,7 +46,8 @@ def test_module_list_covers_the_slice():
         "models.weights", "models.detector", "models.embedder", "ops.iou", "ops.nms",
         "ops.edge_filter", "ops.grid", "ops.image", "pipeline.fused", "config",
         "kernels.quantization", "models.quantized", "models.mme5",
-        "models.mllama_processor", "models.tokenizer",
+        "models.mllama_processor", "models.tokenizer", "kernels.flash_attention",
+        "kernels.quantization_int4", "models.qwen_vl", "analysis.doc_parser", "cli.parse",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 
@@ -62,6 +63,22 @@ def test_package_source_has_no(pattern):
     rx = re.compile(pattern, re.M)
     hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py") if rx.search(p.read_text())]
     assert not hits, hits
+
+
+def test_package_imports_without_pil():
+    """PIL is imported only where an image is opened, resized or drawn."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['PIL'] = None\n"
+        f"for m in {MODULES!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -1,0 +1,224 @@
+"""Packed int4: the port's quantization helpers, K3's plain version and
+``Int4Dense`` against the JAX package, plus the synthetic int4 weights of
+``models/quantized.py``.
+
+K3's plain version is held against the JAX Pallas kernel in interpret mode.
+Both round x to bf16, sum the group's exact bf16·int4 products in f32 and add
+``part · scale`` group by group; they differ only in the order of the
+within-group sums, so outputs agree to f32 round-off: rtol 1e-5 with an
+absolute floor of 1e-5·max|y| for outputs that cancel to near zero.
+
+``Int4Dense`` is held against ``Int4DenseGeneral`` twice: once with the JAX
+module's Pallas kernel in interpret mode (the same tolerance), and once with
+its CPU fallback, which dequantizes first and does NOT round x to bf16. The
+second differs by the bf16 rounding of x: each product moves by at most
+2^-9 of itself, so the tolerance is 2^-8 · (|x| @ |W|) per output."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+from flax.linen import unbox
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.kernels import quantization_int4 as jq4
+from multimodal_embeddings_tpu.models import quantized as jquant
+from multimodal_embeddings_tpu_torch.kernels import quantization_int4 as tq4
+from multimodal_embeddings_tpu_torch.models import quantized as tquant
+from multimodal_embeddings_tpu_torch.models.weights import load_jax_params
+
+torch.set_num_threads(2)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _close(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), want, rtol=1e-5, atol=1e-5 * np.abs(want).max()
+    )
+
+
+@pytest.mark.parametrize("k,n,group", [(256, 48, 128), (200, 24, 128), (64, 16, 128),
+                                       (384, 8, 64)])
+def test_quantize_unpack_dequantize_are_bit_exact(k, n, group):
+    w = (_rng(k + n).normal(size=(k, n)) * 0.05).astype(np.float32)
+    w[:, 0] = 0.0  # an all-zero column takes the 1e-8 floor
+    want = jq4.quantize_tensor_int4(jnp.asarray(w), group_size=group)
+    got = tq4.quantize_tensor_int4(torch.from_numpy(w), group_size=group)
+    assert got.packed.dtype == torch.uint8 and got.scale.dtype == torch.float32
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    np.testing.assert_array_equal(tq4.unpack_int4(got).numpy(), np.asarray(jq4.unpack_int4(want)))
+    for dtype in (torch.float32, torch.bfloat16):
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        np.testing.assert_array_equal(
+            tq4.dequantize_int4(got, dtype).float().numpy(),
+            np.asarray(jq4.dequantize_int4(want, jdt).astype(jnp.float32)),
+        )
+
+
+@pytest.mark.parametrize("k", [2, 100, 127 * 2, 256, 130])
+def test_group_size_rule(k):
+    assert tq4.int4_group_size(k) == jq4.int4_group_size(k)
+    with pytest.raises(ValueError):
+        tq4.int4_group_size(k + 1)
+
+
+def _q4(rng, k, n, n_groups):
+    packed = rng.integers(0, 256, size=(k // 2, n)).astype(np.uint8)
+    scale = rng.normal(scale=0.02, size=(n_groups, n)).astype(np.float32)
+    return packed, scale
+
+
+@pytest.mark.parametrize(
+    "m,k,n,n_groups",
+    [(8, 512, 128, 4), (37, 256, 136, 2), (1, 384, 40, 3), (5, 200, 24, 1),
+     (130, 128, 128, 1), (2, 72, 16, 1)],
+)
+def test_int4_matmul_plain_matches_pallas(m, k, n, n_groups):
+    """f32 x, rounded to bf16 by both; ragged M/N and single-group K."""
+    rng = _rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    packed, scale = _q4(rng, k, n, n_groups)
+    want = jq4.int4_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scale),
+                           interpret=True)
+    got = tq4.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed), torch.from_numpy(scale))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _close(got.numpy(), want)
+
+
+def test_plain_rounds_f32_x_to_bf16():
+    """An f32 x and its bf16 rounding give the same f32 output; the JAX CPU
+    fallback (no rounding) does not."""
+    rng = _rng(3)
+    x = rng.normal(size=(4, 256)).astype(np.float32)
+    packed, scale = _q4(rng, 256, 32, 2)
+    p, s = torch.from_numpy(packed), torch.from_numpy(scale)
+    a = tq4.int4_matmul(torch.from_numpy(x), p, s)
+    b = tq4.int4_matmul(torch.from_numpy(x).bfloat16().float(), p, s)
+    assert torch.equal(a, b)
+    fallback = np.asarray(jq4.int4_apply(jnp.asarray(x), jq4.Q4Tensor(jnp.asarray(packed),
+                                                                     jnp.asarray(scale))))
+    assert not np.array_equal(a.numpy(), fallback)
+
+
+def test_int4_matmul_plain_bf16_matches_pallas_bf16():
+    """bf16 x, bf16 out: the same f32 sums rounded once; tolerance 2 bf16
+    steps (2^-7 relative) over the f32 floor."""
+    rng = _rng(5)
+    x = rng.normal(size=(16, 512)).astype(np.float32)
+    packed, scale = _q4(rng, 512, 128, 4)
+    want = jq4.int4_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(packed),
+                           jnp.asarray(scale), interpret=True)
+    got = tq4.int4_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(packed),
+                          torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_int4_apply_keeps_leading_axes():
+    rng = _rng(6)
+    x = rng.normal(size=(2, 3, 256)).astype(np.float32)
+    packed, scale = _q4(rng, 256, 24, 2)
+    qt = tq4.Q4Tensor(torch.from_numpy(packed), torch.from_numpy(scale))
+    got = tq4.int4_apply(torch.from_numpy(x), qt)
+    want = tq4.int4_matmul(torch.from_numpy(x.reshape(6, 256)), qt.packed, qt.scale)
+    assert got.shape == (2, 3, 24)
+    assert torch.equal(got.reshape(6, 24), want)
+
+
+def test_launch_counter_and_dispatch():
+    x, p, s = torch.zeros(4, 8), torch.zeros(4, 16, dtype=torch.uint8), torch.ones(1, 16)
+    before = tq4.int4_matmul.launches
+    tq4.int4_matmul(x, p, s)  # CPU: plain version
+    assert tq4.int4_matmul.launches == before
+    with pytest.raises(ValueError):  # only a CPU tensor takes the plain version
+        tq4.int4_matmul(x.to("meta"), p.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError):
+        tq4.int4_matmul(x, p.to(torch.int8), s)
+    with pytest.raises(ValueError):
+        tq4.int4_matmul(x, p[:2], s)
+    with pytest.raises(ValueError):
+        tq4.int4_matmul(x, p, torch.ones(3, 16))
+
+
+def _int4_flat(module, x, seed):
+    flat = traverse_util.flatten_dict(unbox(module.init(jax.random.PRNGKey(0), x)), sep="/")
+    rng = _rng(seed)
+    for key, val in flat.items():
+        if key.endswith("kernel_q4"):
+            flat[key] = rng.integers(0, 256, size=val.shape).astype(np.uint8)
+        elif key.endswith("kernel_scale"):
+            flat[key] = rng.normal(scale=0.02, size=val.shape).astype(np.float32)
+        else:
+            flat[key] = rng.normal(scale=0.1, size=val.shape).astype(np.float32)
+    return flat
+
+
+def _interpret_apply(x, qt, use_kernel=None):
+    lead = x.shape[:-1]
+    y = jq4.int4_matmul(x.reshape(-1, x.shape[-1]), qt.packed, qt.scale, interpret=True)
+    return y.reshape(*lead, qt.packed.shape[-1])
+
+
+@pytest.mark.parametrize("features,bias,in_f", [(24, True, 256), ((4, 6), True, 40),
+                                                (16, False, 384)])
+@pytest.mark.parametrize("jax_path", ["pallas_interpret", "cpu_fallback"])
+def test_int4_dense_matches_int4_dense_general(features, bias, in_f, jax_path, monkeypatch):
+    x = _rng(7).normal(size=(2, 5, in_f)).astype(np.float32)
+    jmod = jquant.Int4DenseGeneral(features=features, use_bias=bias, dtype=jnp.float32)
+    flat = _int4_flat(jmod, jnp.asarray(x), seed=8)
+    if jax_path == "pallas_interpret":
+        monkeypatch.setattr(jquant, "int4_apply", _interpret_apply)
+    want = np.asarray(jmod.apply(traverse_util.unflatten_dict(flat, sep="/"), jnp.asarray(x)))
+    out = int(np.prod(features))
+    shape = features if isinstance(features, tuple) else None
+    port = load_jax_params(
+        tquant.Int4Dense(in_f, out, bias=bias, dtype=torch.float32, bias_shape=shape), flat
+    )
+    assert port.kernel_q4.dtype == torch.uint8
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).reshape(want.shape).numpy()
+    if jax_path == "pallas_interpret":
+        _close(got, want)
+    else:
+        w = np.abs(np.asarray(jq4.dequantize_int4(
+            jq4.Q4Tensor(jnp.asarray(flat["params/kernel_q4"]),
+                         jnp.asarray(flat["params/kernel_scale"])),
+            jnp.float32)))
+        bound = 2.0**-8 * (np.abs(x) @ w).reshape(want.shape) + 1e-6
+        assert np.all(np.abs(got - want) <= bound)
+
+
+def test_quant_dense_cls():
+    assert tquant.quant_dense_cls("int4") is tquant.Int4Dense
+    assert tquant.quant_dense_cls(True) is tquant.Int8Dense
+    assert tquant.quant_dense_cls("int8") is tquant.Int8Dense
+
+
+def test_synthetic_int4_weights():
+    """uint8 nibbles uniform over 0-255, 2-D f32 scales N(0, 0.02), the same
+    draw for the same seed."""
+    def make(seed):
+        return tquant.synthetic_int8_init(
+            tquant.materialize(tquant.Int4Dense(1024, 512, bias=True), "cpu", torch.float32),
+            seed,
+        )
+
+    a, b = make(0), make(0)
+    assert a.kernel_q4.dtype == torch.uint8 and a.kernel_scale.dtype == torch.float32
+    assert a.kernel_scale.shape == (8, 512)
+    assert torch.equal(a.kernel_q4, b.kernel_q4) and torch.equal(a.kernel_scale, b.kernel_scale)
+    vals = a.kernel_q4.flatten().long()
+    assert int(vals.min()) == 0 and int(vals.max()) == 255
+    assert abs(vals.float().mean().item() - 127.5) < 1.0
+    assert abs(a.kernel_scale.std().item() - 0.02) < 0.002
+    assert torch.all(a.bias == np.float32(0.02))
+    assert tquant.param_bytes(a) == 512 * 512 + 8 * 512 * 4 + 512 * 4

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from multimodal_embeddings_tpu.models import layers as jl
 from multimodal_embeddings_tpu.models import mme5 as jm
+from multimodal_embeddings_tpu.models import qwen_vl as jqwen
 from multimodal_embeddings_tpu.models import transformer as jtr
 from multimodal_embeddings_tpu.models import vision_encoder as jve
 from multimodal_embeddings_tpu.models import yolo as jyolo
@@ -21,6 +22,7 @@ from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_p
 from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
 from multimodal_embeddings_tpu_torch.models import layers as tl
 from multimodal_embeddings_tpu_torch.models import mme5 as tm
+from multimodal_embeddings_tpu_torch.models import qwen_vl as tqwen
 from multimodal_embeddings_tpu_torch.models import transformer as ttr
 from multimodal_embeddings_tpu_torch.models import vision_encoder as tve
 from multimodal_embeddings_tpu_torch.models import yolo as tyolo
@@ -28,6 +30,7 @@ from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
 from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
 from multimodal_embeddings_tpu_torch.models.weights import (
     build_mme5,
+    build_qwen,
     export_jax_params,
     init_random,
     load_jax_params,
@@ -243,3 +246,81 @@ def test_engines_default_to_the_card(engine):
         else:
             MultimodalEmbedder(EmbedderConfig(family=engine),
                                model_config=tm.MllamaConfig.tiny() if engine == "mme5" else None)
+
+
+def _port_shapes(model):
+    """The JAX-side key set of a port model on the meta device, read through
+    the bridge's own shape rules."""
+    got = {}
+    for name, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            shape = tuple(p.shape)
+            if isinstance(mod, ttr.Dense) and pname == "weight":
+                pname, shape = "kernel", mod.kernel_shape
+            elif isinstance(mod, torch.nn.Conv2d):
+                pname, shape = "kernel", tuple(p.shape[i] for i in (2, 3, 1, 0))
+            got["/".join(["params", name.replace(".", "/"), pname])] = shape
+    return got
+
+
+def _qwen_cut(cfg, quantize):
+    """The 32B widths at a depth the test can trace: vision 2 layers with
+    block 1 full attention, text 2 layers."""
+    return dataclasses.replace(
+        cfg, quantize=quantize,
+        vision=dataclasses.replace(cfg.vision, layers=2, fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(cfg.text, layers=2),
+    )
+
+
+@pytest.mark.parametrize("quantize", [False, True, "int4"])
+def test_qwen_32b_key_set_and_shapes_match_jax(quantize):
+    jcfg = _qwen_cut(jqwen.QwenVLConfig.qwen25_vl_32b(), quantize)
+    tcfg = _qwen_cut(tqwen.QwenVLConfig.qwen25_vl_32b(), quantize)
+    ids = jnp.zeros((1, 8), jnp.int32)
+    want = _shapes(jax.eval_shape(jqwen.QwenVLModel(jcfg).init, jax.random.PRNGKey(0), ids,
+                                  jnp.zeros((1, 56, 56, 3))))
+    with torch.device("meta"):
+        port = tqwen.QwenVLModel(tcfg)
+    assert _port_shapes(port) == want
+
+
+@pytest.mark.parametrize("quantize", ["int4", True])
+def test_qwen_round_trip_is_exact(quantize):
+    """JAX tree (uint8 int4 nibbles or int8 leaves included) → port → JAX
+    reproduces every leaf bit for bit, with its dtype."""
+    cfg = dataclasses.replace(jqwen.QwenVLConfig.tiny(), quantize=quantize)
+    struct = jax.eval_shape(jqwen.QwenVLModel(cfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 56, 56, 3)))
+    rng = np.random.default_rng(0)
+
+    def draw(leaf):
+        if leaf.dtype == np.uint8:
+            return rng.integers(0, 256, leaf.shape).astype(np.uint8)
+        if leaf.dtype == np.int8:
+            return rng.integers(-127, 128, leaf.shape).astype(np.int8)
+        return rng.normal(size=leaf.shape).astype(np.float32)
+
+    flat = {key: draw(leaf)
+            for key, leaf in traverse_util.flatten_dict(unbox(struct), sep="/").items()}
+    assert any(v.dtype == np.uint8 for v in flat.values()) == (quantize == "int4")
+    tcfg = dataclasses.replace(tqwen.QwenVLConfig.tiny(), quantize=quantize)
+    port = build_qwen(tcfg, torch.float32, "cpu", params=flat)
+    out = export_jax_params(port)
+    assert set(out) == set(flat)
+    for key, val in flat.items():
+        assert out[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(out[key], val, err_msg=key)
+
+
+def test_qwen_qkv_flatten_order():
+    """The fused vision qkv (C, 3, H, D): output column (s·H + h)·D + d,
+    so the port's q/k/v views are the JAX ``qkv[..., s, :, :]``."""
+    cfg = tqwen.QwenVLConfig.tiny()
+    tower = jqwen.QwenVisionTower(jqwen.QwenVLConfig.tiny().vision, 64)
+    flat = flatten_params(unbox(tower.init(jax.random.PRNGKey(0), jnp.zeros((1, 56, 56, 3)))))
+    port = load_jax_params(tqwen.QwenVisionTower(cfg.vision, 64, torch.float32).float(), flat)
+    kernel = flat["params/qkv_0/kernel"]  # (32, 3, 2, 16)
+    w = port.qkv_0.weight.detach().numpy()
+    np.testing.assert_array_equal(w[:, (1 * 2 + 1) * 16 : (1 * 2 + 1) * 16 + 16], kernel[:, 1, 1])
+    assert port.qkv_0.bias.shape == (3, 2, 16)
