@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions; both TF32 flags are set off and printed;
 2. the build: the encoder-attention kernel (K1), the int8 weight matmul
-   (K2), the int4 weight matmul (K3) and flash attention (K4), each
-   compiled by its own ``nvcc`` for ``sm_90a`` from
+   (K2), the int4 weight matmul (K3), flash attention (K4), the 3×3 conv
+   (K5), the fused LayerNorm→matmul (K6) and the LayerNorm statistics (K7),
+   each compiled by its own ``nvcc`` for ``sm_90a`` from
    ``multimodal_embeddings_tpu_torch/csrc``, all started together;
 3. K1 against its plain PyTorch version at the ViT page's shapes — ViT
    ``(48, 784, 768)`` H=12 in bf16 and f32, PSA ``(30, 1024, 576)``
@@ -23,6 +24,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts (12 per embed call, 1 per detect call);
 5. the card against the CPU for the ViT: two of the page's crops embedded
    by the same tower in f32 on the CPU, cosine ≥ 0.999;
+4a. K5, K6, K7 and K1's BLHD wrapper against their plain versions at the
+   kernel-route page's and tower's shapes (K5 (30, 48, 256²) and
+   (30, 96, 128²) at dilations 2 and 1; K6 (37632, 768)×(768, 2304 | 3072)
+   and (12864, 1280)×(1280, 5120); K7 (48, 784, 768) and (8, 1608, 1280);
+   BLHD (48, 784, 12, 64) off a strided qkv slab), bf16, one f32 shape each
+   and ragged edge shapes; errors against stated tolerances, median times,
+   bounds and library yardsticks;
+4b. the ViT page on the kernel routes: the same detector and ViT weights
+   (seed 0) with ``DetectorConfig(pallas_convs=96, pallas_mode="stage")``,
+   ``VisionConfig(fuse_ln=True)``, ``MMTPU_LN_STATS=1`` and
+   ``MMTPU_ENC_ATTN_BLHD=1``; 1 warm-up and 3 timed pages; exact launch
+   counts per page (K5 12, K6 24, K1-BLHD 12, K7 1, K1 packed 1, K1 blf 0);
+   a profile of one page; against phase 4's default route on the same page
+   the detector's raw head maps (cosine ≥ 0.999 per level) and the
+   embeddings of the same 48 crops (≥ 0.999); two crops against the same
+   fused ViT in f32 on the CPU (≥ 0.999);
 6. K1 with the Mllama key prefix against its plain version:
    ``(8, 1608, 16, 80)`` with 1601 valid keys in bf16 and f32, and
    ``valid_len`` ∈ {1, L−1, L} at L ∈ {17, 130, 1608};
@@ -36,6 +53,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unit norms and launch counts per page (K1 with the prefix 240, K2 1680,
    K1 packed 1); the detect/vision/text split, peak memory, parameter
    bytes, and a ``torch.profiler`` breakdown of one page;
+8a. the mmE5-11B vision tower of phase 8 (its weights reused, not drawn
+   again) with ``fuse_ln="mlp"`` and ``MMTPU_LN_STATS=1``, one chunk of 8
+   crops at 560: ms per chunk, launch counts per chunk (K6 32, K7 49, K1
+   with the prefix 40), and the tower output's cosine against phase 8's
+   default route on the same chunk (≥ 0.999 per crop);
 9. the card against the CPU for mmE5: the 11B widths at reduced depth,
    ``int8-mixed``, built once in f32 on the CPU from a seed, carried to the
    card in bf16 through the weight bridge; two of the page's crops,
@@ -69,8 +91,10 @@ CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -429,7 +453,7 @@ def full_slice(k1):
         emb_ms.append((time.perf_counter() - t1) * 1e3)
     print(f"detect+crop {statistics.mean(det_ms):.1f} ms/page, "
           f"embed {statistics.mean(emb_ms):.1f} ms/page")
-    return launches, crops, embs, model_config, detector
+    return launches, crops, embs, model_config, detector, embedder
 
 
 def card_vs_cpu(crops, embs, model_config) -> None:
@@ -577,6 +601,7 @@ def profile_run(label: str, run) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     families = {"K1 enc_attn": 0.0, "K2 int8_mm": 0.0, "K3 int4": 0.0, "K4 flash": 0.0,
+                "K5 conv3x3": 0.0, "K6 ln_mm": 0.0, "K7 ln_stats": 0.0,
                 "GEMM (cuBLAS)": 0.0, "conv (cuDNN)": 0.0, "other": 0.0}
     counts = dict.fromkeys(families, 0)
     kernels = []
@@ -592,6 +617,12 @@ def profile_run(label: str, run) -> None:
             fam = "K3 int4"
         elif "flash_bf16" in name or "flash_f32" in name:
             fam = "K4 flash"
+        elif "conv3x3_bf16" in name or "conv3x3_f32" in name:
+            fam = "K5 conv3x3"
+        elif "ln_mm_bf16" in name or "ln_mm_f32" in name:
+            fam = "K6 ln_mm"
+        elif "ln_stats_kernel" in name:
+            fam = "K7 ln_stats"
         elif any(s in name for s in ("conv", "cudnn", "implicit", "fprop")):
             fam = "conv (cuDNN)"  # before GEMM: cuDNN names its kernels *_implicit_gemm_*
         elif any(s in name for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")):
@@ -614,7 +645,8 @@ def profile_run(label: str, run) -> None:
 
 def mme5_page(k1, k2, detector):
     """The mmE5-11B int8-mixed page at full width; returns its launch
-    counts, two crops and their embeddings."""
+    counts, the last page's crops and embeddings, the config and the
+    embedder."""
     import torch
 
     from multimodal_embeddings_tpu_torch.config import EmbedderConfig
@@ -711,7 +743,7 @@ def mme5_page(k1, k2, detector):
           f"{statistics.mean(vis_ms):.1f} ms/page, text stack {statistics.mean(txt_ms):.1f} "
           f"ms/page")
     profile_run("page", lambda: fn(pages[-1]))
-    return launches, crops, embs, config
+    return launches, crops, embs, config, embedder
 
 
 def mme5_card_vs_cpu(crops, config) -> None:
@@ -1103,7 +1135,8 @@ def qwen_page(kernels: dict):
         "flash_attention": len(config.vision.fullatt_block_indexes) * QWEN_TIMED_PAGES,
         "int4_matmul": (7 * layers + 1) * (1 + QWEN_NEW_TOKENS) * QWEN_TIMED_PAGES,
         "encoder_attention": 0, "encoder_attention_blf": 0,
-        "encoder_attention_blf_packed": 0, "int8_matmul": 0,
+        "encoder_attention_blf_packed": 0, "int8_matmul": 0, "encoder_attention_blhd": 0,
+        "conv3x3_nchw": 0, "ln_matmul": 0, "ln_stats": 0,
     }
     check(launches == want, f"launches {launches} != {want}")
     check(peak < QWEN_PEAK_LIMIT, f"peak memory {peak / 2**30:.2f} GiB")
@@ -1179,6 +1212,474 @@ def qwen_card_vs_cpu(ids, pixels, config) -> None:
     check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
 
 
+# --- the page programs' opt-in kernel routes (K5, K6, K7, K1-BLHD) ----------
+
+# (N, C, H, W, dilation) of the GL-CRM stages' 3x3s at variant m, 30 views of
+# 1024 px, and K5's launches per page at each: c2f_2 (2 bottlenecks) and
+# c2f_3 (4), a dilated cv1 and a plain cv2 in each
+K5_SHAPES = {
+    "c2f_2 cv1 (30,48,256,256) d=2": ((30, 48, 256, 256, 2), 2),
+    "c2f_2 cv2 (30,48,256,256) d=1": ((30, 48, 256, 256, 1), 2),
+    "c2f_3 cv1 (30,96,128,128) d=2": ((30, 96, 128, 128, 2), 4),
+    "c2f_3 cv2 (30,96,128,128) d=1": ((30, 96, 128, 128, 1), 4),
+}
+K5_HEADLINE = "c2f_2 cv1 (30,48,256,256) d=2"
+# (M, K, N, bias) of K6: the ViT page's ln1 -> [Wq|Wk|Wv] and ln2 -> fc1 over
+# 48 crops x 784 patches, and the mmE5 tower's ln2 -> fc1 over 8 crops x 1608
+K6_SHAPES = {
+    "vit qkv (37632,768)x(768,2304)": (37632, 768, 2304, False),
+    "vit fc1 (37632,768)x(768,3072) +bias": (37632, 768, 3072, True),
+    "mllama fc1 (12864,1280)x(1280,5120) +bias": (12864, 1280, 5120, True),
+}
+K6_HEADLINE = "vit fc1 (37632,768)x(768,3072) +bias"
+K7_SHAPES = {
+    "vit final_ln (48,784,768) bf16": ((48, 784, 768), "bfloat16"),
+    "mllama local (8,1608,1280) bf16": ((8, 1608, 1280), "bfloat16"),
+    "mllama global (8,1608,1280) f32": ((8, 1608, 1280), "float32"),
+}
+K7_HEADLINE = "mllama local (8,1608,1280) bf16"
+# K7 against its plain version: both take f32 sums of D <= 1280 values in
+# different orders; the mean may differ by 1e-5 of the row's rms and rstd by
+# 1e-5 of itself (a sum taken in bf16, or a two-pass variance, moves them by
+# 1e-3 and more)
+K7_RTOL = 1e-5
+ROUTE_SWITCHES = {"MMTPU_LN_STATS": "1", "MMTPU_ENC_ATTN_BLHD": "1"}
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Set the JAX package's opt-in kernel variables for the block, then
+    restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def gate(name, got, want, allowed, dtype) -> dict:
+    """Every ``|got − want|`` within ``allowed``; in bf16 the mean error
+    under 5% of the mean bf16 step (rounding flips are rare, a systematic
+    fault moves a large share of the outputs)."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    ratio = (err / allowed).max().item()
+    check(ratio <= 1.0, f"{name}: error {ratio:.3g}x its bound")
+    out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "bound_share": ratio}
+    if dtype == torch.bfloat16:
+        out["mean_step_share"] = out["mean_abs_err"] / bf16_step(want).mean().item()
+        check(out["mean_step_share"] <= K2_MEAN_STEP_SHARE,
+              f"{name}: mean err {out['mean_step_share']:.3g} of a bf16 step")
+    return out
+
+
+def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, timed=False):
+    """K5 against its plain version on channels-last x (``strided``: x is
+    the upper channel half of a channels-last tensor twice as wide, as the
+    CSP stage hands it on). Tolerance per output: 2·9C·2⁻²⁴·Σ|x·w| (f32 sums
+    in different orders, ×1.1 for SiLU's slope) plus, in bf16, 2 steps of
+    its rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    cout = cout or c
+    dev = torch.device("cuda")
+    wide = torch.randn((n, 2 * c if strided else c, h, w), generator=gen, device=dev)
+    x = wide.to(dtype).contiguous(memory_format=torch.channels_last)[:, -c:]
+    wt = (torch.randn((cout, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(dtype)
+    bias = torch.randn((cout,), generator=gen, device=dev) * 0.5
+    got = k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d)
+    want = k5.conv3x3_reference(x, wt, bias, "silu", d)
+    torch.cuda.synchronize()
+    check(got.is_contiguous(memory_format=torch.channels_last), f"{name}: not channels-last")
+    mag = F.conv2d(x.float().abs(), wt.float().abs(), padding=d, dilation=d)
+    allowed = 1.1 * 2 * 9 * c * 2.0**-24 * mag + 1e-30
+    if dtype == torch.bfloat16:
+        allowed = allowed + MAX_BF16_STEPS * bf16_step(want)
+    else:
+        allowed = allowed + 4 * 2.0**-24 * want.abs()  # the SiLU's own f32 roundings
+    out = gate(name, got, want, allowed, dtype)
+    del mag, allowed
+    line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {out['max_abs_err']:.3e} "
+            f"err/allowed {out['bound_share']:.3f}")
+    if timed:
+        bl = bias.to(dtype)
+        out["ms"] = median_ms(lambda: k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d))
+        out["plain_ms"] = median_ms(lambda: k5.conv3x3_reference(x, wt, bias, "silu", d), runs=10)
+        out["library_ms"] = median_ms(
+            lambda: F.silu(F.conv2d(x, wt, bl, padding=d, dilation=d)))
+        elem = x.element_size()
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            2.0 * n * h * w * cout * 9 * c,
+            elem * (n * h * w * (c + cout) + cout * c * 9) + 4 * cout, dtype)
+        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+                 f"F.conv2d+F.silu {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
+                 f"({out['bound_by']})")
+    print(line, flush=True)
+    return out
+
+
+def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False):
+    """K6 against its plain version. Tolerance per output: the summation
+    bound 2·K·2⁻²⁴·Σ|xn·w|, one bf16 step of one normalised input of the
+    row times its weight (statistics that differ in the last f32 bit may
+    round an input the other way), and, in bf16, 2 steps of the product's
+    rounding and 2 of the output's (with a bias it rounds twice)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    x = (torch.randn((m, k), generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+    gamma = torch.rand((k,), generator=gen, device=dev) + 0.5
+    beta = torch.randn((k,), generator=gen, device=dev) * 0.2
+    w = (torch.randn((k, n), generator=gen, device=dev) / k**0.5).to(dtype)
+    bias = (torch.randn((n,), generator=gen, device=dev) * 0.5).to(dtype) if with_bias else None
+    got = k6.ln_matmul(x, gamma, beta, w, bias=bias)
+    want = k6.ln_matmul_reference(x, gamma, beta, w, bias)
+    torch.cuda.synchronize()
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    xn = (xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6) * gamma + beta).to(dtype)
+    del xf, xc
+    wabs = w.float().abs()
+    allowed = 2 * k * 2.0**-24 * (xn.float().abs() @ wabs)
+    if dtype == torch.bfloat16:
+        allowed += torch.outer(bf16_step(xn).amax(-1), wabs.amax(0))
+        pre = want if bias is None else k6.ln_matmul_reference(x, gamma, beta, w)
+        allowed += MAX_BF16_STEPS * (bf16_step(pre) + bf16_step(want))
+        del pre
+    else:
+        allowed += 2.0**-23 * want.abs() + 1e-30
+    del xn, wabs
+    out = gate(name, got, want, allowed, dtype)
+    del allowed
+    line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {out['max_abs_err']:.3e} "
+            f"err/allowed {out['bound_share']:.3f}")
+    if timed:
+        elem = x.element_size()
+        out["ms"] = median_ms(lambda: k6.ln_matmul(x, gamma, beta, w, bias=bias))
+        out["plain_ms"] = median_ms(
+            lambda: k6.ln_matmul_reference(x, gamma, beta, w, bias), runs=10)
+        g16, b16 = gamma.to(dtype), beta.to(dtype)
+        out["ln_then_matmul_ms"] = median_ms(
+            lambda: F.layer_norm(x, (k,), g16, b16, 1e-6) @ w)
+        out["library_ms"] = None  # no one PyTorch call computes LayerNorm -> matmul
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            2.0 * m * k * n + 8.0 * m * k,
+            elem * (m * k + k * n + m * n + (n if with_bias else 0)) + 8 * k, dtype)
+        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+                 f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) [context: "
+                 f"F.layer_norm then x@W {out['ln_then_matmul_ms']:.4f} ms]")
+    print(line, flush=True)
+    return out
+
+
+def ln_stats_case(k7, gen, name, shape, dtype, timed=False):
+    """K7 against its plain version (tolerance: ``K7_RTOL``)."""
+    import torch
+
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.3 + 0.2).to(dtype)
+    mean, rstd = k7.ln_stats(x, 1e-6)
+    want_m, want_r = k7.ln_stats_reference(x, 1e-6)
+    torch.cuda.synchronize()
+    rms = x.float().pow(2).mean(-1, keepdim=True).sqrt()
+    out_m = gate(name + " mean", mean, want_m, K7_RTOL * rms + 1e-30, torch.float32)
+    out_r = gate(name + " rstd", rstd, want_r, K7_RTOL * want_r, torch.float32)
+    out = {"max_abs_err": max(out_m["max_abs_err"], out_r["max_abs_err"]),
+           "mean_max_abs_err": out_m["max_abs_err"], "rstd_max_abs_err": out_r["max_abs_err"]}
+    line = (f"{name}: mean max_abs_err {out_m['max_abs_err']:.3e} rstd max_abs_err "
+            f"{out_r['max_abs_err']:.3e}")
+    if timed:
+        b, l, d = shape
+        out["ms"] = median_ms(lambda: k7.ln_stats(x, 1e-6))
+        out["plain_ms"] = median_ms(lambda: k7.ln_stats_reference(x, 1e-6))
+        out["library_ms"] = median_ms(
+            lambda: torch.var_mean(x, dim=-1, keepdim=True, correction=0))
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            3.0 * b * l * d, x.element_size() * b * l * d + 8 * b * l, torch.float32)
+        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.4f} ms "
+                 f"torch.var_mean {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
+                 f"({out['bound_by']})")
+    print(line, flush=True)
+    return out
+
+
+def route_kernel_checks(k1, k5, k6, k7) -> dict:
+    """K5, K6, K7 and K1-BLHD against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    phase("4a. K5, K6, K7 and K1-BLHD against their plain versions (kernel-route shapes)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {"k5": {}, "k6": {}, "k7": {}}
+    for name, ((n, c, h, w, d), _) in K5_SHAPES.items():
+        res["k5"][name] = conv_case(k5, gen, name, n, c, h, w, d, bf16,
+                                    strided=name.endswith("d=2"), timed=True)
+    res["k5"]["f32"] = conv_case(k5, gen, "f32 (4,48,64,64) d=2", 4, 48, 64, 64, 2, f32,
+                                 timed=True)
+    for n, c, h, w, d, cout in ((2, 20, 13, 17, 1, 20), (3, 48, 7, 9, 4, 40),
+                                (1, 8, 5, 3, 2, 56), (2, 96, 11, 6, 2, 100)):
+        for dtype in (bf16, f32):
+            conv_case(k5, gen, f"ragged ({n},{c},{h},{w}) d={d} cout={cout}", n, c, h, w, d,
+                      dtype, cout=cout, strided=c == 48)
+    for name, (m, k, n, with_bias) in K6_SHAPES.items():
+        res["k6"][name] = ln_matmul_case(k6, gen, name, m, k, n, with_bias, bf16, timed=True)
+        torch.cuda.empty_cache()
+    res["k6"]["f32"] = ln_matmul_case(k6, gen, "f32 (1024,768)x(768,512) +bias", 1024, 768,
+                                      512, True, f32, timed=True)
+    for m, k, n in ((37, 200, 136), (1, 8, 16), (130, 128, 200), (300, 1000, 1030)):
+        for dtype in (bf16, f32):
+            ln_matmul_case(k6, gen, f"ragged ({m},{k})x({k},{n})", m, k, n, m % 2 == 1, dtype)
+    for name, (shape, dtype) in K7_SHAPES.items():
+        res["k7"][name] = ln_stats_case(k7, gen, name, shape, getattr(torch, dtype), timed=True)
+    for shape in ((1, 8, 40), (2, 16, 1000), (3, 24, 12), (1, 8, 4)):
+        for dtype in (bf16, f32):
+            ln_stats_case(k7, gen, f"ragged {shape} {str(dtype).split('.')[-1]}", shape, dtype)
+
+    # K1 over (B, L, H, D) head slices of the fused (B·L, 3·H·D) qkv product
+    def blhd_views(b, l, h, d, dtype):
+        slab = torch.randn((b * l, 3 * h * d), generator=gen, device="cuda").to(dtype)
+        return tuple(slab[:, i * h * d : (i + 1) * h * d].view(b, l, h, d) for i in range(3))
+
+    q, k, v = blhd_views(48, 784, 12, 64, bf16)
+    res["blhd"] = compare_attention(
+        "blhd (48,784,12,64) strided qkv bf16",
+        lambda: k1.encoder_attention_blhd(q, k, v),
+        lambda: k1.encoder_attention_blhd_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2)),
+        bf16, attention_bound(48, 12, 784, 784, 64, 64, bf16),
+    )
+    q, k, v = blhd_views(8, 784, 12, 64, f32)
+    res["blhd_f32"] = compare_attention(
+        "blhd (8,784,12,64) strided qkv f32",
+        lambda: k1.encoder_attention_blhd(q, k, v),
+        lambda: k1.encoder_attention_blhd_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2)),
+        f32, attention_bound(8, 12, 784, 784, 64, 64, f32),
+    )
+    worst = 0.0
+    for l in (1, 8, 17, 130):
+        q, k, v = blhd_views(2, l, 3, 40, f32)
+        got = k1.encoder_attention_blhd(q, k, v, sm_scale=0.3)
+        want = k1.encoder_attention_blhd_reference(q, k, v, 0.3)
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"blhd edge shapes (L = 1, 8, 17, 130; strided; scale 0.3) f32: "
+          f"max_abs_err {worst:.3e}")
+    check(worst <= ATOL_F32_MAX, f"blhd edges: max err {worst} > {ATOL_F32_MAX}")
+    per_page = sum(res["k5"][s]["ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    bound = sum(res["k5"][s]["bound_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    lib = sum(res["k5"][s]["library_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    print(f"K5 per page (12 launches) from these medians: {per_page:.3f} ms "
+          f"(bound {bound:.3f} ms, F.conv2d+F.silu {lib:.3f} ms)")
+    return res
+
+
+def route_counters(k1, k5, k6, k7) -> dict:
+    return {
+        "conv3x3_nchw": k5.conv3x3_nchw, "ln_matmul": k6.ln_matmul, "ln_stats": k7.ln_stats,
+        "encoder_attention_blhd": k1.encoder_attention_blhd,
+        "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
+        "encoder_attention_blf": k1.encoder_attention_blf,
+        "encoder_attention": k1.encoder_attention,
+    }
+
+
+def cosines(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(
+        a.float().reshape(a.shape[0], -1), b.float().reshape(b.shape[0], -1), dim=-1)
+
+
+def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dict:
+    """The ViT page with every opt-in kernel route on, at full width; held
+    against phase 4's default route on the same weights and page."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
+    from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+    from multimodal_embeddings_tpu_torch.models.vision_encoder import (
+        DualEncoderConfig,
+        VisionConfig,
+    )
+    from multimodal_embeddings_tpu_torch.ops.image import extract_views_matmul
+    from multimodal_embeddings_tpu_torch.pipeline.fused import (
+        build_split_page_fn,
+        view_slice_bounds_for_page,
+    )
+
+    phase("4b. the ViT page on the kernel routes (K5, K6, K7, K1-BLHD)")
+    t0 = time.perf_counter()
+    det_config = DetectorConfig(image_size=1024, variant="m", pallas_convs=96,
+                                pallas_mode="stage")
+    detector = LayoutDetector(det_config, dtype=torch.bfloat16, device="cuda", seed=0)
+    model_config = DualEncoderConfig(
+        vision=VisionConfig(448, 16, 768, 12, 12, fuse_ln=True), embed_dim=768)
+    embedder = MultimodalEmbedder(EmbedderConfig(family="siglip", dtype="bfloat16"),
+                                  model_config=model_config, device="cuda", seed=0)
+    fn = build_split_page_fn(detector, embedder, PAGE_HW, num_regions=NUM_REGIONS,
+                             embed_chunk=NUM_REGIONS)
+    pages = make_pages(1 + TIMED_PAGES)
+    torch.cuda.synchronize()
+    print(f"set-up (random init, upload): {time.perf_counter() - t0:.1f} s; "
+          f"{det_config} VisionConfig.fuse_ln=True {ROUTE_SWITCHES}")
+    counters = route_counters(k1, k5, k6, k7)
+    layers = model_config.vision.layers
+    per_page = {
+        "conv3x3_nchw": len(detector.model.kernel_bias_names()), "ln_matmul": 2 * layers,
+        "encoder_attention_blhd": layers, "ln_stats": 1, "encoder_attention_blf_packed": 1,
+        "encoder_attention_blf": 0, "encoder_attention": 0,
+    }
+    check(per_page["conv3x3_nchw"] == 12, f"K5 convs {per_page['conv3x3_nchw']} != 12")
+    with switches(ROUTE_SWITCHES):
+        t0 = time.perf_counter()
+        fn(pages[0])
+        torch.cuda.synchronize()
+        print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():
+            w.launches = 0
+        page_ms, results = [], []
+        for page in pages[1:]:
+            t0 = time.perf_counter()
+            res = fn(page)
+            torch.cuda.synchronize()
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            results.append(res)
+        launches = {name: w.launches for name, w in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = {name: cnt * TIMED_PAGES for name, cnt in per_page.items()}
+        check(launches == want, f"launches {launches} != {want}")
+        for res in results:
+            check_page(res, 768)
+        print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
+              + ", ".join(f"{t:.1f}" for t in page_ms) + ")")
+        print(f"launches over {TIMED_PAGES} pages: " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()))
+        print(f"peak device memory: {peak / 2**30:.2f} GiB")
+        det_ms, emb_ms = [], []
+        for page in pages[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *_, crops = fn.detect(page)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            embs = fn.embed(crops)
+            torch.cuda.synchronize()
+            det_ms.append((t1 - t0) * 1e3)
+            emb_ms.append((time.perf_counter() - t1) * 1e3)
+        print(f"detect+crop {statistics.mean(det_ms):.1f} ms/page, "
+              f"embed {statistics.mean(emb_ms):.1f} ms/page")
+        profile_run("kernel-route page", lambda: fn(pages[-1]))
+
+        # the same weights and page on phase 4's default route
+        with torch.inference_mode():
+            bounds = view_slice_bounds_for_page(PAGE_HW[1], PAGE_HW[0],
+                                                det_config.grid_configs,
+                                                det_config.overlap_percentage)
+            views = extract_views_matmul(pages[-1].to(torch.bfloat16), bounds, 1024,
+                                         dtype=torch.bfloat16) / 255.0
+            got_maps = detector.model(views)
+            with switches({k: "0" for k in ROUTE_SWITCHES}):
+                want_maps = default_detector.model(views)
+                want_embs = default_embedder.encode_image(crops)
+        level_cos = []
+        for (greg, gcls), (wreg, wcls) in zip(got_maps, want_maps):
+            c = torch.cat([cosines(greg, wreg), cosines(gcls, wcls)])
+            level_cos.append(c.min().item())
+        emb_cos = cosines(embs, want_embs)
+        print(f"kernel route vs default route, same weights and page: head maps cosine "
+              f"(min over the 30 views, per level) {[round(c, 6) for c in level_cos]}; "
+              f"embeddings of the same 48 crops min {emb_cos.min().item():.6f}")
+        check(min(level_cos) >= COSINE_MIN, f"head map cosine {level_cos} < {COSINE_MIN}")
+        check(bool((emb_cos >= COSINE_MIN).all()), f"embedding cosine {emb_cos.min()}")
+
+        cpu = MultimodalEmbedder(EmbedderConfig(family="siglip", dtype="float32"),
+                                 model_config=model_config, device="cpu", seed=0)
+        ref = cpu.encode_image(crops[:2].float().cpu())
+        cos = cosines(embs[:2].cpu(), ref)
+        print(f"fused ViT: card (bf16, kernels) vs CPU (f32, plain): "
+              f"{[round(c, 6) for c in cos.tolist()]}")
+        check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
+    return launches
+
+
+def mme5_tower(k1, k5, k6, k7, embedder, crops) -> dict:
+    """Phase 8's mmE5-11B vision tower, its weights reused, with
+    ``fuse_ln="mlp"`` and the LayerNorm statistics on K7, over one chunk."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
+    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaVisionEncoder
+
+    phase('8a. mmE5-11B vision tower with fuse_ln="mlp" and MMTPU_LN_STATS=1 (one chunk)')
+    config = embedder.model_config
+    default = embedder.model.vision_model
+    cfg = dataclasses.replace(config.vision, fuse_ln="mlp")
+    with torch.device("meta"):
+        tower = MllamaVisionEncoder(cfg, config.text.hidden, embedder.dtype)
+    tower.load_state_dict(default.state_dict(), assign=True)  # the same tensors
+    tower.eval()
+    mean = torch.tensor(IMAGE_MEAN, device="cuda", dtype=crops.dtype)
+    std = torch.tensor(IMAGE_STD, device="cuda", dtype=crops.dtype)
+    chunk = ((crops[:MME5_CHUNK] - mean) / std)[:, None]
+    ids = torch.ones(MME5_CHUNK, dtype=torch.long, device="cuda")
+    counters = route_counters(k1, k5, k6, k7)
+    runs = 3
+    with switches({"MMTPU_LN_STATS": "1"}), torch.inference_mode():
+        tower(chunk, ids)
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            got, _ = tower(chunk, ids)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: w.launches for name, w in counters.items()}
+    with torch.inference_mode():
+        default(chunk, ids)
+        torch.cuda.synchronize()
+        base = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            want, _ = default(chunk, ids)
+            torch.cuda.synchronize()
+            base.append((time.perf_counter() - t0) * 1e3)
+    v = cfg
+    per_chunk = {"conv3x3_nchw": 0, "ln_matmul": v.layers,
+                 "ln_stats": v.layers + 1 + 2 * v.global_layers, "encoder_attention_blhd": 0,
+                 "encoder_attention_blf_packed": 0, "encoder_attention_blf": 0,
+                 "encoder_attention": v.layers + v.global_layers}
+    want_launches = {k: c * runs for k, c in per_chunk.items()}
+    check(launches == want_launches, f"launches {launches} != {want_launches}")
+    check(bool(torch.isfinite(got).all()), "non-finite tower output")
+    cos = cosines(got, want)
+    print(f"ms per chunk of {MME5_CHUNK}: kernel routes {statistics.median(times):.1f} "
+          f"(runs: " + ", ".join(f"{t:.1f}" for t in times) + f"), default route "
+          f"{statistics.median(base):.1f}")
+    print(f"launches per chunk: " + ", ".join(f"{k} {c // runs}" for k, c in launches.items()))
+    print(f"tower output vs the default route, same chunk: cosine per crop min "
+          f"{cos.min().item():.6f}")
+    check(bool((cos >= COSINE_MIN).all()), f"tower cosine {cos.tolist()} < {COSINE_MIN}")
+    return {k: c // runs for k, c in launches.items()}
+
+
 def main() -> int:
     import gc
 
@@ -1187,20 +1688,34 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from multimodal_embeddings_tpu_torch.kernels import conv as k5
     from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
     from multimodal_embeddings_tpu_torch.kernels import flash_attention as k4
+    from multimodal_embeddings_tpu_torch.kernels import ln_matmul as k6
+    from multimodal_embeddings_tpu_torch.kernels import ln_stats as k7
     from multimodal_embeddings_tpu_torch.kernels import quantization as k2
     from multimodal_embeddings_tpu_torch.kernels import quantization_int4 as k3
 
     start = time.perf_counter()
     smi = card()
-    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4))
+    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7))
     checks = kernel_checks(k1)
-    vit_launches, crops, embs, model_config, detector = full_slice(k1)
+    vit_launches, crops, embs, model_config, detector, vit_embedder = full_slice(k1)
     card_vs_cpu(crops, embs, model_config)
+    route = route_kernel_checks(k1, k5, k6, k7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    route_launches = kernel_route_page(k1, k5, k6, k7, detector, vit_embedder)
+    del vit_embedder
+    gc.collect()
+    torch.cuda.empty_cache()
     masked = masked_checks(k1)
     int8 = int8_checks(k2)
-    mme5_launches, mme5_crops, _, mme5_config = mme5_page(k1, k2, detector)
+    mme5_launches, mme5_crops, _, mme5_config, mme5_embedder = mme5_page(k1, k2, detector)
+    tower_launches = mme5_tower(k1, k5, k6, k7, mme5_embedder, mme5_crops)
+    del mme5_embedder
+    gc.collect()
+    torch.cuda.empty_cache()
     mme5_card_vs_cpu(mme5_crops, mme5_config)
     del detector, crops, embs, mme5_crops
     gc.collect()
@@ -1215,6 +1730,8 @@ def main() -> int:
         "encoder_attention_blf": k1.encoder_attention_blf,
         "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
         "int8_matmul": k2.int8_matmul,
+        "encoder_attention_blhd": k1.encoder_attention_blhd,
+        "conv3x3_nchw": k5.conv3x3_nchw, "ln_matmul": k6.ln_matmul, "ln_stats": k7.ln_stats,
     }
     qwen_launches, ids, pixels, qwen_config = qwen_page(wrappers)
     gc.collect()
@@ -1239,6 +1756,12 @@ def main() -> int:
     k3_head["max_abs_err"] = max(r["max_abs_err"] for r in int4.values())
     k4_head = dict(flash["vision"])
     k4_head["max_abs_err"] = max(r["max_abs_err"] for r in flash.values())
+    k5_head = dict(route["k5"][K5_HEADLINE])
+    k5_head["max_abs_err"] = max(route["k5"][s]["max_abs_err"] for s in K5_SHAPES)
+    k6_head = dict(route["k6"][K6_HEADLINE])
+    k6_head["max_abs_err"] = max(route["k6"][s]["max_abs_err"] for s in K6_SHAPES)
+    k7_head = dict(route["k7"][K7_HEADLINE])
+    k7_head["max_abs_err"] = max(route["k7"][s]["max_abs_err"] for s in K7_SHAPES)
     kernels = [
         entry("encoder_attention_blf", src, f"{ref}:327", vit_launches["blf"],
               {"vit_page": vit_launches["blf"], "mme5_page": mme5_launches["blf"],
@@ -1246,11 +1769,13 @@ def main() -> int:
               "(48,784,768) H=12 bf16", vit),
         entry("encoder_attention_blf_packed", src, f"{ref}:458", vit_launches["packed"],
               {"vit_page": vit_launches["packed"], "mme5_page": mme5_launches["packed"],
-               "qwen_page": qwen_launches["encoder_attention_blf_packed"]},
+               "qwen_page": qwen_launches["encoder_attention_blf_packed"],
+               "vit_kernel_route_page": route_launches["encoder_attention_blf_packed"]},
               "(30,1024,576) 4x(36|36|72) bf16", psa),
         entry("encoder_attention", src, f"{ref}:523 (and encoder_attention_padded :619)",
               mme5_launches["masked"], {"mme5_page": mme5_launches["masked"],
-                                        "qwen_page": qwen_launches["encoder_attention"]},
+                                        "qwen_page": qwen_launches["encoder_attention"],
+                                        "mme5_tower_fuse_mlp": tower_launches["encoder_attention"]},
               "(8,1608,16,80) valid 1601 bf16", masked[torch.bfloat16]),
         entry("int8_matmul", "multimodal_embeddings_tpu_torch/csrc/int8_matmul.cu",
               "multimodal_embeddings_tpu/kernels/quantization.py:219",
@@ -1268,7 +1793,30 @@ def main() -> int:
               qwen_launches["flash_attention"], {"qwen_page": qwen_launches["flash_attention"]},
               "(1,4960,16,80) bf16 non-causal (max_abs_err over it and the causal text "
               "shape)", k4_head),
+        entry("encoder_attention_blhd", src, f"{ref}:157",
+              route_launches["encoder_attention_blhd"],
+              {"vit_kernel_route_page": route_launches["encoder_attention_blhd"],
+               "qwen_page": qwen_launches["encoder_attention_blhd"]},
+              "(48,784,12,64) strided qkv bf16", route["blhd"]),
+        entry("conv3x3_nchw", "multimodal_embeddings_tpu_torch/csrc/conv3x3.cu",
+              "multimodal_embeddings_tpu/kernels/conv.py:112", route_launches["conv3x3_nchw"],
+              {"vit_kernel_route_page": route_launches["conv3x3_nchw"],
+               "qwen_page": qwen_launches["conv3x3_nchw"]},
+              K5_HEADLINE + " bf16 (max_abs_err over the four page shapes)", k5_head),
+        entry("ln_matmul", "multimodal_embeddings_tpu_torch/csrc/ln_matmul.cu",
+              "multimodal_embeddings_tpu/kernels/ln_matmul.py:73", route_launches["ln_matmul"],
+              {"vit_kernel_route_page": route_launches["ln_matmul"],
+               "mme5_tower_fuse_mlp": tower_launches["ln_matmul"],
+               "qwen_page": qwen_launches["ln_matmul"]},
+              K6_HEADLINE + " bf16 (max_abs_err over the three path shapes)", k6_head),
+        entry("ln_stats", "multimodal_embeddings_tpu_torch/csrc/ln_stats.cu",
+              "multimodal_embeddings_tpu/kernels/ln_stats.py:96", route_launches["ln_stats"],
+              {"vit_kernel_route_page": route_launches["ln_stats"],
+               "mme5_tower_fuse_mlp": tower_launches["ln_stats"],
+               "qwen_page": qwen_launches["ln_stats"]},
+              K7_HEADLINE + " (max_abs_err over the three path shapes)", k7_head),
     ]
+    kernels[-2]["layer_norm_then_matmul_ms_context"] = k6_head["ln_then_matmul_ms"]
     kernels[3]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
     kernels[4]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
     print(smi)

@@ -3,10 +3,11 @@
 that the port and its runs import nothing of the JAX package.
 
 Each field here is the JAX field of the same name with the same default
-(``tests/test_torch_config.py`` holds the two together). Fields that select
-a path the port does not have are left out: the TPU conv paths
-(``s2d_stem``, ``pallas_convs``, ``pallas_mode``) and the letterboxed views
-(``device_letterbox``).
+(``tests/test_torch_config.py`` holds the two together). ``pallas_convs``
+and ``pallas_mode`` select the GL-CRM stages' route through the 3×3 conv
+kernel (K5, ``kernels/conv.py``). Fields that select a path the port does
+not have are left out: the space-to-depth stem (``s2d_stem``) and the
+letterboxed views (``device_letterbox``); neither runs a kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ class DetectorConfig:
     # DocLayout-YOLO GL-CRM backbone blocks (the DocStructBench checkpoint
     # is this architecture, not base v10 — arXiv 2410.12628)
     glcrm: bool = True
+    # Route GL-CRM inner 3x3 convs with <= this many channels through the
+    # hand-written 3x3 conv kernel (kernels/conv.py, K5); 0 = library convs.
+    # The JAX package's measured-win widths are 48 and 96.
+    pallas_convs: int = 0
+    # Where the kernel route starts: "stage" runs the whole G2L_CRM stage on
+    # it (cv1, cv2 and the gates as channel products), "block" only each
+    # bottleneck's two 3x3s (cv1/cv2 stay library convs).
+    pallas_mode: str = "stage"
 
 
 @dataclasses.dataclass(frozen=True)

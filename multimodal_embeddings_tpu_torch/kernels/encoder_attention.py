@@ -19,7 +19,12 @@ kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v through
 * ``encoder_attention``: ``(B, L, H, D)`` operands and a key prefix
   ``valid_len`` (the Mllama vision tower: 1601 valid of 1608 rows). The JAX
   ``encoder_attention_padded`` pads L to 16 for the TPU's sublanes; the
-  kernel takes any L, so this one wrapper stands for both.
+  kernel takes any L, so this one wrapper stands for both;
+* ``encoder_attention_blhd``: ``(B, L, H, D)`` operands over all keys with a
+  given scale — the opt-in route of ``sdpa`` (``MMTPU_ENC_ATTN_BLHD=1``),
+  whose q/k/v are strided column slices of the fused LayerNorm→qkv product,
+  read in place. ``blhd_supported`` is the JAX package's dispatch rule, so
+  the route is taken at the same shapes.
 
 What bounds the kernel on an H100, and what its design does about it, is
 written at the top of the CUDA source. Numerics (both the kernel and the
@@ -129,6 +134,13 @@ def encoder_attention_blf_packed_reference(
     """Plain version of ``encoder_attention_blf_packed``."""
     q, k, v = _split_packed(qkv, heads, key_dim)
     return _merge(_attend_plain(q, k, v, 1.0 / math.sqrt(key_dim)))
+
+
+def encoder_attention_blhd_reference(q, k, v, sm_scale=None) -> torch.Tensor:
+    """Plain version of ``encoder_attention_blhd``."""
+    scale = 1.0 / math.sqrt(q.shape[3]) if sm_scale is None else sm_scale
+    o = _attend_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale)
+    return o.transpose(1, 2)
 
 
 def encoder_attention_reference(
@@ -273,3 +285,56 @@ def encoder_attention(
 
 
 encoder_attention.launches = 0
+
+
+def _blhd_pick_hpb(l, h, d, dv, dtype):
+    """Largest LEGAL head block fitting the VMEM budget, or None.
+
+    Mosaic requires a block's last two dims be (8, 128)-divisible OR
+    equal to the full array dims — so a (1, L, hpb, D) block needs hpb
+    to be a multiple of 8 or hpb == H (the headline chain-23 crash:
+    hpb=2 of H=4 was rejected)."""
+    ib = 6 if dtype == torch.bfloat16 else 8
+    elem = dtype.itemsize
+    inter = ib * l * l
+    legal = {h} | {c for c in range(8, h, 8) if h % c == 0}
+    fitting = [
+        hpb
+        for hpb in legal
+        if 2 * l * hpb * (2 * d + 2 * dv) * elem + inter <= 14e6
+    ]
+    return max(fitting) if fitting else None
+
+
+def blhd_supported(q, v) -> bool:
+    """Whether the JAX package takes its BLHD variant at these shapes (a
+    TPU VMEM rule, kept so that ``sdpa`` dispatches where JAX does)."""
+    _, l, h, d = q.shape
+    return _blhd_pick_hpb(l, h, d, v.shape[3], q.dtype) is not None
+
+
+def encoder_attention_blhd(
+    q: torch.Tensor,  # (B, L, H, D)
+    k: torch.Tensor,  # (B, L, H, D)
+    v: torch.Tensor,  # (B, L, H, Dv)
+    sm_scale=None,
+) -> torch.Tensor:
+    """Unmasked whole-row attention over ``(B, L, H, D)`` operands, read
+    through their (batch, row, head) strides without a copy, scale
+    ``sm_scale`` (``1/√D`` when None). Returns ``(B, L, H, Dv)`` in q's
+    dtype."""
+    b, l, h, d = q.shape
+    if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != (b, l, h):
+        raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape}")
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+    if q.device.type == "cpu":
+        return encoder_attention_blhd_reference(q, k, v, scale)
+    _check_cuda(q, k, v)
+    dv = v.shape[3]
+    heads = (q.stride(2), k.stride(2), v.stride(2))
+    out = _launch(q, k, v, h, d, dv, heads, scale, l)
+    encoder_attention_blhd.launches += 1
+    return out.view(b, l, h, dv)
+
+
+encoder_attention_blhd.launches = 0

@@ -1,11 +1,14 @@
 """YOLOv10 / DocLayout-YOLO building blocks in PyTorch.
 
-Port of ``multimodal_embeddings_tpu/models/layers.py`` on its default
-(NHWC/XLA) path. Modules compute in NCHW tensors, best kept in
+Port of ``multimodal_embeddings_tpu/models/layers.py``: its default
+(NHWC/XLA) path, and the GL-CRM stages' route through the 3×3 conv kernel
+(K5, ``kernels/conv.py``) that the JAX package's ``pallas_max_channels`` /
+``pallas_mode`` select. Modules compute in NCHW tensors, best kept in
 ``torch.channels_last`` memory: then the PSA block's ``(B, L, C)`` view of
-its qkv conv output is free. Submodule names are the JAX scope names
-(``cv1``, ``m0``, ``bn`` folded into ``conv``...), so
-``models/weights.py`` maps parameters by path.
+its qkv conv output is free, and K5 reads the stages' tensors in place.
+Submodule names are the JAX scope names (``cv1``, ``m0``, ``bn`` folded
+into ``conv``...), so ``models/weights.py`` maps parameters by path; the
+kernel route has the same parameters.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_embeddings_tpu_torch.kernels.conv import conv3x3_nchw
 from multimodal_embeddings_tpu_torch.kernels.encoder_attention import (
     encoder_attention_blf_packed,
 )
@@ -126,35 +130,83 @@ class C2f(_CSP):
         super().__init__(c_in, c_out, n, expansion, block)
 
 
+def _pw_nchw(x, w_oi, bias, act: bool = False):
+    """Pointwise (1×1) conv as a channel product, the JAX ``_pw_nchw``
+    numerics: the product in x's dtype, then the bias cast to that dtype and
+    added, then SiLU. ``w_oi`` is ``(Cout, C)``."""
+    y = torch.matmul(x.permute(0, 2, 3, 1), w_oi.t().to(x.dtype)).permute(0, 3, 1, 2)
+    y = y + bias.to(y.dtype).reshape(1, -1, 1, 1)
+    return F.silu(y) if act else y
+
+
 class CRMBottleneck(nn.Module):
     """GL-CRM inner block: dilated 3×3 ("global"), then 3×3 ("local"),
     scaled by a per-pixel sigmoid gate (1×1 conv with bias over the block
-    input), plus the residual."""
+    input), plus the residual.
 
-    def __init__(self, c_in: int, c: int, shortcut: bool = True, dilation: int = 2):
+    ``kernel=True`` is the JAX ``_nchw_forward`` / ``_pallas_forward``
+    route (inference): the two 3×3s on K5 with their folded f32 biases and
+    the SiLU fused, the gate as a channel product."""
+
+    def __init__(
+        self, c_in: int, c: int, shortcut: bool = True, dilation: int = 2,
+        kernel: bool = False,
+    ):
         super().__init__()
+        self.dilation = dilation
+        self.kernel = kernel
         self.cv1 = ConvBnAct(c_in, c, 3, dilation=dilation)
         self.cv2 = ConvBnAct(c, c, 3)
         self.gate = nn.Conv2d(c_in, c, 1)
         self.add = shortcut and c_in == c
 
     def forward(self, x):
-        y = self.cv2(self.cv1(x)) * torch.sigmoid(self.gate(x))
+        if self.kernel:
+            y = conv3x3_nchw(x, self.cv1.conv.weight, self.cv1.conv.bias.float(),
+                             act="silu", dilation=self.dilation)
+            y = conv3x3_nchw(y, self.cv2.conv.weight, self.cv2.conv.bias.float(), act="silu")
+            gate = _pw_nchw(x, self.gate.weight[:, :, 0, 0], self.gate.bias)
+        else:
+            y, gate = self.cv2(self.cv1(x)), self.gate(x)
+        y = y * torch.sigmoid(gate)
         return x + y if self.add else y
 
 
 class G2L_CRM(_CSP):
     """Global-to-local controllable receptive module: the C2f scaffold with
-    ``CRMBottleneck`` inner blocks."""
+    ``CRMBottleneck`` inner blocks.
+
+    Inner widths ``c ≤ pallas_max_channels`` (0: none) take the K5 route:
+    ``pallas_mode="stage"`` runs the whole stage on it (cv1, cv2 and the
+    gates as channel products, the JAX ``_stage_nchw``), ``"block"`` only
+    the bottlenecks (cv1/cv2 stay library convs). Channels-last tensors
+    flow through unchanged: the JAX stage edge's NHWC↔NCHW transposes were
+    a TPU layout concern."""
 
     def __init__(
         self, c_in: int, c_out: int, n: int = 1, dilation: int = 2,
-        shortcut: bool = True, expansion: float = 0.5,
+        shortcut: bool = True, expansion: float = 0.5, pallas_max_channels: int = 0,
+        pallas_mode: str = "stage",
     ):
+        if pallas_mode not in ("stage", "block"):
+            raise ValueError(f"pallas_mode must be 'stage' or 'block', not {pallas_mode!r}")
+        kernel = 0 < int(c_out * expansion) <= pallas_max_channels
         super().__init__(
             c_in, c_out, n, expansion,
-            lambda c: CRMBottleneck(c, c, shortcut, dilation),
+            lambda c: CRMBottleneck(c, c, shortcut, dilation, kernel=kernel),
         )
+        self.stage = kernel and pallas_mode == "stage"
+
+    def forward(self, x):
+        if not self.stage:
+            return super().forward(x)
+        c = self.c
+        y = _pw_nchw(x, self.cv1.conv.weight[:, :, 0, 0], self.cv1.conv.bias, act=True)
+        parts = [y[:, :c], y[:, c:]]
+        for i in range(self.n):
+            parts.append(getattr(self, f"m{i}")(parts[-1]))
+        y = torch.cat(parts, dim=1)
+        return _pw_nchw(y, self.cv2.conv.weight[:, :, 0, 0], self.cv2.conv.bias, act=True)
 
 
 class SCDown(nn.Module):

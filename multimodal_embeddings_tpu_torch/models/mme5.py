@@ -51,7 +51,10 @@ class MllamaVisionConfig:
     mlp_ratio: float = 4.0
     intermediate_layers: Tuple[int, ...] = (3, 7, 15, 23, 30)
     max_tiles: int = 4
-    fuse_ln: object = False  # TPU-only option of the JAX package; must stay False
+    # fused LayerNorm→matmul prologue (K6, kernels/ln_matmul.py) in the
+    # local blocks: False | True | "attn" | "mlp" (the fc1 site is the
+    # JAX package's measured target)
+    fuse_ln: object = False
 
     @property
     def patches_per_tile(self) -> int:
@@ -181,8 +184,6 @@ class MllamaVisionEncoder(nn.Module):
 
     def __init__(self, config: MllamaVisionConfig, out_dim: int, dtype, quantize=False):
         super().__init__()
-        if config.fuse_ln:
-            raise ValueError("fuse_ln is a TPU kernel option; the port has none")
         c, w = config, config.width
         self.config = c
         self.dtype = dtype
@@ -196,7 +197,8 @@ class MllamaVisionEncoder(nn.Module):
         self.pre_ln = FastLayerNorm(w, dtype=dtype)
         for i in range(c.layers):
             self.add_module(
-                f"local{i}", EncoderBlock(w, c.heads, c.mlp_ratio, quantize, dtype)
+                f"local{i}",
+                EncoderBlock(w, c.heads, c.mlp_ratio, quantize, dtype, fuse_ln=c.fuse_ln),
             )
         self.post_ln = FastLayerNorm(w, dtype=dtype)
         self.post_tile_pos_embed = TilePositionalEmbedding(c.max_tiles, w, n_ids)

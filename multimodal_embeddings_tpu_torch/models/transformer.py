@@ -10,6 +10,19 @@ flattened, and applied as ``x @ W``; a bias keeps the JAX bias's shape
 ``quantize`` swaps in the int8 ``Int8Dense`` or the packed-int4
 ``Int4Dense`` (``models/quantized.py``). ``models/weights.py`` converts.
 
+The JAX package's opt-in kernel routes run here too:
+
+* ``EncoderBlock(fuse_ln=True | "attn" | "mlp")`` fuses a pre-LN into the
+  next projection — ln1 into one ``[Wq|Wk|Wv]`` product, ln2 into fc1 with
+  its bias — through K6 (``kernels/ln_matmul.py``), for a bf16 block input
+  of width divisible by 128 that is not quantized, as JAX gates it;
+* ``MMTPU_LN_STATS=1``: ``FastLayerNorm``'s statistics of a 3-D input with
+  a length divisible by 8 through K7 (``kernels/ln_stats.py``);
+* ``MMTPU_ENC_ATTN_BLHD=1``: ``sdpa``'s whole-row route through
+  ``encoder_attention_blhd`` where the JAX package takes its BLHD kernel.
+
+The two variables are read at call time, by ``_switch``.
+
 Types follow the JAX modules: ``dtype`` is the compute type that norms
 cast their output to and int8 projections run in; a float Dense computes
 in its weight's type. Gates and norm scales are kept in f32 (see
@@ -20,6 +33,7 @@ to f32 exactly where the JAX modules do.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -27,13 +41,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_embeddings_tpu_torch.kernels.encoder_attention import (
+    blhd_supported,
     encoder_attention,
     encoder_attention_blf,
+    encoder_attention_blhd,
 )
 from multimodal_embeddings_tpu_torch.kernels.flash_attention import flash_attention
+from multimodal_embeddings_tpu_torch.kernels.ln_matmul import ln_matmul
+from multimodal_embeddings_tpu_torch.kernels.ln_stats import ln_stats
 from multimodal_embeddings_tpu_torch.models.quantized import quant_dense_cls
 
 NEG_INF = -1e30
+
+
+def _switch(name: str) -> bool:
+    """An opt-in kernel route of the JAX package, read at call time:
+    ``MMTPU_LN_STATS`` or ``MMTPU_ENC_ATTN_BLHD`` set to ``"1"``."""
+    return os.environ.get(name) == "1"
 
 
 class Dense(nn.Module):
@@ -71,7 +95,9 @@ class FastLayerNorm(nn.Module):
     """LayerNorm with the JAX fallback's arithmetic: f32 statistics by the
     one-pass formula ``var = max(mean(x²) − mean², 0)``, eps 1e-6, result
     cast to ``dtype`` (the input's when None) — not ``F.layer_norm``'s
-    two-pass variance."""
+    two-pass variance. Under ``MMTPU_LN_STATS=1`` the statistics of a
+    ``(B, L, D)`` input with ``L % 8 == 0`` come from K7 (``ln_stats``);
+    the normalise and affine stay the same tensor code."""
 
     def __init__(self, features: int, eps: float = 1e-6, dtype=None):
         super().__init__()
@@ -82,9 +108,12 @@ class FastLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        rstd = torch.rsqrt(var + self.eps)
+        if _switch("MMTPU_LN_STATS") and x.dim() == 3 and x.shape[1] % 8 == 0:
+            mean, rstd = ln_stats(x.contiguous(), self.eps)
+        else:
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+            rstd = torch.rsqrt(var + self.eps)
         y = (xf - mean) * (rstd * self.scale.float()) + self.bias.float()
         return y.to(self.dtype or x.dtype)
 
@@ -165,7 +194,9 @@ def sdpa(
     * unmasked self-attention with Lq = Lk ≥ 2048 (causal or not, GQA or
       not) → K4;
     * unmasked non-causal self-attention without GQA at L ∈ [256, 1664],
-      L % 16 = 0, head dims ≤ 128 → K1;
+      L % 16 = 0, head dims ≤ 128 → K1: under ``MMTPU_ENC_ATTN_BLHD=1``
+      through ``encoder_attention_blhd`` where ``blhd_supported``, else
+      ``encoder_attention``;
     * a single query row with GQA (decode) folds the query heads into the
       query axis, so K/V are read once;
     * everything else runs the XLA-path numerics below. KV head ``i`` serves
@@ -193,6 +224,8 @@ def sdpa(
     if mask is None and lq == lk and lq >= FLASH_MIN_LEN:
         return flash_attention(q, k, v, causal=causal)
     if _enc_attn_eligible(q, k, v, mask, causal):
+        if _switch("MMTPU_ENC_ATTN_BLHD") and blhd_supported(q, v):
+            return encoder_attention_blhd(q, k, v)
         return encoder_attention(q, k, v)
 
     b, h, d = q.shape[0], q.shape[2], q.shape[3]
@@ -239,7 +272,12 @@ class Attention(nn.Module):
     ``encoder_attention`` (the Mllama vision tower's 1601 of 1608). Every
     length goes to K1 (the JAX package's [256, 1664] window and ``% 16``
     gate are TPU VMEM rules). Everything else runs ``sdpa``; a key prefix
-    is only taken on the K1 path."""
+    is only taken on the K1 path.
+
+    ``pre_ln=(scale, bias)`` is the fused prologue of a float block's
+    self-attention: the block's LayerNorm and the q/k/v projections as ONE
+    K6 product over ``[Wq|Wk|Wv]``, then ``sdpa`` on strided views of its
+    output."""
 
     def __init__(
         self,
@@ -276,9 +314,12 @@ class Attention(nn.Module):
         mask: Optional[torch.Tensor] = None,
         causal: bool = False,
         key_valid_len: Optional[int] = None,
+        pre_ln: Optional[tuple] = None,
     ) -> torch.Tensor:
         b, l, _ = x.shape
         h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        if pre_ln is not None:
+            return self._fused_prologue(x, mask, causal, key_valid_len, pre_ln)
         src = x if kv is None else kv
         q, k, v = self.q(x), self.k(src), self.v(src)
         if (
@@ -293,26 +334,51 @@ class Attention(nn.Module):
                     valid_len=key_valid_len,
                 ).reshape(b, l, h * d)
             return self.o(o)
-        q = q.view(b, l, h, d)
-        k = k.view(b, -1, kvh, d)
-        v = v.view(b, -1, kvh, d)
+        return self._attend(x, q.view(b, l, h, d), k.view(b, -1, kvh, d),
+                            v.view(b, -1, kvh, d), mask, causal)
+
+    def _fused_prologue(self, x, mask, causal, key_valid_len, pre_ln):
+        b, l, width = x.shape
+        h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        w = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=1)
+        fused = ln_matmul(x.reshape(-1, width).to(w.dtype), *pre_ln, w)
+        nq, nk = h * d, kvh * d
+        q = fused[:, :nq].view(b, l, h, d)
+        k = fused[:, nq : nq + nk].view(b, l, kvh, d)
+        v = fused[:, nq + nk :].view(b, l, kvh, d)
+        return self._attend(x, q, k, v, mask, causal, key_valid_len)
+
+    def _attend(self, x, q, k, v, mask, causal, key_valid_len=None):
+        """q/k/v norms and rotary, ``sdpa``, the out projection."""
+        b, l, _ = x.shape
+        h, d = self.num_heads, self.head_dim
         if self.use_qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         if self.use_rope:
             cos, sin = rope_frequencies(d, max(l, k.shape[1]), self.rope_theta, x.device)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        o = sdpa(q, k, v, mask=mask, causal=causal)
+        o = sdpa(q, k, v, mask=mask, causal=causal, key_valid_len=key_valid_len)
         return self.o(o.reshape(b, l, h * d))
 
 
 class GeluMLP(nn.Module):
+    """fc1 → GELU (tanh) → fc2. ``pre_ln=(scale, bias)``: a float block's
+    LayerNorm and fc1 (with its bias) as one K6 product."""
+
     def __init__(self, width: int, hidden: int, quantize: bool = False, dtype=None):
         super().__init__()
         self.fc1 = _dense(width, hidden, True, None, quantize, dtype)
         self.fc2 = _dense(hidden, width, True, None, quantize, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, pre_ln: Optional[tuple] = None) -> torch.Tensor:
+        if pre_ln is not None:
+            w = self.fc1.weight
+            h = ln_matmul(x.reshape(-1, x.shape[-1]).to(w.dtype), *pre_ln, w,
+                          bias=self.fc1.bias.to(w.dtype))
+            h = h.view(*x.shape[:-1], -1)
+        else:
+            h = self.fc1(x)
+        return self.fc2(F.gelu(h, approximate="tanh"))
 
 
 class SwiGLU(nn.Module):
@@ -327,13 +393,21 @@ class SwiGLU(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``.
+
+    ``fuse_ln`` ∈ {False, True, "attn", "mlp"} fuses ln1 into the q/k/v
+    projections and/or ln2 into fc1 (K6), where the block input is bf16 of
+    a width divisible by 128 and the block is not quantized — the JAX
+    gate; elsewhere the block runs unfused. The parameters are the same
+    either way."""
 
     def __init__(
         self, width: int, num_heads: int, mlp_ratio: float = 4.0,
-        quantize: bool = False, dtype=None,
+        quantize: bool = False, dtype=None, fuse_ln=False,
     ):
         super().__init__()
+        self.fuse_ln = fuse_ln
+        self.quantize = quantize
         self.ln1 = FastLayerNorm(width, dtype=dtype)
         self.attn = Attention(
             width, num_heads, width // num_heads, quantize=quantize, dtype=dtype
@@ -342,7 +416,16 @@ class EncoderBlock(nn.Module):
         self.mlp = GeluMLP(width, int(width * mlp_ratio), quantize, dtype)
 
     def forward(self, x, mask=None, key_valid_len=None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask=mask, key_valid_len=key_valid_len)
+        fuse = (bool(self.fuse_ln) and not self.quantize and x.dtype == torch.bfloat16
+                and x.shape[-1] % 128 == 0)
+        if fuse and self.fuse_ln in (True, "attn"):
+            h = self.attn(x, mask=mask, key_valid_len=key_valid_len,
+                          pre_ln=(self.ln1.scale, self.ln1.bias))
+        else:
+            h = self.attn(self.ln1(x), mask=mask, key_valid_len=key_valid_len)
+        x = x + h
+        if fuse and self.fuse_ln in (True, "mlp"):
+            return x + self.mlp(x, pre_ln=(self.ln2.scale, self.ln2.bias))
         return x + self.mlp(self.ln2(x))
 
 

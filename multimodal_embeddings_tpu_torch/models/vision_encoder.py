@@ -29,7 +29,9 @@ class VisionConfig:
     layers: int = 12
     heads: int = 12
     mlp_ratio: float = 4.0
-    fuse_ln: bool = False  # TPU-only option of the JAX package; must stay False
+    # fused LayerNorm→matmul prologue (K6, kernels/ln_matmul.py) in every
+    # block; bf16 towers of a width divisible by 128 only, as in JAX
+    fuse_ln: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +65,6 @@ class ViTower(nn.Module):
 
     def __init__(self, config: VisionConfig, embed_dim: int):
         super().__init__()
-        if config.fuse_ln:
-            raise ValueError("fuse_ln is a TPU kernel option; the port has none")
         self.config = config
         c, p = config.width, config.patch_size
         self.patch_embed = nn.Conv2d(3, c, p, stride=p)
@@ -73,7 +73,8 @@ class ViTower(nn.Module):
         )
         for i in range(config.layers):
             self.add_module(
-                f"block{i}", EncoderBlock(c, config.heads, config.mlp_ratio)
+                f"block{i}",
+                EncoderBlock(c, config.heads, config.mlp_ratio, fuse_ln=config.fuse_ln),
             )
         self.final_ln = FastLayerNorm(c)
         self.proj = Dense(c, embed_dim)

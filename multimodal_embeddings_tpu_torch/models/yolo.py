@@ -18,6 +18,7 @@ from torch import nn
 from multimodal_embeddings_tpu_torch.models.layers import (
     C2f,
     ConvBnAct,
+    CRMBottleneck,
     G2L_CRM,
     PSA,
     SCDown,
@@ -58,15 +59,21 @@ def _depth(n: int, scale: YoloScale) -> int:
 
 class Backbone(nn.Module):
     """CSP backbone; ``glcrm=True`` uses G2L_CRM blocks for the P2/P3/P4
-    stages (dilation 2, 2, 4), the DocStructBench architecture."""
+    stages (dilation 2, 2, 4), the DocStructBench architecture, whose inner
+    widths up to ``pallas_convs`` run on K5 (``pallas_mode``: "stage" or
+    "block")."""
 
-    def __init__(self, scale: YoloScale, glcrm: bool = False):
+    def __init__(
+        self, scale: YoloScale, glcrm: bool = False, pallas_convs: int = 0,
+        pallas_mode: str = "stage",
+    ):
         super().__init__()
         s = scale
 
         def csp(c, n, dilation):
             if glcrm:
-                return G2L_CRM(c, c, n, dilation=dilation, shortcut=True)
+                return G2L_CRM(c, c, n, dilation=dilation, shortcut=True,
+                               pallas_max_channels=pallas_convs, pallas_mode=pallas_mode)
             return C2f(c, c, n, shortcut=True)
 
         c64, c128, c256 = _ch(64, s), _ch(128, s), _ch(256, s)
@@ -153,14 +160,27 @@ class DocLayoutYOLO(nn.Module):
     raw per-level ``(reg, cls)`` maps, NHWC, as the JAX model does; decode
     them with ``yolo_decode.decode_predictions``."""
 
-    def __init__(self, num_classes: int = 10, variant: str = "m", glcrm: bool = False):
+    def __init__(
+        self, num_classes: int = 10, variant: str = "m", glcrm: bool = False,
+        pallas_convs: int = 0, pallas_mode: str = "stage",
+    ):
         super().__init__()
         scale = SCALES[variant]
-        self.backbone = Backbone(scale, glcrm=glcrm)
+        self.backbone = Backbone(scale, glcrm, pallas_convs, pallas_mode)
         self.neck = PANNeck(scale)
         self.head = DetectHead(
             num_classes, (_ch(256, scale), _ch(512, scale), _ch(1024, scale))
         )
+
+    def kernel_bias_names(self) -> List[str]:
+        """The folded biases that K5 reads: kept in f32 at any compute
+        dtype, as the JAX ``_FoldedConvBn`` returns them."""
+        return [
+            f"{name}.{conv}.conv.bias"
+            for name, m in self.named_modules()
+            if isinstance(m, CRMBottleneck) and m.kernel
+            for conv in ("cv1", "cv2")
+        ]
 
     def forward(self, images: torch.Tensor):
         dtype = self.backbone.stem.conv.weight.dtype

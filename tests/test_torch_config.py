@@ -10,7 +10,7 @@ from multimodal_embeddings_tpu import config as jconfig
 from multimodal_embeddings_tpu_torch import config as tconfig
 
 LEFT_OUT = {
-    "DetectorConfig": {"s2d_stem", "pallas_convs", "pallas_mode", "device_letterbox"},
+    "DetectorConfig": {"s2d_stem", "device_letterbox"},
     "EmbedderConfig": set(),
 }
 

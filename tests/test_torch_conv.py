@@ -1,0 +1,186 @@
+"""K5, the 3×3 conv: its plain PyTorch version against the JAX Pallas kernel
+(interpret mode), and the GL-CRM kernel route of the port's detector against
+the JAX modules' ``pallas_max_channels`` route, same weights, f32.
+
+Tolerances: f32 2e-5 absolute on outputs of magnitude up to ~10 (the two
+sides sum 9·C products in different orders); bf16 at most 2 bf16 steps at
+the output's magnitude (both accumulate in f32 and round once, so only an
+output near a rounding boundary may land on the neighbouring value). The
+detector's raw head maps: 1e-4, as ``test_torch_detect.py``."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from flax.linen import unbox
+
+import jax.numpy as jnp
+
+from multimodal_embeddings_tpu.kernels.conv import conv3x3_nchw as jax_conv
+from multimodal_embeddings_tpu.models import layers as jl
+from multimodal_embeddings_tpu.models import yolo as jyolo
+from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
+from multimodal_embeddings_tpu_torch.config import DetectorConfig
+from multimodal_embeddings_tpu_torch.kernels import conv as k5
+from multimodal_embeddings_tpu_torch.models import layers as tl
+from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+from multimodal_embeddings_tpu_torch.models.weights import export_jax_params, load_jax_params
+
+torch.set_num_threads(2)
+ATOL = 2e-5
+
+
+def _operands(seed, n, c, co, h, w):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, c, h, w)).astype(np.float32)
+    k = (rng.normal(size=(co, c, 3, 3)) / np.sqrt(9 * c)).astype(np.float32)
+    b = rng.normal(scale=0.5, size=(co,)).astype(np.float32)
+    return x, k, b
+
+
+def _bf16_steps(got, want):
+    want = want.astype(np.float32)
+    _, exp = np.frexp(np.maximum(np.abs(want), 2.0**-126))
+    return np.max(np.abs(got.astype(np.float32) - want) / np.ldexp(1.0, exp - 8))
+
+
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_plain_matches_pallas_f32(dilation, epilogue):
+    """H = 13 and W = 20: neither a multiple of the TPU's 8-row groups."""
+    x, k, b = _operands(dilation, 2, 12, 16, 13, 20)
+    bias, act = (b, "silu") if epilogue else (None, "none")
+    want = jax_conv(jnp.asarray(x), jnp.asarray(k), None if bias is None else jnp.asarray(bias),
+                    act=act, dilation=dilation, interpret=True)
+    got = k5.conv3x3_nchw(torch.from_numpy(x), torch.from_numpy(k),
+                          None if bias is None else torch.from_numpy(bias),
+                          act=act, dilation=dilation)
+    assert got.shape == (2, 16, 13, 20) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_plain_matches_pallas_bf16(dilation):
+    """The working dtype: bf16 x and folded weights, f32 bias, bf16 out."""
+    x, k, b = _operands(10 + dilation, 2, 16, 8, 9, 16)
+    jx, jk = jnp.asarray(x, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16)
+    want = jax_conv(jx, jk, jnp.asarray(b), act="silu", dilation=dilation, interpret=True)
+    tx = torch.from_numpy(x).bfloat16()
+    got = k5.conv3x3_nchw(tx, torch.from_numpy(k).bfloat16(), torch.from_numpy(b),
+                          act="silu", dilation=dilation)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_steps(got.float().numpy(), np.asarray(want.astype(jnp.float32))) <= 2
+
+
+def test_edges_zero_padding():
+    """Mass only on the borders: every tap that leaves the image reads 0."""
+    x = np.zeros((1, 4, 10, 12), np.float32)
+    x[:, :, 0, :], x[:, :, -1, :], x[:, :, :, 0], x[:, :, :, -1] = 1.0, 2.0, 3.0, 4.0
+    k = np.full((4, 4, 3, 3), 0.5, np.float32)
+    for d in (1, 2, 4):
+        want = jax_conv(jnp.asarray(x), jnp.asarray(k), dilation=d, interpret=True)
+        got = k5.conv3x3_nchw(torch.from_numpy(x), torch.from_numpy(k), dilation=d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_wrapper_checks_and_launch_count():
+    x = torch.zeros(1, 4, 6, 6)
+    w = torch.zeros(8, 4, 3, 3)
+    before = k5.conv3x3_nchw.launches
+    k5.conv3x3_nchw(x, w, torch.zeros(8), act="silu")  # CPU: plain version
+    assert k5.conv3x3_nchw.launches == before
+    with pytest.raises(ValueError):
+        k5.conv3x3_nchw(x, torch.zeros(8, 5, 3, 3))
+    with pytest.raises(ValueError):
+        k5.conv3x3_nchw(x, w, act="relu")
+    with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
+        k5.conv3x3_nchw(x.to("meta"), w.to("meta"))
+
+
+# --- the GL-CRM kernel route against the JAX modules ------------------------
+
+
+def _randomize_norms(flat, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, val in flat.items():
+        if key.endswith(("/var", "/scale")):
+            val = rng.uniform(0.5, 1.5, val.shape)
+        elif key.endswith(("/mean", "/bias")):
+            val = rng.normal(scale=0.2, size=val.shape)
+        out[key] = np.asarray(val, np.float32)
+    return out
+
+
+def _compare(jax_module, port_module, shape, seed=0):
+    x = np.random.default_rng(seed + 1).normal(size=shape).astype(np.float32)
+    variables = unbox(jax_module.init(jax.random.PRNGKey(seed), jnp.asarray(x)))
+    flat = _randomize_norms(flatten_params(variables), seed)
+    want = np.asarray(jax_module.apply(unflatten_params(flat), jnp.asarray(x)))
+    load_jax_params(port_module, flat)
+    launches = k5.conv3x3_nchw.launches
+    with torch.no_grad():
+        got = port_module(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert k5.conv3x3_nchw.launches == launches  # CPU: the plain version
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["stage", "block"])
+@pytest.mark.parametrize("dilation", [2, 4])
+def test_g2l_crm_kernel_route(mode, dilation):
+    compare_args = dict(n=2, dilation=dilation, pallas_max_channels=16, pallas_mode=mode)
+    port = tl.G2L_CRM(24, 32, **compare_args)
+    assert all(getattr(port, f"m{i}").kernel for i in range(2))
+    assert port.stage == (mode == "stage")
+    _compare(jl.G2L_CRM(32, **compare_args), port, (2, 12, 12, 24))
+
+
+def test_crm_bottleneck_kernel_route():
+    _compare(jl.CRMBottleneck(16, dilation=2, pallas=True),
+             tl.CRMBottleneck(16, 16, dilation=2, kernel=True), (2, 11, 9, 16))
+
+
+def test_route_threshold_and_mode():
+    assert not tl.G2L_CRM(24, 32, pallas_max_channels=15).m0.kernel
+    assert tl.G2L_CRM(24, 32, pallas_max_channels=16).m0.kernel
+    with pytest.raises(ValueError):
+        tl.G2L_CRM(24, 32, pallas_max_channels=16, pallas_mode="nchw")
+
+
+@pytest.mark.parametrize("mode", ["stage", "block"])
+def test_doclayout_yolo_kernel_route_head_maps(mode, monkeypatch):
+    """Variant n with ``pallas_convs=64`` routes all three GL-CRM stages
+    (inner widths 16, 32, 64; dilations 2, 2, 4) through K5; 96 px."""
+    monkeypatch.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+    images = np.random.default_rng(0).uniform(size=(2, 96, 96, 3)).astype(np.float32)
+    cfg = DetectorConfig(image_size=96, variant="n", pallas_convs=64, pallas_mode=mode)
+    det = LayoutDetector(cfg, dtype=torch.float32, device="cpu")
+    assert len(det.model.kernel_bias_names()) == 2 * (1 + 2 + 2)
+    flat = _randomize_norms(export_jax_params(det.model))
+    jmodel = jyolo.DocLayoutYOLO(num_classes=10, variant="n", glcrm=True, pallas_convs=64,
+                                 pallas_mode=mode)
+    want = jax.jit(jmodel.apply)(unflatten_params(flat), jnp.asarray(images))
+    det = LayoutDetector(cfg, dtype=torch.float32, device="cpu", params=flat)
+    with torch.no_grad():
+        got = det.model(torch.from_numpy(images))
+    for (greg, gcls), (wreg, wcls) in zip(got, want):
+        np.testing.assert_allclose(greg.numpy(), np.asarray(wreg), atol=1e-4)
+        np.testing.assert_allclose(gcls.numpy(), np.asarray(wcls), atol=1e-4)
+
+
+def test_kernel_biases_stay_f32_in_a_bf16_detector():
+    """The JAX ``_FoldedConvBn`` returns an f32 bias for K5; every other
+    parameter takes the compute dtype."""
+    cfg = DetectorConfig(image_size=64, variant="n", pallas_convs=32)
+    flat = _randomize_norms(export_jax_params(
+        LayoutDetector(cfg, dtype=torch.float32, device="cpu").model))
+    f32 = LayoutDetector(cfg, dtype=torch.float32, device="cpu", params=flat).model
+    det = LayoutDetector(cfg, dtype=torch.bfloat16, device="cpu", params=flat)
+    names = set(det.model.kernel_bias_names())
+    assert len(names) == 2 * (1 + 2)  # c2f_2 and c2f_3; c2f_4's 64 > 32
+    ref = dict(f32.named_parameters())
+    for name, p in det.model.named_parameters():
+        if name in names:
+            assert p.dtype == torch.float32 and torch.equal(p, ref[name])
+        else:
+            assert p.dtype == torch.bfloat16

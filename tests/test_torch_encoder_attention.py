@@ -10,12 +10,16 @@ import torch
 
 import jax.numpy as jnp
 
+from multimodal_embeddings_tpu.kernels import encoder_attention as jk1
 from multimodal_embeddings_tpu.kernels.encoder_attention import (
     encoder_attention_blf as jax_blf,
     encoder_attention_blf_packed as jax_blf_packed,
+    encoder_attention_blhd as jax_blhd,
     encoder_attention_padded as jax_padded,
 )
+from multimodal_embeddings_tpu.models import transformer as jtr
 from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
+from multimodal_embeddings_tpu_torch.models import transformer as ttr
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -133,3 +137,80 @@ def test_shape_errors():
     with pytest.raises(ValueError):
         q = torch.zeros(1, 16, 64)
         k1.encoder_attention_blf(q, q, q, heads=3)
+
+
+@pytest.mark.parametrize("shape,dv,scale", [((2, 64, 4, 16), 16, None),
+                                            ((1, 48, 3, 24), 40, 0.3)])
+def test_blhd_plain_matches_pallas(shape, dv, scale):
+    """(B, L, H, D) operands; q/k/v are strided column slices of one wider
+    slab, as the fused LayerNorm→qkv product hands them to ``sdpa``."""
+    b, l, h, d = shape
+    slab = _randn(14, (b, l, h * (2 * d + dv)))
+    q = slab[..., : h * d].reshape(b, l, h, d)
+    k = slab[..., h * d : 2 * h * d].reshape(b, l, h, d)
+    v = slab[..., 2 * h * d :].reshape(b, l, h, dv)
+    want = jax_blhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=scale,
+                    interpret=True)
+    t = torch.from_numpy(slab)
+    got = k1.encoder_attention_blhd(
+        t[..., : h * d].view(b, l, h, d), t[..., h * d : 2 * h * d].view(b, l, h, d),
+        t[..., 2 * h * d :].view(b, l, h, dv), sm_scale=scale,
+    )
+    assert got.shape == (b, l, h, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_blhd_supported_is_the_jax_rule():
+    for l in (256, 784, 1024, 1608):
+        for h, d in ((12, 64), (16, 80), (4, 36), (8, 128)):
+            for tdt, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+                tq = torch.empty((1, l, h, d), dtype=tdt, device="meta")
+                jq = jnp.zeros((1, l, h, d), jdt)
+                assert k1.blhd_supported(tq, tq) == jk1.blhd_supported(jq, jq), (l, h, d, tdt)
+
+
+def test_blhd_wrapper_checks_and_launch_count():
+    q = torch.zeros(1, 8, 2, 4)
+    before = k1.encoder_attention_blhd.launches
+    k1.encoder_attention_blhd(q, q, q)  # CPU: plain version
+    assert k1.encoder_attention_blhd.launches == before
+    with pytest.raises(ValueError):
+        k1.encoder_attention_blhd(q, q[:, :7], q)
+    with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
+        m = q.to("meta")
+        k1.encoder_attention_blhd(m, m, m)
+
+
+@pytest.mark.parametrize("blhd_env", ["1", None])
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 784, 12, 64), "bfloat16"),  # the ViT page: BLHD fits (all 12 heads)
+    ((1, 784, 12, 64), "float32"),   # no legal head block fits
+    ((1, 1024, 16, 80), "bfloat16"),
+    ((1, 256, 4, 36), "bfloat16"),
+    ((1, 100, 2, 16), "bfloat16"),   # below the whole-row window: XLA path
+])
+def test_sdpa_takes_the_blhd_route_where_jax_does(shape, dtype, blhd_env, monkeypatch):
+    """Both ``sdpa``s with their kernels replaced by recorders; JAX as it
+    dispatches on a TPU."""
+    if blhd_env:
+        monkeypatch.setenv("MMTPU_ENC_ATTN_BLHD", blhd_env)
+    routes = {"jax": [], "port": []}
+
+    def recorder(side, name):
+        def call(q, k, v, *args, **kwargs):
+            routes[side].append(name)
+            return q
+        return call
+
+    monkeypatch.setattr(jtr, "_on_tpu_backend", lambda: True)
+    monkeypatch.setattr(jk1, "encoder_attention", recorder("jax", "bhld"))
+    monkeypatch.setattr(jk1, "encoder_attention_blhd", recorder("jax", "blhd"))
+    monkeypatch.setattr(ttr, "encoder_attention", recorder("port", "bhld"))
+    monkeypatch.setattr(ttr, "encoder_attention_blhd", recorder("port", "blhd"))
+    jq = jnp.zeros(shape, getattr(jnp, dtype))
+    jtr.sdpa(jq, jq, jq)
+    tq = torch.zeros(shape, dtype=getattr(torch, dtype))
+    ttr.sdpa(tq, tq, tq)
+    assert routes["port"] == routes["jax"]
+    if shape[1] == 784 and dtype == "bfloat16":
+        assert routes["jax"] == (["blhd"] if blhd_env else ["bhld"])

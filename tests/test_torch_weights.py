@@ -68,6 +68,26 @@ def test_detector_key_set_and_shapes_match_jax_m(glcrm):
     assert got == want
 
 
+@pytest.mark.parametrize("mode", ["stage", "block"])
+def test_kernel_route_detector_has_the_same_parameters(mode):
+    """The K5 route (``pallas_convs``) changes no parameter: the JAX m-scale
+    model with the route on and the port's, routed or not, have one key set
+    and one set of shapes, and the bridge's round trip stays exact."""
+    jmodel = jyolo.DocLayoutYOLO(num_classes=10, variant="m", glcrm=True, pallas_convs=96,
+                                 pallas_mode=mode)
+    want = _shapes(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    routed = tyolo.DocLayoutYOLO(10, "m", glcrm=True, pallas_convs=96, pallas_mode=mode)
+    assert len(routed.kernel_bias_names()) == 2 * (2 + 4)  # c2f_2 and c2f_3
+    assert _shapes(export_jax_params(routed)) == want
+    assert _shapes(export_jax_params(tyolo.DocLayoutYOLO(10, "m", glcrm=True))) == want
+    cfg = DetectorConfig(image_size=64, variant="n", pallas_convs=64, pallas_mode=mode)
+    first = LayoutDetector(cfg, dtype=torch.float32, device="cpu", seed=3).model
+    second = LayoutDetector(cfg, dtype=torch.float32, device="cpu",
+                            params=export_jax_params(first)).model
+    for (name, a), (_, b) in zip(first.state_dict().items(), second.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
 def test_vit_b_key_set_and_shapes_match_jax():
     cfg = dict(image_size=448, patch_size=16, width=768, layers=12, heads=12)
     jmodel = jve.ViTower(jve.VisionConfig(**cfg), embed_dim=768)
