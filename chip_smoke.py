@@ -9,14 +9,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions; both TF32 flags are set off and printed;
 2. the build: the encoder-attention kernel (K1), the int8 weight matmul
    (K2), the int4 weight matmul (K3), flash attention (K4), the 3×3 conv
-   (K5), the fused LayerNorm→matmul (K6) and the LayerNorm statistics (K7),
-   each compiled by its own ``nvcc`` for ``sm_90a`` from
-   ``multimodal_embeddings_tpu_torch/csrc``, all started together;
+   (K5), the fused LayerNorm→matmul (K6), the LayerNorm statistics (K7)
+   and stochastic-rounding quantization (K8), each compiled by its own
+   ``nvcc`` for ``sm_90a`` from ``multimodal_embeddings_tpu_torch/csrc``,
+   all started together;
 3. K1 against its plain PyTorch version at the ViT page's shapes — ViT
    ``(48, 784, 768)`` H=12 in bf16 and f32, PSA ``(30, 1024, 576)``
    4×(36|36|72) in bf16 — errors against stated tolerances, the median
    time of each, of ``scaled_dot_product_attention`` on the same inputs (a
    yardstick the port never calls) and the bound;
+3a. the last four ports against their plain versions, bf16 with one f32
+   shape each and ragged edges, with median times, bounds and library
+   yardsticks: K1's BHLD form (``(48, 12, 784, 64)`` permuted views of the
+   ViT projections, the PSA probe's ``(30, 4, 1024, 64|128)``); K4 on its
+   K/V-resident schedule (``flash_attention_v2``) at the attention
+   candidates' shapes ``(48, 784, 12, 64)``, ``(8, 1608, 16, 80)`` with
+   1601 valid keys and ``(2, 6432, 16, 80)`` with 6404, the causal GQA
+   ``(1, 2560, 40/8, 128)`` and K4's edge cases, K4 (v1) timed beside it;
+   K5's stride-2 form (``conv3x3_s2_nchw``) at the detector's stride-2
+   positions at variant m (``(30, 3, 1024²)``→48, ``(30, 48, 512²)``→96,
+   ``(30, 96, 256²)``→192) and H = W = 2; K8 (``stochastic_round_quantize``)
+   on the mmE5-11B gate/up weight ``(4096, 14336)`` f32, the Qwen-32B gate
+   ``(5120, 27648)`` bf16 and a rank-3 ``(4096, 32, 128)``, its int8
+   values EQUAL to the plain version's on the same draws;
 4. the full-width ViT page: DocLayout-YOLO-m with GL-CRM over 30 views at
    1024 px and a ViT-B/16 at 448 over the top 48 regions, bf16, random
    weights from seed 0, on 3 synthetic 2200×1700 pages after one warm-up
@@ -40,6 +55,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the detector's raw head maps (cosine ≥ 0.999 per level) and the
    embeddings of the same 48 crops (≥ 0.999); two crops against the same
    fused ViT in f32 on the CPU (≥ 0.999);
+4c. the ViT page on the proj-BHLD route (``MMTPU_ENC_ATTN_BLF=0``): phase
+   4's weights and pages, 1 warm-up and 3 timed pages; exact launch counts
+   per page (K1 BHLD 12, K1 packed 1, K1 blf 0); the embeddings of phase
+   4's last 48 crops against phase 4's (cosine ≥ 0.999);
 6. K1 with the Mllama key prefix against its plain version:
    ``(8, 1608, 16, 80)`` with 1601 valid keys in bf16 and f32, and
    ``valid_len`` ∈ {1, L−1, L} at L ∈ {17, 130, 1608};
@@ -84,6 +103,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     kernels, bf16 on the card, same weights and page; last-position logit
     cosine ≥ 0.999.
 
+Every page phase (4, 4b, 4c, 8, 8a, 12) sets the launch counts of all 14
+kernel wrappers to 0 just before its timed run and holds them to exact
+values just after.
+
 It prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device.
@@ -94,12 +117,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 # stated tolerances for K1 against its plain version on the card. Both sum
 # in f32 in different orders, so a bf16 output may round to the neighbouring
@@ -135,6 +160,42 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(title: str) -> None:
     print(f"== {title}", flush=True)
+
+
+def kernel_counters(k1, k2, k3, k4, k5, k6, k7) -> dict:
+    """Every kernel wrapper's launch counter (``.launches``), by the name of
+    its entry in the kernels line."""
+    return {
+        "encoder_attention_blf": k1.encoder_attention_blf,
+        "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
+        "encoder_attention": k1.encoder_attention,
+        "encoder_attention (bhld)": k1.encoder_attention.bhld,
+        "encoder_attention_blhd": k1.encoder_attention_blhd,
+        "int8_matmul": k2.int8_matmul,
+        "stochastic_round_quantize": k2._sr_quantize_2d,
+        "int4_matmul": k3.int4_matmul,
+        "flash_attention": k4.flash_attention,
+        "flash_attention_v2": k4.flash_attention_v2,
+        "conv3x3_nchw": k5.conv3x3_nchw,
+        "conv3x3_s2_nchw": k5.conv3x3_s2_nchw,
+        "ln_matmul": k6.ln_matmul,
+        "ln_stats": k7.ln_stats,
+    }
+
+
+def zero(counters: dict) -> None:
+    for wrapper in counters.values():
+        wrapper.launches = 0
+
+
+def counts(counters: dict) -> dict:
+    return {name: wrapper.launches for name, wrapper in counters.items()}
+
+
+def only(counters: dict, nonzero: dict) -> dict:
+    """The launch counts a run must show: ``nonzero``, and 0 for every other
+    kernel."""
+    return dict.fromkeys(counters, 0) | nonzero
 
 
 def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -374,7 +435,7 @@ def make_pages(n):
     return [torch.from_numpy(make_page(*PAGE_HW, seed=i)).to("cuda") for i in range(n)]
 
 
-def full_slice(k1):
+def full_slice(counters):
     """The ViT page program at full width; returns the launch counts, one
     page's crops and embeddings, and the model config."""
     import torch
@@ -410,8 +471,7 @@ def full_slice(k1):
     print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     torch.cuda.reset_peak_memory_stats()
-    k1.encoder_attention_blf.launches = 0
-    k1.encoder_attention_blf_packed.launches = 0
+    zero(counters)
     page_ms, results = [], []
     for page in pages[1:]:
         t0 = time.perf_counter()
@@ -419,24 +479,19 @@ def full_slice(k1):
         torch.cuda.synchronize()
         page_ms.append((time.perf_counter() - t0) * 1e3)
         results.append(res)
-    launches = {
-        "blf": k1.encoder_attention_blf.launches,
-        "packed": k1.encoder_attention_blf_packed.launches,
-    }
+    launches = counts(counters)
     peak = torch.cuda.max_memory_allocated()
 
-    vit_layers = model_config.vision.layers
-    check(launches["blf"] == vit_layers * TIMED_PAGES,
-          f"ViT attention launches {launches['blf']} != {vit_layers}·{TIMED_PAGES}")
-    check(launches["packed"] == TIMED_PAGES,
-          f"PSA attention launches {launches['packed']} != {TIMED_PAGES}")
+    want = only(counters, {"encoder_attention_blf": model_config.vision.layers * TIMED_PAGES,
+                           "encoder_attention_blf_packed": TIMED_PAGES})
+    check(launches == want, f"launches {launches} != {want}")
     for res in results:
         check_page(res, 768)
     print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
           + ", ".join(f"{t:.1f}" for t in page_ms) + ")")
     print(f"valid regions per page: {[int(r.valid.sum()) for r in results]}")
-    print(f"K1 launches: vit {launches['blf']} psa {launches['packed']} "
-          f"over {TIMED_PAGES} pages")
+    print(f"K1 launches: vit {launches['encoder_attention_blf']} psa "
+          f"{launches['encoder_attention_blf_packed']} over {TIMED_PAGES} pages")
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     # the two halves of the same path, timed apart
@@ -643,7 +698,7 @@ def profile_run(label: str, run) -> None:
         print(f"    {ms:9.1f} ms {count:6d}x {key[:100]}")
 
 
-def mme5_page(k1, k2, detector):
+def mme5_page(counters, detector):
     """The mmE5-11B int8-mixed page at full width; returns its launch
     counts, the last page's crops and embeddings, the config and the
     embedder."""
@@ -678,9 +733,7 @@ def mme5_page(k1, k2, detector):
     print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     torch.cuda.reset_peak_memory_stats()
-    for wrapper in (k1.encoder_attention, k1.encoder_attention_blf,
-                    k1.encoder_attention_blf_packed, k2.int8_matmul):
-        wrapper.launches = 0
+    zero(counters)
     page_ms, results = [], []
     for page in pages[1:]:
         t0 = time.perf_counter()
@@ -688,29 +741,24 @@ def mme5_page(k1, k2, detector):
         torch.cuda.synchronize()
         page_ms.append((time.perf_counter() - t0) * 1e3)
         results.append(res)
-    launches = {
-        "masked": k1.encoder_attention.launches,
-        "blf": k1.encoder_attention_blf.launches,
-        "packed": k1.encoder_attention_blf_packed.launches,
-        "int8": k2.int8_matmul.launches,
-    }
+    launches = counts(counters)
     peak = torch.cuda.max_memory_allocated()
     chunks = NUM_REGIONS // MME5_CHUNK
     v, t = config.vision, config.text
-    want = {
-        "masked": (v.layers + v.global_layers) * chunks * MME5_TIMED_PAGES,
-        "blf": 0,
-        "packed": MME5_TIMED_PAGES,
-        "int8": 7 * t.layers * chunks * MME5_TIMED_PAGES,
-    }
+    want = only(counters, {
+        "encoder_attention": (v.layers + v.global_layers) * chunks * MME5_TIMED_PAGES,
+        "encoder_attention_blf_packed": MME5_TIMED_PAGES,
+        "int8_matmul": 7 * t.layers * chunks * MME5_TIMED_PAGES,
+    })
     check(launches == want, f"launches {launches} != {want}")
     for res in results:
         check_page(res, t.hidden)
     print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
           + ", ".join(f"{x:.1f}" for x in page_ms) + ")")
     print(f"valid regions per page: {[int(r.valid.sum()) for r in results]}")
-    print(f"launches over {MME5_TIMED_PAGES} pages: K1 prefix {launches['masked']}, "
-          f"K2 {launches['int8']}, K1 packed {launches['packed']}, K1 blf {launches['blf']}")
+    print(f"launches over {MME5_TIMED_PAGES} pages: K1 prefix {launches['encoder_attention']}, "
+          f"K2 {launches['int8_matmul']}, K1 packed {launches['encoder_attention_blf_packed']}, "
+          f"K1 blf {launches['encoder_attention_blf']}")
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     # the three stages of the same path, timed apart
@@ -813,13 +861,15 @@ def flash_bound(b, l, h, kvh, dk, dv, lengths, causal, dtype) -> tuple:
     return bound_ms(flops, nbytes, dtype)
 
 
-def flash_compare(k4, name, q, k, v, lengths, causal, timed) -> dict:
-    """K4 against its plain version on the same inputs; with ``timed``, the
-    kernel's, the plain version's and SDPA's median times and the bound."""
+def flash_compare(k4, name, q, k, v, lengths, causal, timed, v2=False) -> dict:
+    """K4 (``v2``: on its K/V-resident schedule) against its plain version
+    on the same inputs; with ``timed``, the kernel's, the plain version's
+    and SDPA's median times and the bound, and with ``v2`` K4 v1's time."""
     import torch
     import torch.nn.functional as F
 
-    got = k4.flash_attention(q, k, v, lengths=lengths, causal=causal)
+    kernel = k4.flash_attention_v2 if v2 else k4.flash_attention
+    got = kernel(q, k, v, lengths=lengths, causal=causal)
     want = k4.flash_attention_reference(q, k, v, lengths, causal)
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == q.dtype, f"{name}: {got.shape} {got.dtype}")
@@ -849,7 +899,10 @@ def flash_compare(k4, name, q, k, v, lengths, causal, timed) -> dict:
         mask = None
         if lengths is not None:
             mask = (torch.arange(l, device=q.device)[None, :] < lengths[:, None])[:, None, None]
-        out["ms"] = median_ms(lambda: k4.flash_attention(q, k, v, lengths=lengths, causal=causal))
+        out["ms"] = median_ms(lambda: kernel(q, k, v, lengths=lengths, causal=causal))
+        if v2:
+            out["v1_ms"] = median_ms(
+                lambda: k4.flash_attention(q, k, v, lengths=lengths, causal=causal))
         out["plain_ms"] = median_ms(
             lambda: k4.flash_attention_reference(q, k, v, lengths, causal), runs=5)
         out["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
@@ -859,6 +912,8 @@ def flash_compare(k4, name, q, k, v, lengths, causal, timed) -> dict:
         line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
                  f"sdpa {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
                  f"({out['bound_by']})")
+        if v2:
+            line += f" [K4 v1 {out['v1_ms']:.4f} ms]"
     print(line, flush=True)
     return out
 
@@ -1131,13 +1186,10 @@ def qwen_page(kernels: dict):
         launches = {name: w.launches for name, w in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
     layers = config.text.layers
-    want = {
+    want = only(kernels, {
         "flash_attention": len(config.vision.fullatt_block_indexes) * QWEN_TIMED_PAGES,
         "int4_matmul": (7 * layers + 1) * (1 + QWEN_NEW_TOKENS) * QWEN_TIMED_PAGES,
-        "encoder_attention": 0, "encoder_attention_blf": 0,
-        "encoder_attention_blf_packed": 0, "int8_matmul": 0, "encoder_attention_blhd": 0,
-        "conv3x3_nchw": 0, "ln_matmul": 0, "ln_stats": 0,
-    }
+    })
     check(launches == want, f"launches {launches} != {want}")
     check(peak < QWEN_PEAK_LIMIT, f"peak memory {peak / 2**30:.2f} GiB")
     print(f"prefill ms {statistics.mean(pre_ms):.1f} (pages: "
@@ -1283,12 +1335,13 @@ def gate(name, got, want, allowed, dtype) -> dict:
     return out
 
 
-def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, timed=False):
+def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, timed=False,
+              stride=1):
     """K5 against its plain version on channels-last x (``strided``: x is
     the upper channel half of a channels-last tensor twice as wide, as the
-    CSP stage hands it on). Tolerance per output: 2·9C·2⁻²⁴·Σ|x·w| (f32 sums
-    in different orders, ×1.1 for SiLU's slope) plus, in bf16, 2 steps of
-    its rounding."""
+    CSP stage hands it on); ``stride=2``: its stride-2 form (``d`` unused).
+    Tolerance per output: 2·9C·2⁻²⁴·Σ|x·w| (f32 sums in different orders,
+    ×1.1 for SiLU's slope) plus, in bf16, 2 steps of its rounding."""
     import torch
     import torch.nn.functional as F
 
@@ -1298,11 +1351,30 @@ def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, tim
     x = wide.to(dtype).contiguous(memory_format=torch.channels_last)[:, -c:]
     wt = (torch.randn((cout, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(dtype)
     bias = torch.randn((cout,), generator=gen, device=dev) * 0.5
-    got = k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d)
-    want = k5.conv3x3_reference(x, wt, bias, "silu", d)
+    if stride == 1:
+        def kernel():
+            return k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d)
+
+        def plain():
+            return k5.conv3x3_reference(x, wt, bias, "silu", d)
+
+        def library_conv(t, weight, b=None):
+            return F.conv2d(t, weight, b, padding=d, dilation=d)
+    else:  # lax SAME at even H and W: 0 rows on top/left, 1 on bottom/right
+        def kernel():
+            return k5.conv3x3_s2_nchw(x, wt, bias, act="silu")
+
+        def plain():
+            return k5.conv3x3_s2_reference(x, wt, bias, "silu")
+
+        def library_conv(t, weight, b=None):
+            return F.conv2d(F.pad(t, (0, 1, 0, 1)), weight, b, stride=2)
+    got = kernel()
+    want = plain()
     torch.cuda.synchronize()
     check(got.is_contiguous(memory_format=torch.channels_last), f"{name}: not channels-last")
-    mag = F.conv2d(x.float().abs(), wt.float().abs(), padding=d, dilation=d)
+    oh, ow = got.shape[2:]
+    mag = library_conv(x.float().abs(), wt.float().abs())
     allowed = 1.1 * 2 * 9 * c * 2.0**-24 * mag + 1e-30
     if dtype == torch.bfloat16:
         allowed = allowed + MAX_BF16_STEPS * bf16_step(want)
@@ -1314,14 +1386,13 @@ def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, tim
             f"err/allowed {out['bound_share']:.3f}")
     if timed:
         bl = bias.to(dtype)
-        out["ms"] = median_ms(lambda: k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d))
-        out["plain_ms"] = median_ms(lambda: k5.conv3x3_reference(x, wt, bias, "silu", d), runs=10)
-        out["library_ms"] = median_ms(
-            lambda: F.silu(F.conv2d(x, wt, bl, padding=d, dilation=d)))
+        out["ms"] = median_ms(kernel)
+        out["plain_ms"] = median_ms(plain, runs=10)
+        out["library_ms"] = median_ms(lambda: F.silu(library_conv(x, wt, bl)))
         elem = x.element_size()
         out["bound_ms"], out["bound_by"] = bound_ms(
-            2.0 * n * h * w * cout * 9 * c,
-            elem * (n * h * w * (c + cout) + cout * c * 9) + 4 * cout, dtype)
+            2.0 * n * oh * ow * cout * 9 * c,
+            elem * (n * h * w * c + n * oh * ow * cout + cout * c * 9) + 4 * cout, dtype)
         line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
                  f"F.conv2d+F.silu {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
                  f"({out['bound_by']})")
@@ -1487,16 +1558,6 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
     return res
 
 
-def route_counters(k1, k5, k6, k7) -> dict:
-    return {
-        "conv3x3_nchw": k5.conv3x3_nchw, "ln_matmul": k6.ln_matmul, "ln_stats": k7.ln_stats,
-        "encoder_attention_blhd": k1.encoder_attention_blhd,
-        "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
-        "encoder_attention_blf": k1.encoder_attention_blf,
-        "encoder_attention": k1.encoder_attention,
-    }
-
-
 def cosines(a, b):
     import torch
 
@@ -1504,7 +1565,7 @@ def cosines(a, b):
         a.float().reshape(a.shape[0], -1), b.float().reshape(b.shape[0], -1), dim=-1)
 
 
-def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dict:
+def kernel_route_page(counters, default_detector, default_embedder) -> dict:
     """The ViT page with every opt-in kernel route on, at full width; held
     against phase 4's default route on the same weights and page."""
     import torch
@@ -1537,12 +1598,10 @@ def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dic
     torch.cuda.synchronize()
     print(f"set-up (random init, upload): {time.perf_counter() - t0:.1f} s; "
           f"{det_config} VisionConfig.fuse_ln=True {ROUTE_SWITCHES}")
-    counters = route_counters(k1, k5, k6, k7)
     layers = model_config.vision.layers
     per_page = {
         "conv3x3_nchw": len(detector.model.kernel_bias_names()), "ln_matmul": 2 * layers,
         "encoder_attention_blhd": layers, "ln_stats": 1, "encoder_attention_blf_packed": 1,
-        "encoder_attention_blf": 0, "encoder_attention": 0,
     }
     check(per_page["conv3x3_nchw"] == 12, f"K5 convs {per_page['conv3x3_nchw']} != 12")
     with switches(ROUTE_SWITCHES):
@@ -1551,8 +1610,7 @@ def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dic
         torch.cuda.synchronize()
         print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         torch.cuda.reset_peak_memory_stats()
-        for w in counters.values():
-            w.launches = 0
+        zero(counters)
         page_ms, results = [], []
         for page in pages[1:]:
             t0 = time.perf_counter()
@@ -1560,16 +1618,16 @@ def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dic
             torch.cuda.synchronize()
             page_ms.append((time.perf_counter() - t0) * 1e3)
             results.append(res)
-        launches = {name: w.launches for name, w in counters.items()}
+        launches = counts(counters)
         peak = torch.cuda.max_memory_allocated()
-        want = {name: cnt * TIMED_PAGES for name, cnt in per_page.items()}
+        want = only(counters, {name: cnt * TIMED_PAGES for name, cnt in per_page.items()})
         check(launches == want, f"launches {launches} != {want}")
         for res in results:
             check_page(res, 768)
         print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
               + ", ".join(f"{t:.1f}" for t in page_ms) + ")")
         print(f"launches over {TIMED_PAGES} pages: " + ", ".join(
-            f"{k} {v}" for k, v in launches.items()))
+            f"{k} {v}" for k, v in launches.items() if v))
         print(f"peak device memory: {peak / 2**30:.2f} GiB")
         det_ms, emb_ms = [], []
         for page in pages[1:]:
@@ -1618,7 +1676,7 @@ def kernel_route_page(k1, k5, k6, k7, default_detector, default_embedder) -> dic
     return launches
 
 
-def mme5_tower(k1, k5, k6, k7, embedder, crops) -> dict:
+def mme5_tower(counters, embedder, crops) -> dict:
     """Phase 8's mmE5-11B vision tower, its weights reused, with
     ``fuse_ln="mlp"`` and the LayerNorm statistics on K7, over one chunk."""
     import torch
@@ -1638,20 +1696,18 @@ def mme5_tower(k1, k5, k6, k7, embedder, crops) -> dict:
     std = torch.tensor(IMAGE_STD, device="cuda", dtype=crops.dtype)
     chunk = ((crops[:MME5_CHUNK] - mean) / std)[:, None]
     ids = torch.ones(MME5_CHUNK, dtype=torch.long, device="cuda")
-    counters = route_counters(k1, k5, k6, k7)
     runs = 3
     with switches({"MMTPU_LN_STATS": "1"}), torch.inference_mode():
         tower(chunk, ids)
         torch.cuda.synchronize()
-        for w in counters.values():
-            w.launches = 0
+        zero(counters)
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
             got, _ = tower(chunk, ids)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = {name: w.launches for name, w in counters.items()}
+        launches = counts(counters)
     with torch.inference_mode():
         default(chunk, ids)
         torch.cuda.synchronize()
@@ -1662,22 +1718,237 @@ def mme5_tower(k1, k5, k6, k7, embedder, crops) -> dict:
             torch.cuda.synchronize()
             base.append((time.perf_counter() - t0) * 1e3)
     v = cfg
-    per_chunk = {"conv3x3_nchw": 0, "ln_matmul": v.layers,
-                 "ln_stats": v.layers + 1 + 2 * v.global_layers, "encoder_attention_blhd": 0,
-                 "encoder_attention_blf_packed": 0, "encoder_attention_blf": 0,
+    per_chunk = {"ln_matmul": v.layers, "ln_stats": v.layers + 1 + 2 * v.global_layers,
                  "encoder_attention": v.layers + v.global_layers}
-    want_launches = {k: c * runs for k, c in per_chunk.items()}
+    want_launches = only(counters, {k: c * runs for k, c in per_chunk.items()})
     check(launches == want_launches, f"launches {launches} != {want_launches}")
     check(bool(torch.isfinite(got).all()), "non-finite tower output")
     cos = cosines(got, want)
     print(f"ms per chunk of {MME5_CHUNK}: kernel routes {statistics.median(times):.1f} "
           f"(runs: " + ", ".join(f"{t:.1f}" for t in times) + f"), default route "
           f"{statistics.median(base):.1f}")
-    print(f"launches per chunk: " + ", ".join(f"{k} {c // runs}" for k, c in launches.items()))
+    print(f"launches per chunk: " + ", ".join(
+        f"{k} {c // runs}" for k, c in launches.items() if c))
     print(f"tower output vs the default route, same chunk: cosine per crop min "
           f"{cos.min().item():.6f}")
     check(bool((cos >= COSINE_MIN).all()), f"tower cosine {cos.tolist()} < {COSINE_MIN}")
     return {k: c // runs for k, c in launches.items()}
+
+
+# --- the last ports: K1's BHLD form, K4 v2, K5's stride-2 form, K8 ----------
+
+# (B, L, H, D) and valid keys of the attention candidates
+# (scripts/attn_candidates_bench.py): the ViT-B page tower, an mmE5-2B vision
+# chunk and a 4-tile mmE5-11B chunk
+K4_V2_SHAPES = {
+    "vit (48,784,12,64)": ((48, 784, 12, 64), None),
+    "mme5-2B (8,1608,16,80) valid 1601": ((8, 1608, 16, 80), 1601),
+    "mme5-11B 4-tile (2,6432,16,80) valid 6404": ((2, 6432, 16, 80), 6404),
+}
+K4_V2_HEADLINE = "mme5-11B 4-tile (2,6432,16,80) valid 6404"
+# (N, C, H, W, Cout) of the detector's stride-2 3x3 positions at variant m
+# over 30 views of 1024 px: the stem, and the first two downsamples
+K5_S2_SHAPES = {
+    "stem (30,3,1024,1024)->48": (30, 3, 1024, 1024, 48),
+    "down (30,48,512,512)->96": (30, 48, 512, 512, 96),
+    "down (30,96,256,256)->192": (30, 96, 256, 256, 192),
+}
+K5_S2_HEADLINE = "down (30,48,512,512)->96"
+# the weights K8 would quantize: the mmE5-11B text stack's gate/up, the
+# Qwen2.5-VL-32B decoder's gate, and a rank-3 kernel collapsed to 2-D
+K8_SHAPES = {
+    "mme5-11B gate/up (4096,14336) f32": ((4096, 14336), "float32"),
+    "qwen-32B gate (5120,27648) bf16": ((5120, 27648), "bfloat16"),
+    "rank 3 (4096,32,128) contract (0,) f32": ((4096, 32, 128), "float32"),
+}
+K8_HEADLINE = "qwen-32B gate (5120,27648) bf16"
+# the mean of q·scale − w against scale/√(12·n), the size of the mean of n
+# rounding errors spread evenly over one level: stochastic rounding keeps
+# it within a few of that, round-to-floor would put it near √(3n)
+K8_MEAN_RATIO_MAX = 10.0
+
+
+def sr_case(k2, name, shape, dtype, seed) -> dict:
+    """K8 through its entry point (the seeded draw) against its plain
+    version on the same draw: EXACTLY equal int8 values."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+    w = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+    rows = shape[0]
+    cols = w.numel() // rows
+    qt = k2.stochastic_round_quantize(w, (0,), seed=seed)
+    w2 = w.reshape(rows, cols)  # the contracted axis leads: the collapse is a view
+    scale_row = k2.compute_scale(w, (0,)).reshape(1, cols)
+    u = k2.sr_uniform((rows, cols), seed, "cuda")
+    want = k2.sr_quantize_reference(w2, scale_row, u).reshape(shape)
+    torch.cuda.synchronize()
+    check(qt.q.dtype == torch.int8 and qt.q.shape == w.shape, f"{name}: {qt.q.dtype} {qt.q.shape}")
+    mismatched = int((qt.q != want).sum())
+    max_err = int((qt.q.int() - want.int()).abs().max())
+    check(mismatched == 0, f"{name}: {mismatched} int8 values differ from the plain version")
+    mean_err = (qt.q.double() * qt.scale.double() - w.double()).mean().item()
+    spread = qt.scale.double().mean().item() / math.sqrt(12 * w.numel())
+    check(abs(mean_err) <= K8_MEAN_RATIO_MAX * spread,
+          f"{name}: mean of q·scale − w {mean_err:.3e} > {K8_MEAN_RATIO_MAX}× {spread:.3e}")
+    out = {"max_abs_err": max_err, "mismatched": mismatched, "mean_err": mean_err,
+           "mean_err_scale": spread}
+    out["ms"] = median_ms(lambda: k2._sr_quantize_2d(w2, scale_row, u))
+    out["plain_ms"] = median_ms(lambda: k2.sr_quantize_reference(w2, scale_row, u))
+    out["rand_ms"] = median_ms(lambda: k2.sr_uniform((rows, cols), seed, "cuda"))
+    out["entry_ms"] = median_ms(lambda: k2.stochastic_round_quantize(w, (0,), seed=seed),
+                                runs=10)
+    out["library_ms"] = None  # no one PyTorch call rounds stochastically
+    n = w.numel()
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        3.0 * n, n * (w.element_size() + 4 + 1) + 4 * cols, torch.float32)
+    print(f"{name}: int8 values differing from the plain version {mismatched}; mean of "
+          f"q·scale − w {mean_err:.3e} (scale/√(12n) {spread:.3e}); kernel {out['ms']:.4f} ms "
+          f"plain {out['plain_ms']:.4f} ms bound {out['bound_ms']:.4f} ms ({out['bound_by']}) "
+          f"[context: torch.rand draw {out['rand_ms']:.4f} ms; the whole entry point "
+          f"(scale, draw, kernel) {out['entry_ms']:.4f} ms]", flush=True)
+    return out
+
+
+def last_port_checks(k1, k2, k4, k5) -> dict:
+    """K1's BHLD form, K4 v2, K5's stride-2 form and K8 against their plain
+    versions."""
+    import torch
+    import torch.nn.functional as F
+
+    phase("3a. K1-BHLD, K4 v2, K5 stride 2 and K8 against their plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+
+    # K1 in BHLD form on (B, H, L, D) permuted views of (B, L, H·D)
+    # projections, as the proj-BHLD route hands them
+    def bhld_views(b, h, l, d, dtype):
+        return torch.randn((b, l, h * d), generator=gen, device=dev).to(dtype).view(
+            b, l, h, d).permute(0, 2, 1, 3)
+
+    for key, (b, h, l, d, dv), dtype in (("vit", (48, 12, 784, 64, 64), bf16),
+                                         ("vit_f32", (8, 12, 784, 64, 64), f32),
+                                         ("psa", (30, 4, 1024, 64, 128), bf16)):
+        q, k, v = bhld_views(b, h, l, d, dtype), bhld_views(b, h, l, d, dtype), \
+            bhld_views(b, h, l, dv, dtype)
+        res["bhld_" + key] = compare_attention(
+            f"bhld ({b},{h},{l},{d}|{dv}) views {str(dtype).split('.')[-1]}",
+            lambda: k1.encoder_attention(q, k, v, bhld_inputs=True),
+            lambda: k1.encoder_attention_reference(q, k, v, bhld_inputs=True),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            dtype, attention_bound(b, h, l, l, d, dv, dtype))
+    worst = 0.0
+    for l in (1, 17, 130):
+        for n in sorted({1, max(1, l - 1), l}):
+            q, k, v = (bhld_views(2, 3, l, 40, f32), bhld_views(2, 3, l, 40, f32),
+                       bhld_views(2, 3, l, 56, f32))
+            got = k1.encoder_attention(q, k, v, valid_len=n, bhld_inputs=True)
+            want = k1.encoder_attention_reference(q, k, v, n, bhld_inputs=True)
+            worst = max(worst, (got - want).abs().max().item())
+    print(f"bhld edges (L = 1, 17, 130; valid_len 1, L-1, L; views; Dv != D) f32: "
+          f"max_abs_err {worst:.3e}")
+    check(worst <= ATOL_F32_MAX, f"bhld edges: max err {worst} > {ATOL_F32_MAX}")
+
+    # K4 on its K/V-resident schedule, K4 v1 and SDPA beside it
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    res["v2"] = {}
+    for name, ((b, l, h, d), valid) in K4_V2_SHAPES.items():
+        lengths = None if valid is None else torch.full((b,), valid, dtype=torch.int32,
+                                                        device=dev)
+        res["v2"][name] = flash_compare(k4, f"v2 {name} bf16", randn(b, l, h, d),
+                                        randn(b, l, h, d), randn(b, l, h, d), lengths, False,
+                                        timed=True, v2=True)
+    b, l, h, kvh, dk, dv = QWEN_TEXT_ATTN
+    res["v2"]["causal"] = flash_compare(
+        k4, f"v2 text causal ({b},{l},{h}/{kvh},{dk}) bf16", randn(b, l, h, dk),
+        randn(b, l, kvh, dk), randn(b, l, kvh, dv), None, True, timed=True, v2=True)
+    res["v2"]["f32"] = flash_compare(
+        k4, "v2 f32 (2,1608,16,80) valid 1601", randn(2, 1608, 16, 80, dtype=f32),
+        randn(2, 1608, 16, 80, dtype=f32), randn(2, 1608, 16, 80, dtype=f32),
+        torch.full((2,), 1601, dtype=torch.int32, device=dev), False, timed=True, v2=True)
+    for l in (1, 127, 129):
+        for causal in (False, True):
+            for dtype in (bf16, f32):
+                lens = sorted({1, max(1, l - 1)})
+                lengths = torch.tensor([lens[i % len(lens)] for i in range(2)],
+                                       dtype=torch.int32, device=dev)
+                flash_compare(
+                    k4, f"v2 edge L={l} causal={causal} lengths={lengths.tolist()} Dk=40 "
+                        f"Dv=56 4/2 heads {str(dtype).split('.')[-1]}",
+                    randn(2, l, 4, 40, dtype=dtype), randn(2, l, 2, 40, dtype=dtype),
+                    randn(2, l, 2, 56, dtype=dtype), lengths, causal, timed=False, v2=True)
+
+    # K5's stride-2 form at the detector's positions, ragged edges, one f32
+    res["s2"] = {}
+    for name, (n, c, h, w, cout) in K5_S2_SHAPES.items():
+        res["s2"][name] = conv_case(k5, gen, f"s2 {name}", n, c, h, w, 1, bf16, cout=cout,
+                                    timed=True, stride=2)
+        torch.cuda.empty_cache()
+    res["s2"]["f32"] = conv_case(k5, gen, "s2 f32 (4,48,64,64)->96", 4, 48, 64, 64, 1, f32,
+                                 cout=96, timed=True, stride=2)
+    for n, c, h, w, cout in ((2, 8, 2, 2, 16), (2, 20, 14, 18, 40), (3, 48, 10, 6, 56),
+                             (1, 3, 6, 4, 48)):
+        for dtype in (bf16, f32):
+            conv_case(k5, gen, f"s2 ragged ({n},{c},{h},{w})->{cout}", n, c, h, w, 1, dtype,
+                      cout=cout, strided=c == 48, stride=2)
+
+    # K8 on the card's draws
+    res["k8"] = {}
+    for i, (name, (shape, dtype)) in enumerate(K8_SHAPES.items()):
+        res["k8"][name] = sr_case(k2, name, shape, getattr(torch, dtype), seed=i)
+        torch.cuda.empty_cache()
+    return res
+
+
+def bhld_route_page(counters, detector, embedder, crops, embs) -> dict:
+    """The ViT page on the proj-BHLD route with phase 4's weights and pages;
+    its embeddings of phase 4's last 48 crops held against phase 4's."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.pipeline.fused import build_split_page_fn
+
+    phase("4c. the ViT page on the proj-BHLD route (MMTPU_ENC_ATTN_BLF=0)")
+    fn = build_split_page_fn(detector, embedder, PAGE_HW, num_regions=NUM_REGIONS,
+                             embed_chunk=NUM_REGIONS)
+    pages = make_pages(1 + TIMED_PAGES)
+    layers = embedder.model_config.vision.layers
+    with switches({"MMTPU_ENC_ATTN_BLF": "0"}):
+        t0 = time.perf_counter()
+        fn(pages[0])
+        torch.cuda.synchronize()
+        print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        zero(counters)
+        page_ms, results = [], []
+        for page in pages[1:]:
+            t0 = time.perf_counter()
+            res = fn(page)
+            torch.cuda.synchronize()
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            results.append(res)
+        launches = counts(counters)
+        want = only(counters, {"encoder_attention (bhld)": layers * TIMED_PAGES,
+                               "encoder_attention_blf_packed": TIMED_PAGES})
+        check(launches == want, f"launches {launches} != {want}")
+        for res in results:
+            check_page(res, 768)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn.embed(crops)
+        torch.cuda.synchronize()
+        embed_ms = (time.perf_counter() - t0) * 1e3
+    print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
+          + ", ".join(f"{t:.1f}" for t in page_ms) + f"); embed of 48 crops {embed_ms:.1f} ms")
+    print(f"launches over {TIMED_PAGES} pages: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    cos = cosines(got, embs)
+    print(f"proj-BHLD route vs phase 4's BLF route, the same 48 crops: embedding cosine min "
+          f"{cos.min().item():.6f}")
+    check(bool((cos >= COSINE_MIN).all()), f"embedding cosine {cos.min().item()} < {COSINE_MIN}")
+    return launches
 
 
 def main() -> int:
@@ -1698,21 +1969,27 @@ def main() -> int:
 
     start = time.perf_counter()
     smi = card()
-    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7))
+    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
+          ("K8", SimpleNamespace(build_info=k2.sr_build_info)))
+    counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)
     checks = kernel_checks(k1)
-    vit_launches, crops, embs, model_config, detector, vit_embedder = full_slice(k1)
+    last = last_port_checks(k1, k2, k4, k5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_launches, crops, embs, model_config, detector, vit_embedder = full_slice(counters)
     card_vs_cpu(crops, embs, model_config)
     route = route_kernel_checks(k1, k5, k6, k7)
     gc.collect()
     torch.cuda.empty_cache()
-    route_launches = kernel_route_page(k1, k5, k6, k7, detector, vit_embedder)
+    route_launches = kernel_route_page(counters, detector, vit_embedder)
+    bhld_launches = bhld_route_page(counters, detector, vit_embedder, crops, embs)
     del vit_embedder
     gc.collect()
     torch.cuda.empty_cache()
     masked = masked_checks(k1)
     int8 = int8_checks(k2)
-    mme5_launches, mme5_crops, _, mme5_config, mme5_embedder = mme5_page(k1, k2, detector)
-    tower_launches = mme5_tower(k1, k5, k6, k7, mme5_embedder, mme5_crops)
+    mme5_launches, mme5_crops, _, mme5_config, mme5_embedder = mme5_page(counters, detector)
+    tower_launches = mme5_tower(counters, mme5_embedder, mme5_crops)
     del mme5_embedder
     gc.collect()
     torch.cuda.empty_cache()
@@ -1724,16 +2001,7 @@ def main() -> int:
     int4 = int4_checks(k3)
     gc.collect()
     torch.cuda.empty_cache()
-    wrappers = {
-        "flash_attention": k4.flash_attention, "int4_matmul": k3.int4_matmul,
-        "encoder_attention": k1.encoder_attention,
-        "encoder_attention_blf": k1.encoder_attention_blf,
-        "encoder_attention_blf_packed": k1.encoder_attention_blf_packed,
-        "int8_matmul": k2.int8_matmul,
-        "encoder_attention_blhd": k1.encoder_attention_blhd,
-        "conv3x3_nchw": k5.conv3x3_nchw, "ln_matmul": k6.ln_matmul, "ln_stats": k7.ln_stats,
-    }
-    qwen_launches, ids, pixels, qwen_config = qwen_page(wrappers)
+    qwen_launches, ids, pixels, qwen_config = qwen_page(counters)
     gc.collect()
     torch.cuda.empty_cache()
     qwen_card_vs_cpu(ids, pixels, qwen_config)
@@ -1742,83 +2010,96 @@ def main() -> int:
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
     ref = "multimodal_embeddings_tpu/kernels/encoder_attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # launches over each path's timed run: 3 ViT pages on each route, 2 mmE5
+    # pages, one mmE5 tower chunk, 2 Qwen pages
+    paths = {"vit_page": vit_launches, "vit_kernel_route_page": route_launches,
+             "vit_bhld_route_page": bhld_launches, "mme5_page": mme5_launches,
+             "mme5_tower_fuse_mlp": tower_launches, "qwen_page": qwen_launches}
 
-    def entry(name, source, replaces, launches, by_path, shape, res, library=True):
+    def entry(name, source, replaces, home, shape, res, library=True):
+        """``home``: the path whose launches the entry reports (None for a
+        kernel on no path: the sum over all, 0)."""
+        by_path = {path: launches[name] for path, launches in paths.items()}
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches, "launches_by_path": by_path, "shape": shape}
+               "launches": by_path[home] if home else sum(by_path.values()),
+               "launches_by_path": by_path, "shape": shape}
         out.update({k: res.get(k) if library or k != "library_ms" else None for k in keys})
         return out
 
+    def headline(results, name):
+        """The headline shape's numbers with the largest error over all."""
+        head = dict(results[name])
+        head["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+        return head
+
     vit, psa = checks[("vit", torch.bfloat16)], checks["psa"]
-    k2_head = dict(int8[K2_HEADLINE])
-    k2_head["max_abs_err"] = max(int8[s]["max_abs_err"] for s in K2_SHAPES)
-    k3_head = dict(int4[K3_HEADLINE])
-    k3_head["max_abs_err"] = max(r["max_abs_err"] for r in int4.values())
-    k4_head = dict(flash["vision"])
-    k4_head["max_abs_err"] = max(r["max_abs_err"] for r in flash.values())
-    k5_head = dict(route["k5"][K5_HEADLINE])
-    k5_head["max_abs_err"] = max(route["k5"][s]["max_abs_err"] for s in K5_SHAPES)
-    k6_head = dict(route["k6"][K6_HEADLINE])
-    k6_head["max_abs_err"] = max(route["k6"][s]["max_abs_err"] for s in K6_SHAPES)
-    k7_head = dict(route["k7"][K7_HEADLINE])
-    k7_head["max_abs_err"] = max(route["k7"][s]["max_abs_err"] for s in K7_SHAPES)
+    k2_head = headline({s: int8[s] for s in K2_SHAPES}, K2_HEADLINE)
+    k3_head = headline(int4, K3_HEADLINE)
+    k4_head = headline(flash, "vision")
+    k5_head = headline({s: route["k5"][s] for s in K5_SHAPES}, K5_HEADLINE)
+    k6_head = headline({s: route["k6"][s] for s in K6_SHAPES}, K6_HEADLINE)
+    k7_head = headline({s: route["k7"][s] for s in K7_SHAPES}, K7_HEADLINE)
+    bhld_head = headline({k: v for k, v in last.items() if k.startswith("bhld_")}, "bhld_vit")
+    v2_head = headline(last["v2"], K4_V2_HEADLINE)
+    s2_head = headline(last["s2"], K5_S2_HEADLINE)
+    k8_head = headline(last["k8"], K8_HEADLINE)
     kernels = [
-        entry("encoder_attention_blf", src, f"{ref}:327", vit_launches["blf"],
-              {"vit_page": vit_launches["blf"], "mme5_page": mme5_launches["blf"],
-               "qwen_page": qwen_launches["encoder_attention_blf"]},
+        entry("encoder_attention_blf", src, f"{ref}:327", "vit_page",
               "(48,784,768) H=12 bf16", vit),
-        entry("encoder_attention_blf_packed", src, f"{ref}:458", vit_launches["packed"],
-              {"vit_page": vit_launches["packed"], "mme5_page": mme5_launches["packed"],
-               "qwen_page": qwen_launches["encoder_attention_blf_packed"],
-               "vit_kernel_route_page": route_launches["encoder_attention_blf_packed"]},
+        entry("encoder_attention_blf_packed", src, f"{ref}:458", "vit_page",
               "(30,1024,576) 4x(36|36|72) bf16", psa),
         entry("encoder_attention", src, f"{ref}:523 (and encoder_attention_padded :619)",
-              mme5_launches["masked"], {"mme5_page": mme5_launches["masked"],
-                                        "qwen_page": qwen_launches["encoder_attention"],
-                                        "mme5_tower_fuse_mlp": tower_launches["encoder_attention"]},
-              "(8,1608,16,80) valid 1601 bf16", masked[torch.bfloat16]),
+              "mme5_page", "(8,1608,16,80) valid 1601 bf16", masked[torch.bfloat16]),
         entry("int8_matmul", "multimodal_embeddings_tpu_torch/csrc/int8_matmul.cu",
-              "multimodal_embeddings_tpu/kernels/quantization.py:219",
-              mme5_launches["int8"], {"mme5_page": mme5_launches["int8"],
-                                      "qwen_page": qwen_launches["int8_matmul"]},
+              "multimodal_embeddings_tpu/kernels/quantization.py:219", "mme5_page",
               K2_HEADLINE + " bf16 (max_abs_err over the five text shapes)",
               k2_head, library=False),
         entry("int4_matmul", "multimodal_embeddings_tpu_torch/csrc/int4_matmul.cu",
-              "multimodal_embeddings_tpu/kernels/quantization_int4.py:166",
-              qwen_launches["int4_matmul"], {"qwen_page": qwen_launches["int4_matmul"]},
+              "multimodal_embeddings_tpu/kernels/quantization_int4.py:166", "qwen_page",
               K3_HEADLINE + " bf16 (max_abs_err over every checked shape)",
               k3_head, library=False),
         entry("flash_attention", "multimodal_embeddings_tpu_torch/csrc/flash_attention.cu",
-              "multimodal_embeddings_tpu/kernels/flash_attention.py:112",
-              qwen_launches["flash_attention"], {"qwen_page": qwen_launches["flash_attention"]},
+              "multimodal_embeddings_tpu/kernels/flash_attention.py:112", "qwen_page",
               "(1,4960,16,80) bf16 non-causal (max_abs_err over it and the causal text "
               "shape)", k4_head),
-        entry("encoder_attention_blhd", src, f"{ref}:157",
-              route_launches["encoder_attention_blhd"],
-              {"vit_kernel_route_page": route_launches["encoder_attention_blhd"],
-               "qwen_page": qwen_launches["encoder_attention_blhd"]},
+        entry("encoder_attention_blhd", src,
+              f"{ref}:157 (and the TPU probes blhd_static scripts/enc_attn_blhd_probe.py:93, "
+              "blhd_grid :137)", "vit_kernel_route_page",
               "(48,784,12,64) strided qkv bf16", route["blhd"]),
         entry("conv3x3_nchw", "multimodal_embeddings_tpu_torch/csrc/conv3x3.cu",
-              "multimodal_embeddings_tpu/kernels/conv.py:112", route_launches["conv3x3_nchw"],
-              {"vit_kernel_route_page": route_launches["conv3x3_nchw"],
-               "qwen_page": qwen_launches["conv3x3_nchw"]},
+              "multimodal_embeddings_tpu/kernels/conv.py:112", "vit_kernel_route_page",
               K5_HEADLINE + " bf16 (max_abs_err over the four page shapes)", k5_head),
         entry("ln_matmul", "multimodal_embeddings_tpu_torch/csrc/ln_matmul.cu",
-              "multimodal_embeddings_tpu/kernels/ln_matmul.py:73", route_launches["ln_matmul"],
-              {"vit_kernel_route_page": route_launches["ln_matmul"],
-               "mme5_tower_fuse_mlp": tower_launches["ln_matmul"],
-               "qwen_page": qwen_launches["ln_matmul"]},
+              "multimodal_embeddings_tpu/kernels/ln_matmul.py:73", "vit_kernel_route_page",
               K6_HEADLINE + " bf16 (max_abs_err over the three path shapes)", k6_head),
         entry("ln_stats", "multimodal_embeddings_tpu_torch/csrc/ln_stats.cu",
-              "multimodal_embeddings_tpu/kernels/ln_stats.py:96", route_launches["ln_stats"],
-              {"vit_kernel_route_page": route_launches["ln_stats"],
-               "mme5_tower_fuse_mlp": tower_launches["ln_stats"],
-               "qwen_page": qwen_launches["ln_stats"]},
+              "multimodal_embeddings_tpu/kernels/ln_stats.py:96", "vit_kernel_route_page",
               K7_HEADLINE + " (max_abs_err over the three path shapes)", k7_head),
+        entry("encoder_attention (bhld)", src,
+              f"{ref}:523 (bhld_inputs=True; and the probe's inline call "
+              "scripts/enc_attn_blhd_probe.py:308)", "vit_bhld_route_page",
+              "(48,12,784,64) views of (48,784,768) projections bf16 (max_abs_err over it, "
+              "the f32 and the PSA-probe shapes)", bhld_head),
+        entry("flash_attention_v2", "multimodal_embeddings_tpu_torch/csrc/flash_attention.cu",
+              "multimodal_embeddings_tpu/kernels/flash_attention.py:259", None,
+              K4_V2_HEADLINE + " bf16 (max_abs_err over every timed case)", v2_head),
+        entry("conv3x3_s2_nchw", "multimodal_embeddings_tpu_torch/csrc/conv3x3.cu",
+              "multimodal_embeddings_tpu/kernels/conv.py:239", None,
+              K5_S2_HEADLINE + " bf16 (max_abs_err over the three detector positions "
+              "and f32)", s2_head),
+        entry("stochastic_round_quantize", "multimodal_embeddings_tpu_torch/csrc/sr_quantize.cu",
+              "multimodal_embeddings_tpu/kernels/quantization.py:85 (_sr_quantize_2d :117)",
+              None, K8_HEADLINE + " (max_abs_err in int8 levels over the three weights)",
+              k8_head, library=False),
     ]
-    kernels[-2]["layer_norm_then_matmul_ms_context"] = k6_head["ln_then_matmul_ms"]
-    kernels[3]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
-    kernels[4]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["ln_matmul"]["layer_norm_then_matmul_ms_context"] = k6_head["ln_then_matmul_ms"]
+    by_name["int8_matmul"]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
+    by_name["int4_matmul"]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
+    by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
+    by_name["stochastic_round_quantize"]["torch_rand_ms_context"] = k8_head["rand_ms"]
+    by_name["stochastic_round_quantize"]["mismatched_int8"] = sum(
+        r["mismatched"] for r in last["k8"].values())
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

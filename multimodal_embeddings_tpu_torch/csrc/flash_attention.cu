@@ -33,7 +33,7 @@
 // Double-buffered tiles, TMA and wgmma are the next steps; this is the
 // simple correct form.
 //
-// The f32 form (checks only) runs on CUDA cores: one thread per query row,
+// The f32 forms (checks only) run on CUDA cores: one thread per query row,
 // 32-key tiles in shared memory, the same online-softmax recurrence with
 // unrounded p (f32 needs no rounding step, so the tile width only changes the
 // summation order).
@@ -41,6 +41,17 @@
 // q, k and v are addressed through (batch, row, head) strides with a unit
 // feature stride, so strided views (q/k/v sliced out of one fused projection)
 // need no copy; o is contiguous (B, L, H, Dv).
+//
+// The second schedule replaces `_flash_kernel_v2` (flash_attention_v2): the
+// TPU kernel runs one program per (batch, head) and walks all its query
+// blocks with that head's K and V resident in VMEM. One head's K/V at the
+// (2, 6432, 16, 80) shape is 2.06 MB, far past a block's 227 KB of shared
+// memory, so here one block per (head, batch item) walks its query tiles in
+// order through the same tile body (so the numerics are v1's, row for row)
+// and re-reads the head's K/V tiles from L2 (50 MB, against 66 MB of K/V for
+// all 32 heads at that shape): L2 stands in for VMEM. It is bound by the same tensor-core work as
+// v1 but runs only B*H blocks (32 at that shape, on 132 SMs); a cluster per
+// head holding K/V in distributed shared memory is the redesign.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,20 +127,26 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      const int* __restrict__ lengths, int L, int H, int KVH,
-                      int Dk, int Dv, long long qsb, int qsl, int qsh,
-                      long long ksb, int ksl, int ksh, long long vsb, int vsl,
-                      int vsh, int causal, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// The bf16 parameters of one launch, shared by both schedules.
+#define FLASH_BF16_PARAMS                                                       \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                     \
+      const bf16 *__restrict__ v, bf16 *__restrict__ o,                       \
+      const int *__restrict__ lengths, int L, int H, int KVH, int Dk, int Dv, \
+      long long qsb, int qsl, int qsh, long long ksb, int ksl, int ksh,       \
+      long long vsb, int vsl, int vsh, int causal, float scale, int vec
+#define FLASH_BF16_ARGS                                                        \
+  q, k, v, o, lengths, L, H, KVH, Dk, Dv, qsb, qsl, qsh, ksb, ksl, ksh, vsb, \
+      vsl, vsh, causal, scale, vec
+
+// Query rows [q0, q0 + BQ) of head h of batch item b, with every key tile
+// they attend; smem holds the Q tile and one K and one V tile.
+__device__ __forceinline__ void flash_bf16_tile(unsigned char* smem_raw, int q0, int h,
+                                                int b, FLASH_BF16_PARAMS) {
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + BQ * LD;
   bf16* sV = sK + BKV * LD;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
   int valid = L;
   if (lengths != nullptr) valid = min(max(lengths[b], 0), L);
@@ -268,6 +285,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// flash_attention: one block per (64-row query tile, head, batch item)
+__global__ void __launch_bounds__(THREADS) flash_bf16_kernel(FLASH_BF16_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  flash_bf16_tile(smem_raw, blockIdx.x * BQ, blockIdx.y, blockIdx.z, FLASH_BF16_ARGS);
+}
+
+// flash_attention_v2: one block per (head, batch item), walking its query
+// tiles in order, so the head's K and V are read by one SM again and again
+// and stay in L2 between the tiles (the TPU kernel keeps them in VMEM)
+__global__ void __launch_bounds__(THREADS) flash_v2_bf16_kernel(FLASH_BF16_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  for (int q0 = 0; q0 < L; q0 += BQ) {
+    __syncthreads();  // every warp is done with the previous tile's Q, K and V
+    flash_bf16_tile(smem_raw, q0, blockIdx.x, blockIdx.y, FLASH_BF16_ARGS);
+  }
+}
+
 // --------------------------------------------------------------------------
 // f32, CUDA cores (checks only)
 // --------------------------------------------------------------------------
@@ -275,17 +309,22 @@ __global__ void __launch_bounds__(THREADS)
 constexpr int FQ = 64;    // query rows (threads) per block
 constexpr int FKV = 32;   // keys per tile
 
-__global__ void __launch_bounds__(FQ)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     const int* __restrict__ lengths, int L, int H, int KVH,
-                     int Dk, int Dv, long long qsb, int qsl, int qsh,
-                     long long ksb, int ksl, int ksh, long long vsb, int vsl,
-                     int vsh, int causal, float scale) {
-  __shared__ float sK[FKV][DMAX];
-  __shared__ float sV[FKV][DMAX];
+#define FLASH_F32_PARAMS                                                        \
+  const float *__restrict__ q, const float *__restrict__ k,                     \
+      const float *__restrict__ v, float *__restrict__ o,                       \
+      const int *__restrict__ lengths, int L, int H, int KVH, int Dk, int Dv,   \
+      long long qsb, int qsl, int qsh, long long ksb, int ksl, int ksh,         \
+      long long vsb, int vsl, int vsh, int causal, float scale
+#define FLASH_F32_ARGS                                                         \
+  q, k, v, o, lengths, L, H, KVH, Dk, Dv, qsb, qsl, qsh, ksb, ksl, ksh, vsb,  \
+      vsl, vsh, causal, scale
+
+// Query rows [q0, q0 + FQ) of head h of batch item b, one per thread; every
+// thread takes part in the K/V staging, rows past L included.
+__device__ __forceinline__ void flash_f32_tile(float (*sK)[DMAX], float (*sV)[DMAX], int q0,
+                                               int h, int b, FLASH_F32_PARAMS) {
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * FQ + tid, h = blockIdx.y, b = blockIdx.z;
+  const int row = q0 + tid;
   const int kvh = h / (H / KVH);
   int valid = L;
   if (lengths != nullptr) valid = min(max(lengths[b], 0), L);
@@ -301,7 +340,7 @@ __global__ void __launch_bounds__(FQ)
   }
   float m = NEG_INF, l = 0.f;
   int last = valid;
-  if (causal) last = min(last, (int)blockIdx.x * FQ + FQ);
+  if (causal) last = min(last, q0 + FQ);
   for (int k0 = 0; k0 < last; k0 += FKV) {
     __syncthreads();
     for (int c = tid; c < FKV * DMAX; c += FQ) {
@@ -340,10 +379,64 @@ __global__ void __launch_bounds__(FQ)
       acc[d] = acc[d] * corr + pv;
     }
   }
-  if (row >= L) return;
-  const float den = fmaxf(l, 1e-30f);
-  float* out = o + (((size_t)b * L + row) * H + h) * Dv;
-  for (int d = 0; d < Dv; ++d) out[d] = acc[d] / den;
+  if (row < L) {
+    const float den = fmaxf(l, 1e-30f);
+    float* out = o + (((size_t)b * L + row) * H + h) * Dv;
+    for (int d = 0; d < Dv; ++d) out[d] = acc[d] / den;
+  }
+}
+
+__global__ void __launch_bounds__(FQ) flash_f32_kernel(FLASH_F32_PARAMS) {
+  __shared__ float sK[FKV][DMAX];
+  __shared__ float sV[FKV][DMAX];
+  flash_f32_tile(sK, sV, blockIdx.x * FQ, blockIdx.y, blockIdx.z, FLASH_F32_ARGS);
+}
+
+__global__ void __launch_bounds__(FQ) flash_v2_f32_kernel(FLASH_F32_PARAMS) {
+  __shared__ float sK[FKV][DMAX];
+  __shared__ float sV[FKV][DMAX];
+  for (int q0 = 0; q0 < L; q0 += FQ)
+    flash_f32_tile(sK, sV, q0, blockIdx.x, blockIdx.y, FLASH_F32_ARGS);
+}
+
+// schedule 0: flash_attention (a block per query tile, head and batch item);
+// 1: flash_attention_v2 (a block per head and batch item, looping over the
+// query tiles)
+int launch(int schedule, int dtype, const void* q, const void* k, const void* v, void* o,
+           const void* lengths, int B, int L, int H, int KVH, int Dk, int Dv,
+           long long qsb, int qsl, int qsh, long long ksb, int ksl, int ksh,
+           long long vsb, int vsl, int vsh, int causal, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Dk <= 0 ||
+      Dv <= 0 || Dk > DMAX || Dv > DMAX || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(lengths);
+  if (dtype == 1) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+    const bool strides8 = ((qsb | ksb | vsb) % 8 == 0) && (qsl % 8 == 0) && (qsh % 8 == 0) &&
+                          (ksl % 8 == 0) && (ksh % 8 == 0) && (vsl % 8 == 0) && (vsh % 8 == 0);
+    const int vec = (aligned && strides8) ? 1 : 0;
+    const auto kernel = schedule ? flash_v2_bf16_kernel : flash_bf16_kernel;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid = schedule ? dim3(H, B) : dim3((L + BQ - 1) / BQ, H, B);
+    kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lens, L, H, KVH, Dk, Dv,
+        qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, causal, scale, vec);
+  } else if (dtype == 0) {
+    const auto kernel = schedule ? flash_v2_f32_kernel : flash_f32_kernel;
+    const dim3 grid = schedule ? dim3(H, B) : dim3((L + FQ - 1) / FQ, H, B);
+    kernel<<<grid, FQ, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lens, L, H, KVH, Dk, Dv,
+        qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, causal, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -359,35 +452,18 @@ int flash_attn_launch(int dtype, const void* q, const void* k, const void* v,
                       int Dk, int Dv, long long qsb, int qsl, int qsh,
                       long long ksb, int ksl, int ksh, long long vsb, int vsl,
                       int vsh, int causal, float scale, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Dk <= 0 ||
-      Dv <= 0 || Dk > DMAX || Dv > DMAX || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(lengths);
-  if (dtype == 1) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    const bool strides8 = ((qsb | ksb | vsb) % 8 == 0) && (qsl % 8 == 0) && (qsh % 8 == 0) &&
-                          (ksl % 8 == 0) && (ksh % 8 == 0) && (vsl % 8 == 0) && (vsh % 8 == 0);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((L + BQ - 1) / BQ, H, B);
-    flash_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lens, L, H, KVH, Dk, Dv,
-        qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, causal, scale,
-        (aligned && strides8) ? 1 : 0);
-  } else if (dtype == 0) {
-    const dim3 grid((L + FQ - 1) / FQ, H, B);
-    flash_f32_kernel<<<grid, FQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lens, L, H, KVH, Dk, Dv,
-        qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, causal, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch(0, dtype, q, k, v, o, lengths, B, L, H, KVH, Dk, Dv, qsb, qsl, qsh, ksb,
+                ksl, ksh, vsb, vsl, vsh, causal, scale, stream);
+}
+
+// The same contract and arguments, on the K/V-resident schedule.
+int flash_attn_v2_launch(int dtype, const void* q, const void* k, const void* v,
+                         void* o, const void* lengths, int B, int L, int H, int KVH,
+                         int Dk, int Dv, long long qsb, int qsl, int qsh,
+                         long long ksb, int ksl, int ksh, long long vsb, int vsl,
+                         int vsh, int causal, float scale, void* stream) {
+  return launch(1, dtype, q, k, v, o, lengths, B, L, H, KVH, Dk, Dv, qsb, qsl, qsh, ksb,
+                ksl, ksh, vsb, vsl, vsh, causal, scale, stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,12 @@ kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v through
 * ``encoder_attention``: ``(B, L, H, D)`` operands and a key prefix
   ``valid_len`` (the Mllama vision tower: 1601 valid of 1608 rows). The JAX
   ``encoder_attention_padded`` pads L to 16 for the TPU's sublanes; the
-  kernel takes any L, so this one wrapper stands for both;
+  kernel takes any L, so this one wrapper stands for both. With
+  ``bhld_inputs=True`` q/k/v and the output are ``(B, H, L, D)`` instead —
+  the ViT's proj-BHLD route (``MMTPU_ENC_ATTN_BLF=0``) hands it permuted
+  views of its ``(B, L, H·D)`` projections, read through their strides with
+  no copy. The JAX ``heads_per_block`` and ``row_block`` arguments tile the
+  TPU's VMEM and have no counterpart here;
 * ``encoder_attention_blhd``: ``(B, L, H, D)`` operands over all keys with a
   given scale — the opt-in route of ``sdpa`` (``MMTPU_ENC_ATTN_BLHD=1``),
   whose q/k/v are strided column slices of the fused LayerNorm→qkv product,
@@ -38,7 +43,8 @@ a query.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``; ``encoder_attention`` counts its (B, L, H, D) form
+there and its BHLD form in ``encoder_attention.bhld.launches``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from types import SimpleNamespace
+
 import torch
 
 from multimodal_embeddings_tpu_torch.kernels import _build
@@ -144,13 +152,14 @@ def encoder_attention_blhd_reference(q, k, v, sm_scale=None) -> torch.Tensor:
 
 
 def encoder_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len=None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len=None,
+    bhld_inputs: bool = False,
 ) -> torch.Tensor:
     """Plain version of ``encoder_attention``."""
-    o = _attend_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        1.0 / math.sqrt(q.shape[3]), valid_len,
-    )
+    scale = 1.0 / math.sqrt(q.shape[3])
+    if bhld_inputs:
+        return _attend_plain(q, k, v, scale, valid_len)
+    o = _attend_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, valid_len)
     return o.transpose(1, 2)
 
 
@@ -176,11 +185,11 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError(f"unsupported dtype {dtype} (float32 or bfloat16)")
 
 
-def _launch(q, k, v, heads, d, dv, head_strides, scale, valid_len) -> torch.Tensor:
-    """One kernel launch: q/k/v are (B, L, ·) views with unit feature
-    stride; ``head_strides`` gives each operand's column offset per head.
-    Returns ``(B, L, heads·dv)``."""
-    b, l = q.shape[0], q.shape[1]
+def _launch(q, k, v, out, dims, strides, scale, valid_len) -> torch.Tensor:
+    """One kernel launch writing ``out``. ``dims`` = (B, L, H, D, Dv);
+    ``strides`` holds the (batch, row, head) element strides of q, k, v and
+    out, in that order, each operand with a unit feature stride."""
+    b, l, heads, d, dv = dims
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {_MAX_DIM}")
     lib = _lib()
@@ -190,18 +199,25 @@ def _launch(q, k, v, heads, d, dv, head_strides, scale, valid_len) -> torch.Tens
             f"L={l} needs {smem} B of shared memory per block "
             f"(limit {_MAX_SMEM}): longer rows need a tiled-softmax kernel"
         )
-    out = torch.empty((b, l, heads * dv), device=q.device, dtype=q.dtype)
-    args = []
-    for t, hs in zip((q, k, v, out), (*head_strides, dv)):
-        args += [t.stride(0), t.stride(1), hs]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.enc_attn_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, l, heads, d, dv, valid_len, *args, scale, stream,
+        out.data_ptr(), b, l, heads, d, dv, valid_len, *(x for st in strides for x in st),
+        scale, stream,
     )
     if err != 0:
         raise RuntimeError(f"encoder attention launch failed: cudaError {err}")
     return out
+
+
+def _launch_blf(q, k, v, heads, d, dv, head_strides, scale) -> torch.Tensor:
+    """K1 over (B, L, ·) views whose heads lie ``head_strides`` columns
+    apart, all keys; returns ``(B, L, heads·dv)``."""
+    b, l = q.shape[:2]
+    out = torch.empty((b, l, heads * dv), device=q.device, dtype=q.dtype)
+    strides = [(t.stride(0), t.stride(1), hs)
+               for t, hs in zip((q, k, v, out), (*head_strides, dv))]
+    return _launch(q, k, v, out, (b, l, heads, d, dv), strides, scale, l)
 
 
 def encoder_attention_blf(
@@ -221,7 +237,7 @@ def encoder_attention_blf(
     if q.device.type == "cpu":
         return encoder_attention_blf_reference(q, k, v, heads)
     _check_cuda(q, k, v)
-    out = _launch(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d), l)
+    out = _launch_blf(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d))
     encoder_attention_blf.launches += 1
     return out
 
@@ -248,10 +264,8 @@ def encoder_attention_blf_packed(
     q = qkv[..., :key_dim]
     k = qkv[..., key_dim : 2 * key_dim]
     v = qkv[..., 2 * key_dim :]
-    out = _launch(
-        q, k, v, heads, key_dim, head_dim, (stride,) * 3,
-        1.0 / math.sqrt(key_dim), l,
-    )
+    out = _launch_blf(q, k, v, heads, key_dim, head_dim, (stride,) * 3,
+                      1.0 / math.sqrt(key_dim))
     encoder_attention_blf_packed.launches += 1
     return out
 
@@ -259,32 +273,49 @@ def encoder_attention_blf_packed(
 encoder_attention_blf_packed.launches = 0
 
 
+def _launch_4d(q, k, v, bhld: bool, scale, valid_len) -> torch.Tensor:
+    """K1 over 4-D operands read through their strides: (B, L, H, D), or
+    (B, H, L, D) with ``bhld``; the output in the same layout."""
+    if bhld:
+        b, h, l, d = q.shape
+        order = (0, 2, 1)  # (batch, row, head) dims of a BHLD tensor
+    else:
+        b, l, h, d = q.shape
+        order = (0, 1, 2)
+    dv = v.shape[3]
+    out_shape = (b, h, l, dv) if bhld else (b, l, h, dv)
+    out = torch.empty(out_shape, device=q.device, dtype=q.dtype)
+    strides = [tuple(t.stride(i) for i in order) for t in (q, k, v, out)]
+    return _launch(q, k, v, out, (b, l, h, d, dv), strides, scale, valid_len)
+
+
 def encoder_attention(
-    q: torch.Tensor,  # (B, L, H, D)
-    k: torch.Tensor,  # (B, L, H, D)
-    v: torch.Tensor,  # (B, L, H, Dv)
+    q: torch.Tensor,  # (B, L, H, D), or (B, H, L, D) with bhld_inputs
+    k: torch.Tensor,  # as q
+    v: torch.Tensor,  # (B, L, H, Dv), or (B, H, L, Dv)
     valid_len=None,
+    bhld_inputs: bool = False,
 ) -> torch.Tensor:
     """Whole-row attention over the keys ``[0, valid_len)`` (all L when
     None), scale ``1/√D``; every row is a query. Returns ``(B, L, H, Dv)``
-    in q's dtype."""
-    b, l, h, d = q.shape
-    if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != (b, l, h):
+    (``(B, H, L, Dv)`` with ``bhld_inputs``) in q's dtype."""
+    l = q.shape[2] if bhld_inputs else q.shape[1]
+    if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape}")
     n = l if valid_len is None else valid_len
     if not 1 <= n <= l:
         raise ValueError(f"valid_len {valid_len} outside [1, {l}]")
     if q.device.type == "cpu":
-        return encoder_attention_reference(q, k, v, valid_len)
+        return encoder_attention_reference(q, k, v, valid_len, bhld_inputs)
     _check_cuda(q, k, v)
-    dv = v.shape[3]
-    heads = (q.stride(2), k.stride(2), v.stride(2))
-    out = _launch(q, k, v, h, d, dv, heads, 1.0 / math.sqrt(d), n)
-    encoder_attention.launches += 1
-    return out.view(b, l, h, dv)
+    out = _launch_4d(q, k, v, bhld_inputs, 1.0 / math.sqrt(q.shape[3]), n)
+    counter = encoder_attention.bhld if bhld_inputs else encoder_attention
+    counter.launches += 1
+    return out
 
 
-encoder_attention.launches = 0
+encoder_attention.launches = 0  # the (B, L, H, D) form
+encoder_attention.bhld = SimpleNamespace(launches=0)  # the (B, H, L, D) form
 
 
 def _blhd_pick_hpb(l, h, d, dv, dtype):
@@ -330,11 +361,9 @@ def encoder_attention_blhd(
     if q.device.type == "cpu":
         return encoder_attention_blhd_reference(q, k, v, scale)
     _check_cuda(q, k, v)
-    dv = v.shape[3]
-    heads = (q.stride(2), k.stride(2), v.stride(2))
-    out = _launch(q, k, v, h, d, dv, heads, scale, l)
+    out = _launch_4d(q, k, v, False, scale, l)
     encoder_attention_blhd.launches += 1
-    return out.view(b, l, h, dv)
+    return out
 
 
 encoder_attention_blhd.launches = 0

@@ -18,9 +18,15 @@ The plain version repeats the TPU kernel's block loop at ``block_k`` = 128
 bounds the kernel on an H100, and what its design does about it, is written
 at the top of the CUDA source.
 
+``flash_attention_v2`` replaces the TPU package's K/V-resident variant
+(``_flash_kernel_v2``) with the same contract and arguments: the same CUDA
+tile body on another schedule, one block per (head, batch item) walking its
+query tiles in order, so its outputs equal ``flash_attention``'s row for
+row and its plain version is ``flash_attention``'s.
+
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches. The
-TPU package's K/V-resident variant ``flash_attention_v2`` is not ported yet.
+kernel or raises. ``flash_attention.launches`` and
+``flash_attention_v2.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -46,14 +52,15 @@ def _lib():
     """The built library with its C signature declared (first call builds)."""
     lib, _ = _build.load(_SOURCE)
     strides = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # batch, row, head
-    lib.flash_attn_launch.argtypes = (
-        [ctypes.c_int]
-        + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 6
-        + strides * 3
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.flash_attn_launch.restype = ctypes.c_int
+    for fn in (lib.flash_attn_launch, lib.flash_attn_v2_launch):
+        fn.argtypes = (
+            [ctypes.c_int]
+            + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 6
+            + strides * 3
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -108,15 +115,10 @@ def flash_attention_reference(
     return out.to(q.dtype).transpose(1, 2)
 
 
-def flash_attention(
-    q: torch.Tensor,  # (B, L, H, Dk)
-    k: torch.Tensor,  # (B, L, KVH, Dk)
-    v: torch.Tensor,  # (B, L, KVH, Dv)
-    lengths: Optional[torch.Tensor] = None,  # (B,) valid key counts, ≥ 1
-    causal: bool = False,
-) -> torch.Tensor:
-    """Self-attention over key tiles, never forming the (L, L) scores.
-    Returns ``(B, L, H, Dv)`` in q's dtype."""
+def _flash(launch: str, q, k, v, lengths, causal) -> torch.Tensor:
+    """Check the operands and run the plain version (CPU) or the kernel
+    behind the C entry point ``launch`` (CUDA); True in the second value
+    when the kernel was launched."""
     b, l, h, dk = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     if k.shape != (b, l, kvh, dk) or v.shape[:3] != (b, l, kvh) or h % kvh:
@@ -124,9 +126,9 @@ def flash_attention(
     if lengths is not None and lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, lengths, causal)
+        return flash_attention_reference(q, k, v, lengths, causal), False
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention runs on cpu or one cuda device, not {q.device}")
+        raise ValueError(f"flash attention runs on cpu or one cuda device, not {q.device}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must all be float32 or all bfloat16")
     if dk > _MAX_DIM or dv > _MAX_DIM:
@@ -142,15 +144,45 @@ def flash_attention(
     for t in (q, k, v):
         args += [t.stride(0), t.stride(1), t.stride(2)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().flash_attn_launch(
+    err = getattr(_lib(), launch)(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lens is None else lens.data_ptr(), b, l, h, kvh, dk, dv, *args,
         int(causal), 1.0 / math.sqrt(dk), stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{launch} failed: cudaError {err}")
+    return out, True
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, L, H, Dk)
+    k: torch.Tensor,  # (B, L, KVH, Dk)
+    v: torch.Tensor,  # (B, L, KVH, Dv)
+    lengths: Optional[torch.Tensor] = None,  # (B,) valid key counts, ≥ 1
+    causal: bool = False,
+) -> torch.Tensor:
+    """Self-attention over key tiles, never forming the (L, L) scores.
+    Returns ``(B, L, H, Dv)`` in q's dtype."""
+    out, launched = _flash("flash_attn_launch", q, k, v, lengths, causal)
+    flash_attention.launches += launched
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_v2(
+    q: torch.Tensor,  # (B, L, H, Dk)
+    k: torch.Tensor,  # (B, L, KVH, Dk)
+    v: torch.Tensor,  # (B, L, KVH, Dv)
+    lengths: Optional[torch.Tensor] = None,  # (B,) valid key counts, ≥ 1
+    causal: bool = False,
+) -> torch.Tensor:
+    """``flash_attention`` on the K/V-resident schedule: one block per
+    (head, batch item). The same contract and the same outputs."""
+    out, launched = _flash("flash_attn_v2_launch", q, k, v, lengths, causal)
+    flash_attention_v2.launches += launched
+    return out
+
+
+flash_attention_v2.launches = 0

@@ -23,6 +23,7 @@ from multimodal_embeddings_tpu_torch.kernels.conv import conv3x3_nchw
 from multimodal_embeddings_tpu_torch.kernels.encoder_attention import (
     encoder_attention_blf_packed,
 )
+from multimodal_embeddings_tpu_torch.models.transformer import _opted_out, sdpa
 
 BN_EPS = 1e-3  # nn.BatchNorm(epsilon=1e-3) of the JAX ConvBnAct
 
@@ -246,8 +247,9 @@ class SPPF(nn.Module):
 class PSAAttention(nn.Module):
     """YOLOv10 PSA attention: one 1×1 qkv conv whose channels are packed per
     head as ``[q(kd) | k(kd) | v(hd)]`` (ultralytics order), whole-row
-    attention through the packed K1 kernel, a 3×3 depthwise positional
-    branch over V, and a 1×1 projection."""
+    attention through the packed K1 kernel (``sdpa`` on strided views of
+    the slab under ``MMTPU_PSA_BLF=0``, as in JAX), a 3×3 depthwise
+    positional branch over V, and a 1×1 projection."""
 
     def __init__(self, channels: int, attn_ratio: float = 0.5, num_heads: int = 4):
         super().__init__()
@@ -264,10 +266,13 @@ class PSAAttention(nn.Module):
         nh, kd, hd = self.num_heads, self.key_dim, self.head_dim
         # (B, L, C) channel-minor: a view when qkv is channels_last
         qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, h * w, -1)
-        out = encoder_attention_blf_packed(qkv, nh, kd, hd)
+        per_head = qkv.reshape(b, h * w, nh, 2 * kd + hd)
+        if _opted_out("MMTPU_PSA_BLF"):
+            out = sdpa(per_head[..., :kd], per_head[..., kd : 2 * kd], per_head[..., 2 * kd :])
+        else:
+            out = encoder_attention_blf_packed(qkv, nh, kd, hd)
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        v = qkv.reshape(b, h * w, nh, 2 * kd + hd)[..., 2 * kd :]
-        v = v.reshape(b, h, w, nh * hd).permute(0, 3, 1, 2)
+        v = per_head[..., 2 * kd :].reshape(b, h, w, nh * hd).permute(0, 3, 1, 2)
         return self.proj(out + self.pe(v))
 
 

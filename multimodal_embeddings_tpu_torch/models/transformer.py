@@ -21,7 +21,15 @@ The JAX package's opt-in kernel routes run here too:
 * ``MMTPU_ENC_ATTN_BLHD=1``: ``sdpa``'s whole-row route through
   ``encoder_attention_blhd`` where the JAX package takes its BLHD kernel.
 
-The two variables are read at call time, by ``_switch``.
+Two routes are on by default, as in the JAX package, and a variable set to
+``"0"`` opts out of each (A/B hygiene):
+
+* ``MMTPU_ENC_ATTN_BLF=0``: ``Attention`` leaves the BLF route
+  (``encoder_attention_blf``) for the proj-BHLD route;
+* ``MMTPU_ENC_ATTN_PROJ=0``: ``Attention`` leaves the proj-BHLD route for
+  the generic one through ``sdpa``.
+
+Every variable is read at call time, by ``_switch`` or ``_opted_out``.
 
 Types follow the JAX modules: ``dtype`` is the compute type that norms
 cast their output to and int8 projections run in; a float Dense computes
@@ -58,6 +66,13 @@ def _switch(name: str) -> bool:
     """An opt-in kernel route of the JAX package, read at call time:
     ``MMTPU_LN_STATS`` or ``MMTPU_ENC_ATTN_BLHD`` set to ``"1"``."""
     return os.environ.get(name) == "1"
+
+
+def _opted_out(name: str) -> bool:
+    """A default-on kernel route of the JAX package switched off, read at
+    call time: ``MMTPU_ENC_ATTN_BLF``, ``MMTPU_ENC_ATTN_PROJ`` or
+    ``MMTPU_PSA_BLF`` set to ``"0"``."""
+    return os.environ.get(name) == "0"
 
 
 class Dense(nn.Module):
@@ -266,13 +281,22 @@ def sdpa(
 
 class Attention(nn.Module):
     """Multi-head attention with optional GQA, RoPE, q/k RMSNorm and a
-    separate kv input. Self-attention with none of those runs on K1: over
-    all keys through ``encoder_attention_blf`` on the ``(B, L, H·D)``
-    projections (the ViT), over a key prefix ``key_valid_len`` through
-    ``encoder_attention`` (the Mllama vision tower's 1601 of 1608). Every
-    length goes to K1 (the JAX package's [256, 1664] window and ``% 16``
-    gate are TPU VMEM rules). Everything else runs ``sdpa``; a key prefix
-    is only taken on the K1 path.
+    separate kv input. Self-attention with none of those runs on K1: over a
+    key prefix ``key_valid_len`` through ``encoder_attention`` (the Mllama
+    vision tower's 1601 of 1608); over all keys by the JAX package's
+    dispatch (``transformer.py`` ``Attention.__call__``), read at call time:
+
+    1. BLF: ``encoder_attention_blf`` on the ``(B, L, H·D)`` projections
+       (the ViT), unless ``MMTPU_ENC_ATTN_BLF=0``;
+    2. proj-BHLD: the projections viewed as ``(B, H, L, D)`` (a permutation,
+       no copy), ``encoder_attention(bhld_inputs=True)`` and the out
+       projection contracting over (h, d), unless ``MMTPU_ENC_ATTN_PROJ=0``
+       or the block is quantized (as JAX gates it);
+    3. ``sdpa``.
+
+    Every length goes to K1 (the JAX package's [256, 1664] window and
+    ``% 16`` gate are TPU VMEM rules). Everything else runs ``sdpa``; a key
+    prefix is only taken on the K1 path.
 
     ``pre_ln=(scale, bias)`` is the fused prologue of a float block's
     self-attention: the block's LayerNorm and the q/k/v projections as ONE
@@ -298,6 +322,7 @@ class Attention(nn.Module):
         self.use_rope = use_rope
         self.use_qk_norm = use_qk_norm
         self.rope_theta = rope_theta
+        self.quantize = quantize
         h, kvh, d = num_heads, self.num_kv_heads, head_dim
         self.q = _dense(width, h * d, False, (width, h, d), quantize, dtype)
         self.k = _dense(width, kvh * d, False, (width, kvh, d), quantize, dtype)
@@ -326,16 +351,29 @@ class Attention(nn.Module):
             kv is None and mask is None and not causal and kvh == h
             and not self.use_rope and not self.use_qk_norm
         ):
-            if key_valid_len is None or key_valid_len >= l:
-                o = encoder_attention_blf(q, k, v, heads=h)
-            else:
+            if key_valid_len is not None and key_valid_len < l:
                 o = encoder_attention(
                     q.view(b, l, h, d), k.view(b, l, h, d), v.view(b, l, h, d),
                     valid_len=key_valid_len,
-                ).reshape(b, l, h * d)
-            return self.o(o)
+                )
+                return self.o(o.reshape(b, l, h * d))
+            if not _opted_out("MMTPU_ENC_ATTN_BLF"):
+                return self.o(encoder_attention_blf(q, k, v, heads=h))
+            if not _opted_out("MMTPU_ENC_ATTN_PROJ") and not self.quantize:
+                return self._proj_bhld(q, k, v)
         return self._attend(x, q.view(b, l, h, d), k.view(b, -1, kvh, d),
                             v.view(b, -1, kvh, d), mask, causal)
+
+    def _proj_bhld(self, q, k, v):
+        """The proj-BHLD route: the ``(B, L, H·D)`` projections as
+        ``(B, H, L, D)`` views, K1 in its BHLD form, and the out projection
+        contracting over (h, d) from ``(B, H, L, D)``."""
+        b, l, _ = q.shape
+        h, d = self.num_heads, self.head_dim
+        o = encoder_attention(
+            *(t.view(b, l, h, d).permute(0, 2, 1, 3) for t in (q, k, v)), bhld_inputs=True
+        )
+        return torch.einsum("bhld,hdc->blc", o, self.o.weight.view(h, d, -1))
 
     def _fused_prologue(self, x, mask, causal, key_valid_len, pre_ln):
         b, l, width = x.shape

@@ -1,5 +1,6 @@
-"""K5, the 3×3 conv: its plain PyTorch version against the JAX Pallas kernel
-(interpret mode), and the GL-CRM kernel route of the port's detector against
+"""K5, the 3×3 conv: its plain PyTorch versions (stride 1 and the stride-2
+form) against the JAX Pallas kernels (interpret mode), and the GL-CRM kernel
+route of the port's detector against
 the JAX modules' ``pallas_max_channels`` route, same weights, f32.
 
 Tolerances: f32 2e-5 absolute on outputs of magnitude up to ~10 (the two
@@ -17,6 +18,7 @@ from flax.linen import unbox
 import jax.numpy as jnp
 
 from multimodal_embeddings_tpu.kernels.conv import conv3x3_nchw as jax_conv
+from multimodal_embeddings_tpu.kernels.conv import conv3x3_s2_nchw as jax_conv_s2
 from multimodal_embeddings_tpu.models import layers as jl
 from multimodal_embeddings_tpu.models import yolo as jyolo
 from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
@@ -95,6 +97,72 @@ def test_wrapper_checks_and_launch_count():
         k5.conv3x3_nchw(x, w, act="relu")
     with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
         k5.conv3x3_nchw(x.to("meta"), w.to("meta"))
+
+
+# --- the stride-2 form (conv3x3_s2_nchw) ------------------------------------
+
+
+@pytest.mark.parametrize("n,c,co,h,w", [(2, 8, 16, 32, 256), (1, 16, 8, 48, 128)])
+def test_s2_plain_matches_pallas(n, c, co, h, w):
+    """The JAX tests' shapes and epilogue (tests/test_conv_kernel.py::
+    TestStride2), and their tolerance, 1e-4."""
+    x, k, b = _operands(40 + c, n, c, co, h, w)
+    want = jax_conv_s2(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), act="silu",
+                       interpret=True)
+    got = k5.conv3x3_s2_nchw(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b),
+                             act="silu")
+    assert got.shape == (n, co, h // 2, w // 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_s2_edges_border_mass():
+    """Mass only on the borders: the bottom/right SAME padding (row and
+    column H, W read 0) and the top/left rows and columns read once."""
+    x = np.zeros((1, 4, 16, 128), np.float32)
+    x[:, :, 0, :], x[:, :, -1, :], x[:, :, :, 0], x[:, :, :, -1] = 1.0, 2.0, 3.0, 4.0
+    k = np.full((4, 4, 3, 3), 0.5, np.float32)
+    want = jax_conv_s2(jnp.asarray(x), jnp.asarray(k), interpret=True)
+    got = k5.conv3x3_s2_nchw(torch.from_numpy(x), torch.from_numpy(k))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_s2_bf16_casts_the_weight_to_x():
+    """bf16 x with f32 weights and bias: both sides cast the weight to bf16
+    and keep the bias f32; at most 2 bf16 steps apart."""
+    x, k, b = _operands(50, 2, 8, 12, 16, 32)
+    want = jax_conv_s2(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k), jnp.asarray(b),
+                       act="silu", interpret=True)
+    got = k5.conv3x3_s2_nchw(torch.from_numpy(x).bfloat16(), torch.from_numpy(k),
+                             torch.from_numpy(b), act="silu")
+    assert got.dtype == torch.bfloat16
+    assert _bf16_steps(got.float().numpy(), np.asarray(want.astype(jnp.float32))) <= 2
+
+
+def test_s2_is_not_the_detectors_symmetric_padding():
+    """Lax SAME pads 0 on top/left and 1 on bottom/right at even H and W;
+    the detector's stride-2 ConvBnAct pads 1 on every side, which moves
+    every tap by one pixel."""
+    x, k, _ = _operands(51, 1, 4, 4, 8, 8)
+    got = k5.conv3x3_s2_nchw(torch.from_numpy(x), torch.from_numpy(k))
+    symmetric = torch.nn.functional.conv2d(torch.from_numpy(x), torch.from_numpy(k),
+                                           stride=2, padding=1)
+    assert got.shape == symmetric.shape
+    assert (got - symmetric).abs().max() > 0.1
+
+
+def test_s2_wrapper_checks_and_launch_count():
+    x = torch.zeros(1, 4, 6, 8)
+    w = torch.zeros(8, 4, 3, 3)
+    before = (k5.conv3x3_nchw.launches, k5.conv3x3_s2_nchw.launches)
+    k5.conv3x3_s2_nchw(x, w, torch.zeros(8), act="silu")  # CPU: plain version
+    assert (k5.conv3x3_nchw.launches, k5.conv3x3_s2_nchw.launches) == before
+    for odd in (torch.zeros(1, 4, 7, 8), torch.zeros(1, 4, 6, 9)):
+        with pytest.raises(ValueError):
+            k5.conv3x3_s2_nchw(odd, w)
+    with pytest.raises(ValueError):
+        k5.conv3x3_s2_nchw(x, torch.zeros(8, 5, 3, 3))
+    with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
+        k5.conv3x3_s2_nchw(x.to("meta"), w.to("meta"))
 
 
 # --- the GL-CRM kernel route against the JAX modules ------------------------

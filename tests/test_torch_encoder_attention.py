@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from multimodal_embeddings_tpu.kernels import encoder_attention as jk1
 from multimodal_embeddings_tpu.kernels.encoder_attention import (
+    encoder_attention as jax_k1,
     encoder_attention_blf as jax_blf,
     encoder_attention_blf_packed as jax_blf_packed,
     encoder_attention_blhd as jax_blhd,
@@ -214,3 +215,69 @@ def test_sdpa_takes_the_blhd_route_where_jax_does(shape, dtype, blhd_env, monkey
     assert routes["port"] == routes["jax"]
     if shape[1] == 784 and dtype == "bfloat16":
         assert routes["jax"] == (["blhd"] if blhd_env else ["bhld"])
+
+
+@pytest.mark.parametrize("shape,dv,valid_len", [((2, 3, 64, 16), 16, None),
+                                                ((1, 4, 48, 24), 40, None),
+                                                ((2, 2, 48, 16), 24, 33)])
+def test_bhld_plain_matches_pallas(shape, dv, valid_len):
+    """``bhld_inputs=True``: (B, H, L, D) operands and output, against JAX
+    ``encoder_attention(bhld_inputs=True)``; the port reads permuted views
+    of (B, L, H·D) projections, as the proj-BHLD route hands them."""
+    b, h, l, d = shape
+    q, k = _randn(15, shape), _randn(16, shape)
+    v = _randn(17, (b, h, l, dv))
+    want = jax_k1(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), valid_len=valid_len,
+                  bhld_inputs=True, interpret=True)
+
+    def as_view(x):  # the same values as a (B, H, L, ·) view of a (B, L, H·D) slab
+        slab = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+        return slab.reshape(b, l, -1).view(b, l, h, x.shape[3]).permute(0, 2, 1, 3)
+
+    got = k1.encoder_attention(as_view(q), as_view(k), as_view(v), valid_len=valid_len,
+                               bhld_inputs=True)
+    assert got.shape == (b, h, l, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_bhld_wrapper_checks_and_launch_counts():
+    q = torch.zeros(1, 2, 8, 4)
+    before = (k1.encoder_attention.launches, k1.encoder_attention.bhld.launches)
+    out = k1.encoder_attention(q + 1, q, q + 2, bhld_inputs=True)  # CPU: plain version
+    assert (k1.encoder_attention.launches, k1.encoder_attention.bhld.launches) == before
+    torch.testing.assert_close(out, torch.full_like(q, 2.0))
+    with pytest.raises(ValueError):
+        k1.encoder_attention(q, q[:, :, :7], q, bhld_inputs=True)
+    with pytest.raises(ValueError):
+        k1.encoder_attention(q, q, q, valid_len=9, bhld_inputs=True)
+    with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
+        m = q.to("meta")
+        k1.encoder_attention(m, m, m, bhld_inputs=True)
+
+
+def test_blhd_probe_script_variants_agree_on_the_cpu():
+    """``scripts/torch_enc_attn_blhd_probe.py`` at one crop of the ViT
+    shape: every variant's mini block computes the same function (K1's
+    plain version in six layouts, the XLA-numerics ``sdpa`` in one), bf16,
+    cosine per token ≥ 0.999 against ``blf``, once the packed variant's
+    weight is wq|wk|wv packed per head (the script draws its own, as the
+    JAX probe does); ``run`` prints its JSON line."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_enc_attn_blhd_probe",
+        pathlib.Path(__file__).parent.parent / "scripts" / "torch_enc_attn_blhd_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    x, wq, wk, wv, wo, _ = probe.inputs("vit", "cpu", batch=1)
+    args = (x, wq, wk, wv, wo, torch.cat([wq, wk, wv], dim=2).reshape(768, -1))
+    want = probe.block("blf", "vit")(*args).float()
+    for variant in probe.VARIANTS:
+        got = probe.block(variant, "vit")(*args).float()
+        assert got.shape == (1, 784, 768), variant
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert float(cos.min()) >= 0.999, (variant, float(cos.min()))
+    line = probe.run("proj_bhld", "vit", iters=1, device="cpu", batch=1)
+    assert line["dims"] == [1, 784, 12, 64, 64] and line["ms"] > 0
+    assert line["launches"] == {}  # the CPU takes the plain versions

@@ -2,6 +2,9 @@
 kernel in interpret mode, and the port's ``sdpa`` dispatch against JAX
 ``sdpa``.
 
+``flash_attention_v2`` (K4 on its K/V-resident schedule) against the JAX
+``flash_attention_v2`` the same way, and against the port's v1.
+
 Tolerances. f32: the two sum the same products in different orders, 2e-6
 absolute on outputs of magnitude ≤ 1 (random keys, softmax-weighted
 averages of N(0, 1) values). bf16: both round ``p`` to bf16 against the same
@@ -10,6 +13,8 @@ neighbouring bf16 value, so 2 bf16 steps at the output's magnitude (2^-7
 relative) plus 1e-3 absolute for outputs near zero."""
 
 import importlib
+import importlib.util
+import pathlib
 
 import jax
 import numpy as np
@@ -185,3 +190,87 @@ def test_sdpa_key_valid_len_dispatch(l, valid, want_route, monkeypatch):
         assert routes == []
         want = jtr.sdpa(*(jnp.asarray(t.numpy()) for t in (q, k, v)), key_valid_len=valid)
         np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-6)
+
+
+# --- K4 on its K/V-resident schedule (flash_attention_v2) ------------------
+
+V2_CASES = [
+    # (b, l, h, kvh, dk, dv, causal, lengths): the JAX tests' own cases
+    # (tests/test_flash_attention.py::TestFlashV2), then GQA
+    (2, 256, 4, 4, 64, 64, False, None),
+    (2, 384, 4, 4, 64, 64, True, None),
+    (2, 200, 4, 4, 64, 64, False, None),
+    (2, 256, 3, 3, 32, 64, False, (256, 130)),
+    (2, 129, 4, 2, 16, 24, True, (129, 40)),
+]
+
+
+def _both_v2(case, seed, dtype):
+    b, l, h, kvh, dk, dv, causal, lengths = case
+    q, k, v = _inputs(seed, b, l, h, kvh, dk, dv)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jfa.flash_attention_v2(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        lengths=None if lens is None else jnp.asarray(lens), causal=causal, interpret=True,
+    )
+    got = tfa.flash_attention_v2(
+        *(torch.from_numpy(a).to(dtype) for a in (q, k, v)),
+        lengths=None if lens is None else torch.from_numpy(lens), causal=causal,
+    )
+    assert got.shape == (b, l, h, dv) and got.dtype == dtype
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", V2_CASES)
+def test_v2_plain_matches_pallas_v2_f32(case):
+    """Tolerance 2e-5, the JAX tests' own for v2."""
+    got, want = _both_v2(case, 20 + case[1], torch.float32)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", [V2_CASES[1], V2_CASES[3], V2_CASES[4]])
+def test_v2_plain_matches_pallas_v2_bf16(case):
+    """2 bf16 steps at the output's magnitude, plus 1e-3 absolute for
+    outputs near zero (the module docstring's bf16 tolerance)."""
+    got, want = _both_v2(case, 30 + case[1], torch.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=2**-7, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_plain_is_the_v1_plain(dtype):
+    """v2 is v1's contract on another schedule: on the CPU both wrappers
+    give the same bits."""
+    for case in (V2_CASES[1], V2_CASES[4]):
+        b, l, h, kvh, dk, dv, causal, lengths = case
+        q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(l, b, l, h, kvh, dk, dv))
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+        assert torch.equal(tfa.flash_attention_v2(q, k, v, lengths=lens, causal=causal),
+                           tfa.flash_attention(q, k, v, lengths=lens, causal=causal))
+
+
+def test_v2_launch_counter_and_dispatch():
+    q = torch.zeros(1, 4, 2, 8)
+    before = (tfa.flash_attention.launches, tfa.flash_attention_v2.launches)
+    tfa.flash_attention_v2(q, q, q)  # CPU: plain version
+    assert (tfa.flash_attention.launches, tfa.flash_attention_v2.launches) == before
+    with pytest.raises(ValueError):  # only a CPU tensor takes the plain version
+        tfa.flash_attention_v2(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError):
+        tfa.flash_attention_v2(q, q[:, :3], q)
+
+
+def test_attn_candidates_script_runs_on_the_cpu():
+    """``scripts/torch_attn_candidates_bench.py`` at L cut to 48: every case
+    times its three candidates; no kernel launches on the CPU."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_attn_candidates_bench",
+        pathlib.Path(__file__).parent.parent / "scripts" / "torch_attn_candidates_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    results = bench.run(iters=1, device="cpu", max_len=48)
+    assert list(results) == [name for name, _, _ in bench.CASES]
+    assert [r["valid"] for r in results.values()] == [48, 41, 20]
+    for r in results.values():
+        assert all(r[key] > 0 for key in ("sdpa_ms", "flash_v1_ms", "flash_v2_ms"))
+        assert r["launches"] == {"flash_attention": 0, "flash_attention_v2": 0}

@@ -39,6 +39,29 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_twin_scripts_import_without_jax():
+    """The port's twins of the JAX package's attention scripts
+    (``scripts/torch_*.py``) load in a fresh interpreter without JAX."""
+    scripts = sorted(str(p) for p in (REPO / "scripts").glob("torch_*.py"))
+    assert any(s.endswith("torch_attn_candidates_bench.py") for s in scripts)
+    assert any(s.endswith("torch_enc_attn_blhd_probe.py") for s in scripts)
+    code = (
+        "import importlib.util, sys\n"
+        f"for path in {scripts!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'multimodal_embeddings_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_module_list_covers_the_slice():
     for name in (
         "kernels.encoder_attention", "kernels._build", "models.transformer",

@@ -2,7 +2,8 @@
 
 Every BatchNorm gets random scale, bias, mean and variance, so the
 bridge's fold (w·γ/σ, β − μ·γ/σ) is exercised, not just its identity.
-The JAX PSA attention takes the packed BLF Pallas kernel (interpret mode).
+The JAX PSA attention takes the packed BLF Pallas kernel (interpret mode),
+or with ``MMTPU_PSA_BLF=0`` its ``sdpa``, as the port does.
 Tolerance 2e-5 absolute on activations up to ~10 (measured differences up
 to 7e-6): the port folds BatchNorm into the conv (one rounding of w·γ/σ
 per weight) where JAX normalises after it, and the frameworks sum
@@ -136,6 +137,35 @@ def test_psa_attention_production_head_geometry():
 
 def test_psa():
     compare(jl.PSA(256), tl.PSA(256, 256), (2, 4, 4, 256))
+
+
+@pytest.mark.parametrize("hw", [4, 16])
+def test_psa_attention_sdpa_route(hw, monkeypatch):
+    """``MMTPU_PSA_BLF=0``: both packages leave the packed kernel for
+    ``sdpa`` on strided views of the [q|k|v] slab — the port's takes K1 at
+    L = 256 and the XLA-numerics path at L = 16, JAX's the XLA path on the
+    CPU."""
+    from multimodal_embeddings_tpu.models import transformer as jtr
+
+    monkeypatch.delenv("MMTPU_PSA_BLF_INTERPRET")
+    monkeypatch.setenv("MMTPU_PSA_BLF", "0")
+    calls = {"jax": 0, "port": 0}
+
+    def recorder(side, real):
+        def call(*args, **kwargs):
+            calls[side] += 1
+            return real(*args, **kwargs)
+        return call
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the packed kernel ran under MMTPU_PSA_BLF=0")
+
+    monkeypatch.setattr(jtr, "sdpa", recorder("jax", jtr.sdpa))
+    monkeypatch.setattr(tl, "sdpa", recorder("port", tl.sdpa))
+    monkeypatch.setattr(tl, "encoder_attention_blf_packed", refuse)
+    compare(jl.PSAAttention(128, num_heads=2), tl.PSAAttention(128, num_heads=2),
+            (1, hw, hw, 128))
+    assert calls == {"jax": 2, "port": 1}  # JAX: init and apply
 
 
 def test_upsample2x():

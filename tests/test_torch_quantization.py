@@ -6,7 +6,12 @@ K2's plain version is held against the JAX Pallas kernel in interpret
 mode. Both sum the products of x with the exact int8 values in f32, in
 different orders (the kernel in K blocks of 512), so outputs agree to
 f32 round-off: rtol 1e-5, with an absolute floor of 1e-5·max|y| for outputs
-that cancel to near zero."""
+that cancel to near zero.
+
+K8 (``stochastic_round_quantize``) is held against the JAX Pallas kernel in
+interpret mode too, handed JAX's own uniforms: the int8 values must be
+EXACTLY equal (the same f32 division, add and floor). On the port's own
+draws it must pass JAX's statistical tests."""
 
 import dataclasses
 
@@ -170,3 +175,97 @@ def test_synthetic_weights_and_param_bytes_match_jax():
             assert torch.all(p == np.float32(0.02)), name
     big = a.text_model.tok_embed.embedding
     assert abs(big.std().item() - 0.02) < 0.002
+
+
+# --- stochastic rounding (K8) -----------------------------------------------
+
+
+def _jax_uniforms(seed, rows, cols):
+    """The uniforms JAX's ``_sr_quantize_2d`` draws: threefry on the
+    row-padded (block = min(rows, 256)) shape, the first ``rows`` rows."""
+    pad = (-rows) % min(rows, 256)
+    u = jax.random.uniform(jax.random.key(seed), (rows + pad, cols), jnp.float32)
+    return np.array(u[:rows])
+
+
+@pytest.mark.parametrize("shape,axes,seed,dtype", [
+    ((256, 128), (0,), 0, "float32"),
+    ((300, 96), (0,), 1, "float32"),   # 300 rows: JAX pads to 512 and slices
+    ((32, 4, 8), (0,), 5, "float32"),  # rank 3: the collapse to (32, 32)
+    ((64, 48), (0,), 2, "bfloat16"),
+])
+def test_sr_equals_jax_on_jax_uniforms(shape, axes, seed, dtype):
+    """Handed JAX's own uniforms, the port's int8 values and scales are
+    EQUAL to JAX's (interpret mode)."""
+    w = (_rng(seed).normal(size=shape) * 0.05).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = jq.stochastic_round_quantize(jnp.asarray(w, jdt), axes, seed=seed, interpret=True)
+    cols = int(np.prod([n for a, n in enumerate(shape) if a not in axes]))
+    u = _jax_uniforms(seed, w.size // cols, cols)
+    got = tq.stochastic_round_quantize(torch.from_numpy(w).to(getattr(torch, dtype)), axes,
+                                       seed=seed, u=torch.from_numpy(u))
+    assert got.q.dtype == torch.int8 and got.q.shape == shape
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+
+
+def test_sr_exact_integers_equal_jax_on_jax_uniforms():
+    col = np.float32([127.0, -127.0, 0.0, 63.5, -63.5, 127.0, -127.0, 0.0])
+    w = np.stack([col, col / 2.0], axis=1) / np.float32(127.0)
+    want = jq.stochastic_round_quantize(jnp.asarray(w), (0,), seed=3, interpret=True)
+    got = tq.stochastic_round_quantize(torch.from_numpy(w), (0,), seed=3,
+                                       u=torch.from_numpy(_jax_uniforms(3, 8, 2)))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+
+
+def test_sr_unbiased_on_the_ports_draws():
+    """JAX's test on the port's own uniforms: a constant strictly between
+    two levels (w/scale = 44.45) averages to the value over 8 seeds, and
+    every sample is one of the two adjacent levels."""
+    w = torch.full((256, 128), 0.35)
+    w[0, :] = 1.0
+    qs = [tq.stochastic_round_quantize(w, (0,), seed=s).q[1:] for s in range(8)]
+    mean_q = torch.stack(qs).double().mean().item()
+    assert abs(mean_q - 0.35 * 127.0) < 0.15, mean_q
+    for q in qs:
+        assert set(torch.unique(q).tolist()) <= {44, 45}
+
+
+def test_sr_exact_integers_stable_on_the_ports_draws():
+    """Values that are exact multiples of their scale never move
+    (floor(k + u) = k for u in [0, 1)): the division must be IEEE."""
+    col = np.float32([127.0, -127.0, 0.0, 63.5, -63.5, 127.0, -127.0, 0.0])
+    w = torch.from_numpy(np.stack([col, col / 2.0], axis=1) / np.float32(127.0))
+    got = tq.stochastic_round_quantize(w, (0,), seed=3).q.numpy()
+    expect = np.int8([127, -127, 0, 64, -64, 127, -127, 0])
+    exact = np.abs(col - np.round(col)) < 1e-6
+    np.testing.assert_array_equal(got[exact, 0], expect[exact])
+    np.testing.assert_array_equal(got[exact, 1], expect[exact])
+
+
+def test_sr_higher_rank_within_one_level():
+    """JAX's rank-3 test on the port's draws: the layout is restored and
+    every value lies within one level of w."""
+    w = torch.from_numpy(_rng(7).normal(size=(32, 4, 8)).astype(np.float32))
+    qt = tq.stochastic_round_quantize(w, (0,), seed=5)
+    assert qt.q.shape == w.shape and qt.q.dtype == torch.int8
+    assert qt.scale.shape == (1, 4, 8)
+    err = (qt.q.double() * qt.scale.double() - w.double()).abs()
+    assert bool((err <= qt.scale.double() + 1e-6).all())
+
+
+def test_sr_seeded_draws_and_wrapper_checks():
+    w = torch.from_numpy(_rng(8).normal(size=(40, 24)).astype(np.float32))
+    before = tq._sr_quantize_2d.launches
+    a, b = (tq.stochastic_round_quantize(w, seed=s).q for s in (11, 11))
+    assert tq._sr_quantize_2d.launches == before  # the CPU takes the plain version
+    assert torch.equal(a, b)
+    assert not torch.equal(a, tq.stochastic_round_quantize(w, seed=12).q)
+    u = tq.sr_uniform((40, 24), 11, "cpu")
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert torch.equal(a, tq.stochastic_round_quantize(w, seed=0, u=u).q)
+    with pytest.raises(ValueError):
+        tq.stochastic_round_quantize(w, u=torch.zeros(24, 40))
+    with pytest.raises(ValueError):  # a non-CPU tensor never takes the plain path
+        m = w.to("meta")
+        tq._sr_quantize_2d(m, torch.ones(1, 24, device="meta"), torch.zeros(40, 24, device="meta"))

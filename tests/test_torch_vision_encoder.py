@@ -2,7 +2,10 @@
 modules in f32, same weights through the bridge.
 
 The JAX attention takes the BLF Pallas kernel (interpret mode) at L=256,
-as on the TPU; the port takes K1's plain version on the CPU. Tolerances
+as on the TPU; the port takes K1's plain version on the CPU. With
+``MMTPU_ENC_ATTN_BLF=0`` both take the proj-BHLD route (a recorder shows
+which K1 form each package called), and with ``MMTPU_ENC_ATTN_PROJ=0`` as
+well the generic route through ``sdpa``. Tolerances
 are absolute, f32: the two frameworks sum in different orders."""
 
 import jax
@@ -119,3 +122,67 @@ def test_config_mirrors_jax():
     assert tve.DualEncoderConfig.base() == tve.DualEncoderConfig(
         vision=tve.VisionConfig(448, 16, 768, 12, 12), text=tve.TextConfig(), embed_dim=768
     )
+
+
+# --- the proj-BHLD route (MMTPU_ENC_ATTN_BLF=0) ------------------------------
+
+
+@pytest.fixture
+def proj_route(monkeypatch):
+    """Both packages off the BLF route and on proj-BHLD: JAX through
+    ``MMTPU_ENC_ATTN_PROJ_INTERPRET=1`` (its ``_proj_bhld`` with the Pallas
+    kernel in interpret mode), the port through ``MMTPU_ENC_ATTN_BLF=0``.
+    Returns the calls each package made to K1's whole-row wrapper (True for
+    the BHLD form), and to the BLF form of the port; JAX's calls include
+    those of ``init``, so each of its calls shows twice."""
+    from multimodal_embeddings_tpu.kernels import encoder_attention as jk1
+    from multimodal_embeddings_tpu_torch.kernels import encoder_attention as tk1
+
+    monkeypatch.delenv("MMTPU_ENC_ATTN_BLF_INTERPRET")
+    monkeypatch.setenv("MMTPU_ENC_ATTN_PROJ_INTERPRET", "1")
+    monkeypatch.setenv("MMTPU_ENC_ATTN_BLF", "0")
+    calls = {"jax": [], "port": [], "port_blf": []}
+
+    def recorder(side, real):
+        def call(*args, **kwargs):
+            calls[side].append(kwargs.get("bhld_inputs", False))
+            return real(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(jk1, "encoder_attention", recorder("jax", jk1.encoder_attention))
+    monkeypatch.setattr(ttr, "encoder_attention", recorder("port", tk1.encoder_attention))
+    monkeypatch.setattr(ttr, "encoder_attention_blf",
+                        recorder("port_blf", tk1.encoder_attention_blf))
+    return calls
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+def test_attention_proj_bhld(heads, proj_route):
+    _compare(
+        jtr.Attention(num_heads=heads, head_dim=64 // heads),
+        ttr.Attention(64, heads, 64 // heads),
+        _tokens((2, 256, 64)), atol=1e-5,
+    )
+    assert proj_route == {"jax": [True] * 2, "port": [True], "port_blf": []}
+
+
+def test_vit_tower_proj_bhld(proj_route):
+    """The small ViT (L = 256, 2 heads, 2 layers) with every block's
+    attention on the proj-BHLD route in both packages."""
+    images = np.random.default_rng(3).uniform(size=(2, 256, 256, 3)).astype(np.float32)
+    port = tve.ViTower(tve.VisionConfig(**VIT), embed_dim=32)
+    _compare(jve.ViTower(jve.VisionConfig(**VIT), embed_dim=32), port, images, atol=1e-5)
+    layers = VIT["layers"]
+    assert proj_route == {"jax": [True] * 2 * layers, "port": [True] * layers,
+                          "port_blf": []}
+
+
+def test_attention_sdpa_route(proj_route, monkeypatch):
+    """``MMTPU_ENC_ATTN_PROJ=0`` too: the generic route through ``sdpa``
+    (K1 in its (B, L, H, D) form at L = 256), against JAX's ``sdpa`` (the
+    XLA path on the CPU)."""
+    monkeypatch.delenv("MMTPU_ENC_ATTN_PROJ_INTERPRET")
+    monkeypatch.setenv("MMTPU_ENC_ATTN_PROJ", "0")
+    _compare(jtr.Attention(num_heads=2, head_dim=32), ttr.Attention(64, 2, 32),
+             _tokens((2, 256, 64)), atol=1e-5)
+    assert proj_route == {"jax": [], "port": [False], "port_blf": []}
