@@ -12,16 +12,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (K5), the fused LayerNorm→matmul (K6), the LayerNorm statistics (K7)
    and stochastic-rounding quantization (K8), each compiled by its own
    ``nvcc`` for ``sm_90a`` from ``multimodal_embeddings_tpu_torch/csrc``,
-   all started together;
+   all started together; each kernel's registers, stack and spills as
+   ``ptxas`` reports them;
 3. K1 against its plain PyTorch version at the ViT page's shapes — ViT
    ``(48, 784, 768)`` H=12 in bf16 and f32, PSA ``(30, 1024, 576)``
    4×(36|36|72) in bf16 — errors against stated tolerances, the median
    time of each, of ``scaled_dot_product_attention`` on the same inputs (a
-   yardstick the port never calls) and the bound;
+   yardstick the port never calls), of K4 (v1) on the same inputs beside
+   the bf16 ViT shape, and the bound; edge shapes in bf16 and f32 (L = 1,
+   17, 77, 130; D = 40 / DV = 56 as column slices of wider rows; packed
+   kd = 20 / dv = 24 and kd = 19, whose k is only 8- or 2-byte aligned;
+   DV = 128 at D = 64 and 128);
 3a. the last four ports against their plain versions, bf16 with one f32
    shape each and ragged edges, with median times, bounds and library
    yardsticks: K1's BHLD form (``(48, 12, 784, 64)`` permuted views of the
-   ViT projections, the PSA probe's ``(30, 4, 1024, 64|128)``); K4 on its
+   ViT projections, the PSA probe's ``(30, 4, 1024, 64|128)``, bf16 and
+   f32 edges); K4 on its
    K/V-resident schedule (``flash_attention_v2``) at the attention
    candidates' shapes ``(48, 784, 12, 64)``, ``(8, 1608, 16, 80)`` with
    1601 valid keys and ``(2, 6432, 16, 80)`` with 6404, the causal GQA
@@ -44,8 +50,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (30, 96, 128²) at dilations 2 and 1; K6 (37632, 768)×(768, 2304 | 3072)
    and (12864, 1280)×(1280, 5120); K7 (48, 784, 768) and (8, 1608, 1280);
    BLHD (48, 784, 12, 64) off a strided qkv slab), bf16, one f32 shape each
-   and ragged edge shapes; errors against stated tolerances, median times,
-   bounds and library yardsticks;
+   and ragged edge shapes (K1-BLHD's in bf16 and f32); errors against
+   stated tolerances, median times, bounds and library yardsticks;
 4b. the ViT page on the kernel routes: the same detector and ViT weights
    (seed 0) with ``DetectorConfig(pallas_convs=96, pallas_mode="stage")``,
    ``VisionConfig(fuse_ln=True)``, ``MMTPU_LN_STATS=1`` and
@@ -60,8 +66,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    per page (K1 BHLD 12, K1 packed 1, K1 blf 0); the embeddings of phase
    4's last 48 crops against phase 4's (cosine ≥ 0.999);
 6. K1 with the Mllama key prefix against its plain version:
-   ``(8, 1608, 16, 80)`` with 1601 valid keys in bf16 and f32, and
-   ``valid_len`` ∈ {1, L−1, L} at L ∈ {17, 130, 1608};
+   ``(8, 1608, 16, 80)`` with 1601 valid keys in bf16 and f32 (K4 v1 on
+   the same bf16 inputs beside it), and ``valid_len`` ∈ {1, L−1, L} at
+   L ∈ {17, 130, 1608} in bf16 and f32;
 7. K2 against its plain version at the mmE5-11B text stack's five shapes
    in bf16, one f32 shape and ragged shapes, with the bf16 cuBLAS time of
    ``x @ W_bf16`` beside it as context (not the same function);
@@ -128,12 +135,22 @@ from types import SimpleNamespace
 
 # stated tolerances for K1 against its plain version on the card. Both sum
 # in f32 in different orders, so a bf16 output may round to the neighbouring
-# value: at most 2 bf16 steps at the output's own magnitude, and a mean that
-# stays near zero (H100 runs read 1 step and a mean of 1.7e-9). Skipping the
-# bf16 rounding of e, or truncating the output, moves 40-50% of the ViT
-# shape's outputs, a mean of 7e-5 to 1.3e-4. f32 differs only by order.
+# value: 2 bf16 steps at the output's own magnitude, and a mean that stays
+# near zero (H100 runs of the CUDA-core K1 read 1 step and a mean of
+# 1.7e-9). Skipping the bf16 rounding of e, or truncating the output, moves
+# 40-50% of the ViT shape's outputs, a mean of 7e-5 to 1.3e-4. f32 differs
+# only by order.
 MAX_BF16_STEPS, ATOL_BF16_MEAN = 2.0, 1e-6
 ATOL_F32_MAX = 1e-5
+# The bf16 K1 sums q·k on the tensor cores, not in the sequential-FMA order
+# of the plain version's f32 product (which the CUDA-core K1 repeated bit
+# for bit), so a score may differ in its last bit and a p next to a bf16
+# rounding boundary may round the other way: that moves its output by up to
+# 2^-8·p·|v|/denom, many steps where the outputs cancel to near zero. So
+# each bf16 output may also differ by 2^-7 of its attention-weighted mean
+# |v| (the plain version on |v|), as K4's gate allows; the mean gate above
+# is unchanged and still catches a systematic fault.
+K1_FLIP_SHARE = 2.0**-7
 # K2 against its plain version: both sum K products in f32 in different
 # orders, and each sum is within K·2^-24·Σ|x·q| of the exact one, so an
 # output may differ by twice that (times |scale|) plus, in bf16, 2 steps of
@@ -253,7 +270,9 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 
 def attention_bound(b, h, l, n, d, dv, dtype) -> tuple:
     """K1's work over ``n`` valid keys: QK and PV products; q and o over L
-    rows, k and v over the n keys read, each once."""
+    rows, k and v over the n keys read, each once. The function's work,
+    counted once: the bf16 kernel's two passes run the QK product twice
+    (1.5× the tensor-core work at D = DV), which the bound leaves out."""
     import torch
 
     elem = torch.finfo(dtype).bits // 8
@@ -305,14 +324,50 @@ def build(*modules) -> None:
     for (label, _), info in zip(modules, infos):
         print(f"{label} library {info.path.name}: nvcc {info.seconds:.1f} s")
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+            if "Compiling entry function" in line:
+                print("  " + line.strip().split("'")[1])  # the kernel's mangled name
+            elif "registers" in line or "spill" in line:
+                print("    " + line.strip())
     print(f"build wall time {time.perf_counter() - t0:.1f} s")
 
 
-def compare_attention(name, kernel, plain, library, dtype, bound) -> dict:
-    """K1 against its plain version (errors, gates, median times), the
-    library call's median time, and the bound."""
+def k1_bf16_gate(name, got, want, weighted) -> tuple:
+    """K1's per-output bf16 gate (MAX_BF16_STEPS steps at |o| plus
+    K1_FLIP_SHARE of the attention-weighted mean |v|); returns the largest
+    error over its bound and a note of how far the outputs went."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    steps = bf16_step(want)
+    allowed = MAX_BF16_STEPS * steps + K1_FLIP_SHARE * weighted.float()
+    ratio = (err / allowed).max().item()
+    over = int((err > MAX_BF16_STEPS * steps).sum())
+    check(ratio <= 1.0, f"{name}: error {ratio:.3g}× its bound ({over} outputs past "
+                        f"{MAX_BF16_STEPS:g} bf16 steps)")
+    return ratio, (f"{(err / steps).max().item():g} bf16 steps; {over} of {err.numel()} "
+                   f"outputs past {MAX_BF16_STEPS:g} steps, err/allowed {ratio:.3f}")
+
+
+def abs_v(plain, q, k, v, *args, **kwargs):
+    """The plain version on (q, k, |v|) in f32: each output's
+    attention-weighted mean |v|."""
+    return lambda: plain(q.float(), k.float(), v.float().abs(), *args, **kwargs)
+
+
+def packed_abs_v(qkv, heads, key_dim):
+    """A packed per-head [q|k|v] slab in f32 with its v columns made |v|."""
+    x = qkv.float().clone()
+    per_head = x.view(*x.shape[:2], heads, -1)
+    per_head[..., 2 * key_dim :] = per_head[..., 2 * key_dim :].abs()
+    return x
+
+
+def compare_attention(name, kernel, plain, library, dtype, bound, weighted=None,
+                      k4=None) -> dict:
+    """K1 against its plain version (errors, gates, median times; bf16 needs
+    ``weighted``, the plain version on |v|), the library call's median time,
+    the bound, and with ``k4`` the median time of K4 (v1) on the same inputs
+    as context."""
     import torch
 
     got = kernel()
@@ -322,24 +377,52 @@ def compare_attention(name, kernel, plain, library, dtype, bound) -> dict:
     max_err, mean_err = err.max().item(), err.mean().item()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     if dtype == torch.bfloat16:
-        steps = bf16_steps(got, want)
-        check(steps <= MAX_BF16_STEPS, f"{name}: max err {steps} bf16 steps > {MAX_BF16_STEPS}")
+        steps_note = f" ({k1_bf16_gate(name, got, want, weighted())[1]})"
         check(mean_err <= ATOL_BF16_MEAN, f"{name}: mean err {mean_err} > {ATOL_BF16_MEAN}")
-        steps_note = f" ({steps:g} bf16 steps)"
     else:
         check(max_err <= ATOL_F32_MAX, f"{name}: max err {max_err} > {ATOL_F32_MAX}")
         steps_note = ""
     ms, plain_ms, library_ms = median_ms(kernel), median_ms(plain), median_ms(library)
     b_ms, b_by = bound
+    out = {"max_abs_err": max_err, "mean_abs_err": mean_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    note = ""
+    if k4 is not None:
+        out["flash_attention_v1_ms_context"] = median_ms(k4)
+        note = f" [context: K4 v1 on the same inputs {out['flash_attention_v1_ms_context']:.3f} ms]"
     print(f"{name}: max_abs_err {max_err:.3e}{steps_note} mean_abs_err {mean_err:.3e} "
           f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms sdpa {library_ms:.3f} ms "
-          f"bound {b_ms:.4f} ms ({b_by})")
-    return {"max_abs_err": max_err, "mean_abs_err": mean_err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+          f"bound {b_ms:.4f} ms ({b_by}){note}", flush=True)
+    return out
 
 
-def kernel_checks(k1) -> dict:
+def edge_gate(name, cases) -> None:
+    """K1's edge shapes against the plain version: ``cases`` are (kernel,
+    plain, plain on |v|) triples of one dtype. f32 within ATOL_F32_MAX;
+    bf16 within K1's per-output gate (the mean gate needs the main shapes'
+    millions of outputs: one rounding flip among a few hundred outputs
+    would fail it on its own)."""
+    import torch
+
+    worst, notes = 0.0, []
+    for kernel, plain, weighted in cases:
+        got, want = kernel(), plain()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name}: {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        if got.dtype == torch.bfloat16:
+            notes.append(k1_bf16_gate(name, got, want, weighted()))
+        else:
+            worst = max(worst, (got - want).abs().max().item())
+    if got.dtype == torch.bfloat16:
+        print(f"{name} bf16, {len(notes)} cases: worst {max(notes)[1]}")
+    else:
+        print(f"{name} f32: max_abs_err {worst:.3e}")
+        check(worst <= ATOL_F32_MAX, f"{name}: max err {worst} > {ATOL_F32_MAX}")
+
+
+def kernel_checks(k1, k4) -> dict:
     """K1 against the plain version at the ViT page's shapes."""
     import torch
     import torch.nn.functional as F
@@ -364,6 +447,9 @@ def kernel_checks(k1) -> dict:
             lambda: k1.encoder_attention_blf_reference(q, k, v, heads=12),
             lambda: F.scaled_dot_product_attention(heads(q, 12), heads(k, 12), heads(v, 12)),
             dtype, attention_bound(48, 12, 784, 784, 64, 64, dtype),
+            weighted=abs_v(k1.encoder_attention_blf_reference, q, k, v, heads=12),
+            k4=(lambda: k4.flash_attention(*(t.view(48, 784, 12, 64) for t in (q, k, v))))
+            if dtype == torch.bfloat16 else None,
         )
     qkv = torch.randn((30, 1024, 576), generator=gen, device=dev).to(torch.bfloat16)
     per_head = qkv.view(30, 1024, 4, 144).transpose(1, 2)
@@ -375,24 +461,41 @@ def kernel_checks(k1) -> dict:
             per_head[..., :36], per_head[..., 36:72], per_head[..., 72:]
         ),
         torch.bfloat16, attention_bound(30, 4, 1024, 1024, 36, 72, torch.bfloat16),
+        weighted=lambda: k1.encoder_attention_blf_packed_reference(
+            packed_abs_v(qkv, 4, 36), 4, 36, 72),
     )
 
-    # edges the main path does not reach (784 and 1024 are multiples of the
-    # 16-row tile): ragged row tiles, a single key tile, Dv != D, operands
-    # that are column slices of wider rows; f32, so indexing errors show
-    worst = 0.0
-    for l in (1, 17, 77, 130):
-        wide = torch.randn((2, l, 3 * 40 * 2 + 3 * 56), generator=gen, device=dev)
-        q, k, v = wide[..., :120], wide[..., 120:240], wide[..., 240:]
-        got = k1.encoder_attention_blf(q, k, v, heads=3)
-        want = k1.encoder_attention_blf_reference(q, k, v, heads=3)
-        worst = max(worst, (got - want).abs().max().item())
-        qkv = torch.randn((2, l, 2 * (2 * 20 + 24)), generator=gen, device=dev)
-        got = k1.encoder_attention_blf_packed(qkv, 2, 20, 24)
-        want = k1.encoder_attention_blf_packed_reference(qkv, 2, 20, 24)
-        worst = max(worst, (got - want).abs().max().item())
-    print(f"edge shapes (L = 1, 17, 77, 130; strided; Dv != D) f32: max_abs_err {worst:.3e}")
-    check(worst <= ATOL_F32_MAX, f"edge shapes: max err {worst} > {ATOL_F32_MAX}")
+    # edges the main path does not reach: ragged query tiles (the bf16
+    # kernel's 128 rows, the f32 kernel's 16) and key tiles (64), a single
+    # key, Dv != D, head dims padded to 16 (D = 40 → 48, DV = 56 → 64; kd =
+    # 20, dv = 24 → 32), operands that are column slices of wider rows, the
+    # packed k at 8-byte and 2-byte offsets (kd = 20 and 19), DV = 128 with
+    # D = 64 and 128; bf16 (the kernel every page runs) and f32
+    def edge_cases(l, dtype):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        wide = randn(2, l, 3 * 40 * 2 + 3 * 56)
+        qkv = (wide[..., :120], wide[..., 120:240], wide[..., 240:])
+        yield (lambda t=qkv: k1.encoder_attention_blf(*t, heads=3),
+               lambda t=qkv: k1.encoder_attention_blf_reference(*t, heads=3),
+               abs_v(k1.encoder_attention_blf_reference, *qkv, heads=3))
+        for kd, dv in ((20, 24), (19, 24)):
+            packed = (randn(2, l, 2 * (2 * kd + dv)), 2, kd, dv)
+            yield (lambda a=packed: k1.encoder_attention_blf_packed(*a),
+                   lambda a=packed: k1.encoder_attention_blf_packed_reference(*a),
+                   lambda a=packed: k1.encoder_attention_blf_packed_reference(
+                       packed_abs_v(a[0], 2, a[2]), *a[1:]))
+        for d in (64, 128):
+            qkv = (randn(2, l, 2 * d), randn(2, l, 2 * d), randn(2, l, 2 * 128))
+            yield (lambda t=qkv: k1.encoder_attention_blf(*t, heads=2),
+                   lambda t=qkv: k1.encoder_attention_blf_reference(*t, heads=2),
+                   abs_v(k1.encoder_attention_blf_reference, *qkv, heads=2))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        edge_gate("edge shapes (L = 1, 17, 77, 130; strided; Dv != D; packed kd 20 and 19; "
+                  "DV = 128)",
+                  [case for l in (1, 17, 77, 130) for case in edge_cases(l, dtype)])
     return results
 
 
@@ -529,7 +632,7 @@ def card_vs_cpu(crops, embs, model_config) -> None:
     check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
 
 
-def masked_checks(k1) -> dict:
+def masked_checks(k1, k4) -> dict:
     """K1 with the key prefix against its plain version."""
     import torch
     import torch.nn.functional as F
@@ -551,22 +654,27 @@ def masked_checks(k1) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2)[:, :, :n], v.transpose(1, 2)[:, :, :n]
             ),
             dtype, attention_bound(b, h, l, n, d, d, dtype),
+            weighted=abs_v(k1.encoder_attention_reference, q, k, v, n),
+            k4=(lambda: k4.flash_attention(q, k, v, lengths=torch.full(
+                (b,), n, dtype=torch.int32, device=dev)))
+            if dtype == torch.bfloat16 else None,
         )
-    # valid_len at its edges, Dv != D, operands that are column slices of
-    # wider rows; f32, so indexing errors show
-    worst = 0.0
-    for l in (17, 130, 1608):
-        for n in (1, l - 1, l):
-            wide = torch.randn((2, l, 3 * (40 + 40 + 56)), generator=gen, device=dev)
-            q = wide[..., :120].view(2, l, 3, 40)
-            k = wide[..., 120:240].view(2, l, 3, 40)
-            v = wide[..., 240:].view(2, l, 3, 56)
-            got = k1.encoder_attention(q, k, v, valid_len=n)
-            want = k1.encoder_attention_reference(q, k, v, n)
-            worst = max(worst, (got - want).abs().max().item())
-    print(f"edge prefixes (valid_len 1, L-1, L at L = 17, 130, 1608; strided; "
-          f"Dv != D) f32: max_abs_err {worst:.3e}")
-    check(worst <= ATOL_F32_MAX, f"edge prefixes: max err {worst} > {ATOL_F32_MAX}")
+    # valid_len at its edges (one key, a last key tile of one key, all
+    # keys), Dv != D, operands that are column slices of wider rows
+    def edge_cases(dtype):
+        for l in (17, 130, 1608):
+            for n in (1, l - 1, l):
+                wide = torch.randn((2, l, 3 * (40 + 40 + 56)), generator=gen,
+                                   device=dev).to(dtype)
+                qkv = (wide[..., :120].view(2, l, 3, 40), wide[..., 120:240].view(2, l, 3, 40),
+                       wide[..., 240:].view(2, l, 3, 56))
+                yield (lambda t=qkv, n=n: k1.encoder_attention(*t, valid_len=n),
+                       lambda t=qkv, n=n: k1.encoder_attention_reference(*t, n),
+                       abs_v(k1.encoder_attention_reference, *qkv, n))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        edge_gate("edge prefixes (valid_len 1, L-1, L at L = 17, 130, 1608; strided; Dv != D)",
+                  list(edge_cases(dtype)))
     return results
 
 
@@ -1531,6 +1639,7 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
         lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                v.transpose(1, 2)),
         bf16, attention_bound(48, 12, 784, 784, 64, 64, bf16),
+        weighted=abs_v(k1.encoder_attention_blhd_reference, q, k, v),
     )
     q, k, v = blhd_views(8, 784, 12, 64, f32)
     res["blhd_f32"] = compare_attention(
@@ -1541,15 +1650,12 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
                                                v.transpose(1, 2)),
         f32, attention_bound(8, 12, 784, 784, 64, 64, f32),
     )
-    worst = 0.0
-    for l in (1, 8, 17, 130):
-        q, k, v = blhd_views(2, l, 3, 40, f32)
-        got = k1.encoder_attention_blhd(q, k, v, sm_scale=0.3)
-        want = k1.encoder_attention_blhd_reference(q, k, v, 0.3)
-        worst = max(worst, (got - want).abs().max().item())
-    print(f"blhd edge shapes (L = 1, 8, 17, 130; strided; scale 0.3) f32: "
-          f"max_abs_err {worst:.3e}")
-    check(worst <= ATOL_F32_MAX, f"blhd edges: max err {worst} > {ATOL_F32_MAX}")
+    for dtype in (bf16, f32):
+        edge_gate("blhd edge shapes (L = 1, 8, 17, 130; strided; scale 0.3)", [
+            (lambda t=qkv: k1.encoder_attention_blhd(*t, sm_scale=0.3),
+             lambda t=qkv: k1.encoder_attention_blhd_reference(*t, 0.3),
+             abs_v(k1.encoder_attention_blhd_reference, *qkv, 0.3))
+            for l in (1, 8, 17, 130) for qkv in [blhd_views(2, l, 3, 40, dtype)]])
     per_page = sum(res["k5"][s]["ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
     bound = sum(res["k5"][s]["bound_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
     lib = sum(res["k5"][s]["library_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
@@ -1838,18 +1944,16 @@ def last_port_checks(k1, k2, k4, k5) -> dict:
             lambda: k1.encoder_attention(q, k, v, bhld_inputs=True),
             lambda: k1.encoder_attention_reference(q, k, v, bhld_inputs=True),
             lambda: F.scaled_dot_product_attention(q, k, v),
-            dtype, attention_bound(b, h, l, l, d, dv, dtype))
-    worst = 0.0
-    for l in (1, 17, 130):
-        for n in sorted({1, max(1, l - 1), l}):
-            q, k, v = (bhld_views(2, 3, l, 40, f32), bhld_views(2, 3, l, 40, f32),
-                       bhld_views(2, 3, l, 56, f32))
-            got = k1.encoder_attention(q, k, v, valid_len=n, bhld_inputs=True)
-            want = k1.encoder_attention_reference(q, k, v, n, bhld_inputs=True)
-            worst = max(worst, (got - want).abs().max().item())
-    print(f"bhld edges (L = 1, 17, 130; valid_len 1, L-1, L; views; Dv != D) f32: "
-          f"max_abs_err {worst:.3e}")
-    check(worst <= ATOL_F32_MAX, f"bhld edges: max err {worst} > {ATOL_F32_MAX}")
+            dtype, attention_bound(b, h, l, l, d, dv, dtype),
+            weighted=abs_v(k1.encoder_attention_reference, q, k, v, bhld_inputs=True))
+    for dtype in (bf16, f32):
+        edge_gate("bhld edges (L = 1, 17, 130; valid_len 1, L-1, L; views; Dv != D)", [
+            (lambda t=qkv, n=n: k1.encoder_attention(*t, valid_len=n, bhld_inputs=True),
+             lambda t=qkv, n=n: k1.encoder_attention_reference(*t, n, bhld_inputs=True),
+             abs_v(k1.encoder_attention_reference, *qkv, n, bhld_inputs=True))
+            for l in (1, 17, 130) for n in sorted({1, max(1, l - 1), l})
+            for qkv in [(bhld_views(2, 3, l, 40, dtype), bhld_views(2, 3, l, 40, dtype),
+                         bhld_views(2, 3, l, 56, dtype))]])
 
     # K4 on its K/V-resident schedule, K4 v1 and SDPA beside it
     def randn(*shape, dtype=bf16):
@@ -1972,7 +2076,7 @@ def main() -> int:
     build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
           ("K8", SimpleNamespace(build_info=k2.sr_build_info)))
     counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)
-    checks = kernel_checks(k1)
+    checks = kernel_checks(k1, k4)
     last = last_port_checks(k1, k2, k4, k5)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1986,7 +2090,7 @@ def main() -> int:
     del vit_embedder
     gc.collect()
     torch.cuda.empty_cache()
-    masked = masked_checks(k1)
+    masked = masked_checks(k1, k4)
     int8 = int8_checks(k2)
     mme5_launches, mme5_crops, _, mme5_config, mme5_embedder = mme5_page(counters, detector)
     tower_launches = mme5_tower(counters, mme5_embedder, mme5_crops)
@@ -2097,6 +2201,8 @@ def main() -> int:
     by_name["int8_matmul"]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
     by_name["int4_matmul"]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
     by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
+    for name, res in (("encoder_attention_blf", vit), ("encoder_attention", masked[torch.bfloat16])):
+        by_name[name]["flash_attention_v1_ms_context"] = res["flash_attention_v1_ms_context"]
     by_name["stochastic_round_quantize"]["torch_rand_ms_context"] = k8_head["rand_ms"]
     by_name["stochastic_round_quantize"]["mismatched_int8"] = sum(
         r["mismatched"] for r in last["k8"].values())

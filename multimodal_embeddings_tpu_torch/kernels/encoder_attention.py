@@ -32,10 +32,15 @@ kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v through
   the route is taken at the same shapes.
 
 What bounds the kernel on an H100, and what its design does about it, is
-written at the top of the CUDA source. Numerics (both the kernel and the
-plain versions): f32 scores ``(q·k)·scale``, f32 ``exp(s − rowmax)`` and
-denominator, ``e`` cast to the input dtype before an f32-accumulated PV
-product, output ``/ max(denom, 1e-30)`` cast to the input dtype.
+written at the top of the CUDA source: bf16 runs on tensor cores in two
+passes over the key tiles (the exact row max, then exp and PV), f32 on CUDA
+cores. ``_plan`` chooses each launch's padded head dims, the copy width of
+each operand and the shared-memory bytes, in Python, where the CPU tests
+reach it. Numerics (both the kernel and the plain versions): f32 scores
+``(q·k)·scale``, f32 ``exp(s − rowmax)`` over all valid keys and the f32
+denominator of the unrounded ``e``, ``e`` cast to the input dtype before an
+f32-accumulated PV product, output ``/ max(denom, 1e-30)`` cast to the input
+dtype.
 
 Keys at or past ``valid_len`` are left out, which is what the TPU kernel's
 score of −1e30 comes to (its ``e`` is exactly 0 in f32); every row is still
@@ -53,6 +58,7 @@ import ctypes
 import functools
 import math
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -63,21 +69,65 @@ _SOURCE = "encoder_attention"
 _MAX_SMEM = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 128
+# the bf16 kernel's tile (csrc/encoder_attention.cu): query rows per CTA,
+# keys per ring stage, ring stages, bf16 appended to every shared row
+_BQ, _BK, _STAGES, _PAD = 128, 64, 3, 8
+# the f32 kernel's tile: query rows per block, keys per staged K/V tile
+_F32_TQ, _F32_KT = 16, 64
+
+
+class Plan(NamedTuple):
+    """One launch's shapes: D and DV as the kernel holds them (bf16: padded
+    to a multiple of 16 with zero columns), the bytes per copy of q, k and v
+    (16, 8 or 4 for ``cp.async``, else 2 by plain loads; bf16 only) and the
+    dynamic shared-memory bytes."""
+
+    dp: int
+    dvp: int
+    widths: tuple
+    smem: int
+
+
+def _copy_width(ptr: int, strides, elem: int) -> int:
+    """The largest of 16, 8 and 4 bytes that divides the operand's base
+    address and each of its (batch, row, head) strides in bytes, else the
+    element size."""
+    for width in (16, 8, 4):
+        if width >= elem and all(x % width == 0 for x in (ptr, *(st * elem for st in strides))):
+            return width
+    return elem
+
+
+def _plan(dtype, l: int, d: int, dv: int, operands) -> Plan:
+    """The launch plan of K1 over L rows and head dims D / DV; ``operands``
+    holds (base address, (batch, row, head) element strides) of q, k and v.
+    bf16: a 3-stage ring of 64-key K and V tiles and a 128-row Q tile, rows
+    padded by 8, independent of L. f32: 16 query rows' whole f32 score rows,
+    so its bytes grow with L."""
+    elem = dtype.itemsize
+    widths = tuple(_copy_width(ptr, st, elem) for ptr, st in operands)
+    if dtype == torch.bfloat16:
+        dp, dvp = -(-d // 16) * 16, -(-dv // 16) * 16
+        smem = 2 * (_STAGES * _BK * (dp + dvp + 2 * _PAD) + _BQ * (dp + _PAD))
+        return Plan(dp, dvp, widths, smem)
+    k_stride = max(d | 1, dv)  # an odd K row stride: no bank conflicts
+    smem = 4 * (_F32_TQ * d + _F32_TQ * ((l + 3) & ~3) + _F32_KT * k_stride + _F32_TQ)
+    return Plan(d, dv, widths, smem)
 
 
 @functools.cache
 def _lib():
     """The built library with its C signatures declared (first call builds)."""
     lib, _ = _build.load(_SOURCE)
-    lib.enc_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.enc_attn_smem_bytes.restype = ctypes.c_longlong
     strides = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # batch, row, head
     lib.enc_attn_launch.argtypes = (
         [ctypes.c_int]
         + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6
         + strides * 4
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float]
+        + [ctypes.c_int] * 6  # the plan: dp, dvp, three copy widths, smem
+        + [ctypes.c_void_p]
     )
     lib.enc_attn_launch.restype = ctypes.c_int
     return lib
@@ -192,18 +242,18 @@ def _launch(q, k, v, out, dims, strides, scale, valid_len) -> torch.Tensor:
     b, l, heads, d, dv = dims
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {_MAX_DIM}")
-    lib = _lib()
-    smem = lib.enc_attn_smem_bytes(l, d, dv)
-    if smem > _MAX_SMEM:
+    plan = _plan(q.dtype, l, d, dv, [(t.data_ptr(), st) for t, st in zip((q, k, v), strides)])
+    if plan.smem > _MAX_SMEM:
         raise ValueError(
-            f"L={l} needs {smem} B of shared memory per block "
-            f"(limit {_MAX_SMEM}): longer rows need a tiled-softmax kernel"
+            f"L={l} needs {plan.smem} B of shared memory per block in {q.dtype} "
+            f"(limit {_MAX_SMEM}): the f32 form keeps whole score rows"
         )
+    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.enc_attn_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, l, heads, d, dv, valid_len, *(x for st in strides for x in st),
-        scale, stream,
+        scale, plan.dp, plan.dvp, *plan.widths, plan.smem, stream,
     )
     if err != 0:
         raise RuntimeError(f"encoder attention launch failed: cudaError {err}")

@@ -21,13 +21,19 @@ The JAX package's opt-in kernel routes run here too:
 * ``MMTPU_ENC_ATTN_BLHD=1``: ``sdpa``'s whole-row route through
   ``encoder_attention_blhd`` where the JAX package takes its BLHD kernel.
 
-Two routes are on by default, as in the JAX package, and a variable set to
-``"0"`` opts out of each (A/B hygiene):
+Three routes are on by default, as in the JAX package, and a variable set
+to ``"0"`` opts out of each (A/B hygiene):
 
+* ``MMTPU_ENC_ATTN=0``: ``sdpa``'s whole-row K1 dispatch is off, so a key
+  prefix becomes a key mask and unmasked self-attention takes the XLA-path
+  numerics (``Attention``'s prefix call goes through ``sdpa`` for it);
 * ``MMTPU_ENC_ATTN_BLF=0``: ``Attention`` leaves the BLF route
   (``encoder_attention_blf``) for the proj-BHLD route;
 * ``MMTPU_ENC_ATTN_PROJ=0``: ``Attention`` leaves the proj-BHLD route for
   the generic one through ``sdpa``.
+
+``MMTPU_F32_LOGITS=1`` makes ``sdpa``'s XLA path compute bf16 q·k with an
+f32 result instead of rounding the logits to bf16, as JAX does.
 
 Every variable is read at call time, by ``_switch`` or ``_opted_out``.
 
@@ -63,15 +69,16 @@ NEG_INF = -1e30
 
 
 def _switch(name: str) -> bool:
-    """An opt-in kernel route of the JAX package, read at call time:
-    ``MMTPU_LN_STATS`` or ``MMTPU_ENC_ATTN_BLHD`` set to ``"1"``."""
+    """An opt-in route of the JAX package, read at call time:
+    ``MMTPU_LN_STATS``, ``MMTPU_ENC_ATTN_BLHD`` or ``MMTPU_F32_LOGITS`` set
+    to ``"1"``."""
     return os.environ.get(name) == "1"
 
 
 def _opted_out(name: str) -> bool:
     """A default-on kernel route of the JAX package switched off, read at
-    call time: ``MMTPU_ENC_ATTN_BLF``, ``MMTPU_ENC_ATTN_PROJ`` or
-    ``MMTPU_PSA_BLF`` set to ``"0"``."""
+    call time: ``MMTPU_ENC_ATTN``, ``MMTPU_ENC_ATTN_BLF``,
+    ``MMTPU_ENC_ATTN_PROJ`` or ``MMTPU_PSA_BLF`` set to ``"0"``."""
     return os.environ.get(name) == "0"
 
 
@@ -177,7 +184,7 @@ ENC_ATTN_MIN_LEN, ENC_ATTN_MAX_LEN = 256, 1664
 
 
 def _enc_attn_eligible(q, k, v, mask, causal, pad_to_16: bool = False) -> bool:
-    if causal or mask is not None:
+    if _opted_out("MMTPU_ENC_ATTN") or causal or mask is not None:
         return False
     if q.shape[1] != k.shape[1] or q.shape[2] != k.shape[2]:
         return False  # self-attention, no GQA broadcast
@@ -211,7 +218,7 @@ def sdpa(
     * unmasked non-causal self-attention without GQA at L ∈ [256, 1664],
       L % 16 = 0, head dims ≤ 128 → K1: under ``MMTPU_ENC_ATTN_BLHD=1``
       through ``encoder_attention_blhd`` where ``blhd_supported``, else
-      ``encoder_attention``;
+      ``encoder_attention``; ``MMTPU_ENC_ATTN=0`` turns both K1 rules off;
     * a single query row with GQA (decode) folds the query heads into the
       query axis, so K/V are read once;
     * everything else runs the XLA-path numerics below. KV head ``i`` serves
@@ -220,9 +227,10 @@ def sdpa(
     XLA path, bf16: logits are rounded to bf16, masked with −1e30, divided by
     √D in f32; ``e`` is rounded to bf16 BEFORE both the f32 denominator and
     the f32-accumulated PV product. f32 (or mixed, e.g. an f32 query against
-    a bf16 cache): softmax of the scaled, masked logits in f32, the
-    probabilities cast to v's dtype, then PV. (K1's and K4's contract
-    differs: their denominator sums the unrounded ``e``.)"""
+    a bf16 cache, or bf16 under ``MMTPU_F32_LOGITS=1``): f32 logits, softmax
+    of the scaled, masked logits in f32, the probabilities cast to v's
+    dtype, then PV. (K1's and K4's contract differs: their denominator sums
+    the unrounded ``e``.)"""
     lq, lk = q.shape[1], k.shape[1]
     if key_valid_len is not None:
         if key_valid_len >= lk:
@@ -256,7 +264,7 @@ def sdpa(
         rep = h // kvh
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16 and not _switch("MMTPU_F32_LOGITS"):
         logits = torch.einsum("blhd,bmhd->bhlm", q, k)
         if causal:
             keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
@@ -268,8 +276,9 @@ def sdpa(
         denom = p16.float().sum(dim=-1)  # (B, H, Lq)
         out = torch.einsum("bhlm,bmhd->blhd", p16.float(), v.float())
         return (out / denom.transpose(1, 2)[..., None]).to(v.dtype)
-    work = torch.promote_types(q.dtype, k.dtype)
-    logits = torch.einsum("blhd,bmhd->bhlm", q.to(work), k.to(work)).float() / math.sqrt(d)
+    # JAX's preferred_element_type=float32: the products of the input
+    # values, summed in f32
+    logits = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / math.sqrt(d)
     if causal:
         keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, NEG_INF)
@@ -295,8 +304,11 @@ class Attention(nn.Module):
     3. ``sdpa``.
 
     Every length goes to K1 (the JAX package's [256, 1664] window and
-    ``% 16`` gate are TPU VMEM rules). Everything else runs ``sdpa``; a key
-    prefix is only taken on the K1 path.
+    ``% 16`` gate are TPU VMEM rules). A quantized block skips BLF and
+    proj-BHLD, as JAX gates them, and runs ``sdpa``. Under
+    ``MMTPU_ENC_ATTN=0`` the prefix call goes to ``sdpa``, which masks the
+    keys. Everything else runs ``sdpa``; a key prefix is only taken on the
+    K1 path and that fallback.
 
     ``pre_ln=(scale, bias)`` is the fused prologue of a float block's
     self-attention: the block's LayerNorm and the q/k/v projections as ONE
@@ -352,15 +364,16 @@ class Attention(nn.Module):
             and not self.use_rope and not self.use_qk_norm
         ):
             if key_valid_len is not None and key_valid_len < l:
-                o = encoder_attention(
-                    q.view(b, l, h, d), k.view(b, l, h, d), v.view(b, l, h, d),
-                    valid_len=key_valid_len,
-                )
+                heads = (t.view(b, l, h, d) for t in (q, k, v))
+                if _opted_out("MMTPU_ENC_ATTN"):
+                    return self._attend(x, *heads, None, False, key_valid_len)
+                o = encoder_attention(*heads, valid_len=key_valid_len)
                 return self.o(o.reshape(b, l, h * d))
-            if not _opted_out("MMTPU_ENC_ATTN_BLF"):
-                return self.o(encoder_attention_blf(q, k, v, heads=h))
-            if not _opted_out("MMTPU_ENC_ATTN_PROJ") and not self.quantize:
-                return self._proj_bhld(q, k, v)
+            if not self.quantize:
+                if not _opted_out("MMTPU_ENC_ATTN_BLF"):
+                    return self.o(encoder_attention_blf(q, k, v, heads=h))
+                if not _opted_out("MMTPU_ENC_ATTN_PROJ"):
+                    return self._proj_bhld(q, k, v)
         return self._attend(x, q.view(b, l, h, d), k.view(b, -1, kvh, d),
                             v.view(b, -1, kvh, d), mask, causal)
 

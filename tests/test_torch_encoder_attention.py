@@ -1,5 +1,7 @@
 """K1's plain PyTorch versions against the JAX Pallas kernels (interpret
-mode) at the production head geometry, small L, f32.
+mode) at the production head geometry, small L, f32; and the launch plan of
+the CUDA kernel (``_plan``: padded head dims, copy widths, shared memory),
+which is pure Python.
 
 Tolerance 1e-5 absolute: both sides compute the same f32 arithmetic and
 differ only in summation order over L ≤ 256 keys of O(1) terms."""
@@ -281,3 +283,66 @@ def test_blhd_probe_script_variants_agree_on_the_cpu():
     line = probe.run("proj_bhld", "vit", iters=1, device="cpu", batch=1)
     assert line["dims"] == [1, 784, 12, 64, 64] and line["ms"] > 0
     assert line["launches"] == {}  # the CPU takes the plain versions
+
+
+# --- the launch plan of the bf16 tensor-core kernel ---------------------------
+
+
+def _operands(*tensors_and_head_strides):
+    """(base address, (batch, row, head) strides) of each (tensor, head
+    stride) pair of a (B, L, ·) operand, as ``_launch_blf`` hands them."""
+    return [(t.data_ptr(), (t.stride(0), t.stride(1), hs)) for t, hs in tensors_and_head_strides]
+
+
+@pytest.mark.parametrize("d,padded", [(36, 48), (72, 80), (80, 80), (64, 64), (20, 32),
+                                      (24, 32), (40, 48), (56, 64), (128, 128), (1, 16)])
+def test_plan_pads_head_dims_to_16(d, padded):
+    """bf16 holds D and DV in 16-column chunks, zero past the real ones."""
+    x = torch.empty(1, 8, 4 * d, dtype=torch.bfloat16)
+    plan = k1._plan(torch.bfloat16, 8, d, d, _operands((x, d), (x, d), (x, d)))
+    assert (plan.dp, plan.dvp) == (padded, padded)
+    f32 = k1._plan(torch.float32, 8, d, d, _operands(*[(x.float(), d)] * 3))
+    assert (f32.dp, f32.dvp) == (d, d)  # the CUDA-core form takes D as it is
+
+
+def test_plan_copy_widths_at_the_page_shapes():
+    """16-byte copies for the ViT's slabs, the Mllama (B, L, H, D) views and
+    the BHLD views; the PSA slab's k starts 72 bytes into each head (288 B),
+    so 8-byte copies for it and 16 for its q and v; the ragged packed
+    [q(20)|k(20)|v(24)] has k at 40 bytes, v at 80."""
+    bf16 = torch.bfloat16
+    vit = torch.empty(2, 784, 768, dtype=bf16)
+    assert k1._plan(bf16, 784, 64, 64, _operands(*[(vit, 64)] * 3)).widths == (16, 16, 16)
+    mllama = torch.empty(2, 1608, 16, 80, dtype=bf16)
+    ops = [(mllama.data_ptr(), (mllama.stride(0), mllama.stride(1), mllama.stride(2)))] * 3
+    assert k1._plan(bf16, 1608, 80, 80, ops).widths == (16, 16, 16)
+    bhld = vit.view(2, 784, 12, 64).permute(0, 2, 1, 3)
+    ops = [(bhld.data_ptr(), (bhld.stride(0), bhld.stride(2), bhld.stride(1)))] * 3
+    assert k1._plan(bf16, 784, 64, 64, ops).widths == (16, 16, 16)
+    for (heads, kd, hd), widths in (((4, 36, 72), (16, 8, 16)), ((2, 20, 24), (16, 8, 16))):
+        per_head = 2 * kd + hd
+        qkv = torch.empty(30, 1024, heads * per_head, dtype=bf16)
+        q, k, v = qkv[..., :kd], qkv[..., kd : 2 * kd], qkv[..., 2 * kd :]
+        assert k.data_ptr() - qkv.data_ptr() == 2 * kd
+        plan = k1._plan(bf16, 1024, kd, hd, _operands((q, per_head), (k, per_head),
+                                                      (v, per_head)))
+        assert plan.widths == widths, (kd, plan)
+    odd = torch.empty(1, 8, 3 * 37, dtype=bf16)[..., 1:]  # 2-byte aligned only
+    assert k1._plan(bf16, 8, 36, 36, _operands(*[(odd, 37)] * 3)).widths == (2, 2, 2)
+
+
+def test_plan_shared_memory_and_lengths():
+    """bf16 needs no score row: its bytes do not depend on L and fit the
+    card's 232,448 per block at D = DV = 128. f32 keeps 16 whole f32 score
+    rows, so past L ≈ 3300 it no longer fits and the wrapper refuses."""
+    x = torch.empty(1, 8, 128, dtype=torch.bfloat16)
+    ops = _operands(*[(x, 128)] * 3)
+    plans = [k1._plan(torch.bfloat16, l, 128, 128, ops) for l in (1, 1608, 100_000)]
+    assert len({p.smem for p in plans}) == 1 and plans[0].smem <= k1._MAX_SMEM
+    assert k1._plan(torch.bfloat16, 784, 64, 64, ops).smem < plans[0].smem
+    xf = x.float()
+    ops = _operands(*[(xf, 128)] * 3)
+    assert k1._plan(torch.float32, 1608, 128, 128, ops).smem <= k1._MAX_SMEM
+    assert k1._plan(torch.float32, 4096, 128, 128, ops).smem > k1._MAX_SMEM
+    assert k1._plan(torch.float32, 1608, 64, 64, ops).smem < k1._plan(
+        torch.float32, 4096, 64, 64, ops).smem
