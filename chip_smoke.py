@@ -31,7 +31,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K/V-resident schedule (``flash_attention_v2``) at the attention
    candidates' shapes ``(48, 784, 12, 64)``, ``(8, 1608, 16, 80)`` with
    1601 valid keys and ``(2, 6432, 16, 80)`` with 6404, the causal GQA
-   ``(1, 2560, 40/8, 128)`` and K4's edge cases, K4 (v1) timed beside it;
+   ``(1, 2560, 40/8, 128)`` and K4's edge cases, K4 (v1) timed beside it
+   and every v2 output EQUAL to v1's on the same inputs, bit for bit;
    K5's stride-2 form (``conv3x3_s2_nchw``) at the detector's stride-2
    positions at variant m (``(30, 3, 1024²)``→48, ``(30, 48, 512²)``→96,
    ``(30, 96, 256²)``→192) and H = W = 2; K8 (``stochastic_round_quantize``)
@@ -91,7 +92,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. K4 against its plain version: the Qwen vision shape ``(1, 4960, 16,
     80)`` and the causal GQA text shape ``(1, 2560, 40/8, 128)`` in bf16,
     timed beside SDPA and the bound, and edge cases (L = 1, 127, 129,
-    4960; lengths 1, L−1, L; Dk ≠ Dv; causal; f32);
+    4960; lengths 1, L−1, L; Dk ≠ Dv; causal; f32), then the edges of the
+    bf16 kernel's forms: an operand on the ``cp.async`` path (a base 8
+    bytes off, a 2-byte row stride), query tiles not a multiple of v2's
+    cluster, causal at L = 129 and 4960, lengths 1, L−1 and L in one batch,
+    GQA 40/8 at Dk = Dv = 128; each bf16 launch's plan (path per operand,
+    stages, v2's cluster C and clusters per head S) is printed, and at every
+    edge v2's output is EQUAL to v1's, bit for bit;
 11. K3 against its plain version at the Qwen2.5-VL-32B decoder's shapes
     (M = 1 and M = 1535; ``lm_head`` at M = 1), ragged and single-group
     shapes, bf16 and f32; decode shapes timed back to back over weight
@@ -326,8 +333,13 @@ def build(*modules) -> None:
         for line in info.log.splitlines():
             if "Compiling entry function" in line:
                 print("  " + line.strip().split("'")[1])  # the kernel's mangled name
+            elif "C7519" in line:
+                continue  # counted below: ptxas placed a wgmma fence of its own
             elif "registers" in line or "spill" in line:
                 print("    " + line.strip())
+        fences = info.log.count("C7519")
+        if fences:
+            print(f"  ptxas inserted {fences} warpgroup.arrive fences (C7519) before wgmma")
     print(f"build wall time {time.perf_counter() - t0:.1f} s")
 
 
@@ -778,7 +790,7 @@ def profile_run(label: str, run) -> None:
             fam = "K2 int8_mm"
         elif "int4_mm" in name or "int4_gemv" in name:
             fam = "K3 int4"
-        elif "flash_bf16" in name or "flash_f32" in name:
+        elif "flash_wgmma" in name or "flash_f32" in name or "flash_v2_f32" in name:
             fam = "K4 flash"
         elif "conv3x3_bf16" in name or "conv3x3_f32" in name:
             fam = "K5 conv3x3"
@@ -971,8 +983,9 @@ def flash_bound(b, l, h, kvh, dk, dv, lengths, causal, dtype) -> tuple:
 
 def flash_compare(k4, name, q, k, v, lengths, causal, timed, v2=False) -> dict:
     """K4 (``v2``: on its K/V-resident schedule) against its plain version
-    on the same inputs; with ``timed``, the kernel's, the plain version's
-    and SDPA's median times and the bound, and with ``v2`` K4 v1's time."""
+    on the same inputs, and with ``v2`` EQUAL to K4 v1 bit for bit; with
+    ``timed``, the kernel's, the plain version's and SDPA's median times and
+    the bound, and with ``v2`` K4 v1's time."""
     import torch
     import torch.nn.functional as F
 
@@ -986,6 +999,16 @@ def flash_compare(k4, name, q, k, v, lengths, causal, timed, v2=False) -> dict:
     out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item()}
     note = ""
     if q.dtype == torch.bfloat16:
+        plan = k4.plan_for(q, k, v, v2=v2)
+        print(f"  plan {name}: paths {'/'.join(plan.paths)} stages {plan.stages} "
+              f"C {plan.cluster} S {plan.splits} ({plan.smem} B shared)")
+    if v2:
+        v1_out = k4.flash_attention(q, k, v, lengths=lengths, causal=causal)
+        torch.cuda.synchronize()
+        differ = int((got != v1_out).sum())
+        check(differ == 0, f"{name}: {differ} outputs of v2 differ from v1's")
+        note += " (v2 == v1 bit for bit)"
+    if q.dtype == torch.bfloat16:
         weighted = k4.flash_attention_reference(q, k, v.abs(), lengths, causal).float()
         allowed = MAX_BF16_STEPS * bf16_step(want) + 2.0**-7 * weighted
         ratio = (err / allowed).max().item()
@@ -994,7 +1017,7 @@ def flash_compare(k4, name, q, k, v, lengths, causal, timed, v2=False) -> dict:
         check(share <= K4_MEAN_STEP_SHARE,
               f"{name}: mean err {share:.3g} of a bf16 step > {K4_MEAN_STEP_SHARE}")
         note = (f" ({bf16_steps(got, want):g} bf16 steps at |o|, err/allowed {ratio:.3f}, "
-                f"mean/step {share:.2e})")
+                f"mean/step {share:.2e})") + note
     else:
         check(out["max_abs_err"] <= ATOL_F32_MAX,
               f"{name}: max err {out['max_abs_err']} > {ATOL_F32_MAX}")
@@ -1067,7 +1090,48 @@ def flash_checks(k4) -> dict:
                     break  # one f32 pass at 4960 is enough (the f32 form is for checks)
     print(f"edge cases: max_abs_err bf16 {worst[torch.bfloat16]:.3e} "
           f"f32 {worst[torch.float32]:.3e}")
+    flash_form_edges(k4, randn)
     return results
+
+
+def flash_form_edges(k4, randn) -> None:
+    """The edges of K4's bf16 forms, each through v1 and v2 (v2 EQUAL to v1):
+    operands TMA cannot take, query tiles not a multiple of v2's cluster,
+    causal at L = 129 and 4960, lengths 1, L−1 and L, GQA 40/8 at 128."""
+    import torch
+
+    def offset(*shape, elems):  # a view whose base is `elems` bf16 past an allocation
+        return randn(math.prod(shape) + elems)[elems:].view(shape)
+
+    def lengths(*n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    cases = [
+        ("cp.async q (base 8 bytes off)", offset(2, 300, 4, 64, elems=4), randn(2, 300, 4, 64),
+         randn(2, 300, 4, 64), None, False),
+        ("cp.async v (2-byte row stride)", randn(2, 300, 4, 80), randn(2, 300, 2, 80),
+         randn(2, 300, 2, 81)[..., :80], lengths(299, 150), True),
+        ("cp.async k and v (4-byte base)", randn(1, 257, 2, 40), offset(1, 257, 2, 40, elems=2),
+         offset(1, 257, 2, 56, elems=2), None, False),
+        ("9 query tiles (1,1100,2,80)", randn(1, 1100, 2, 80), randn(1, 1100, 2, 80),
+         randn(1, 1100, 2, 80), None, False),
+        ("causal L=129 GQA 4/2", randn(2, 129, 4, 80), randn(2, 129, 2, 80),
+         randn(2, 129, 2, 80), None, True),
+        ("causal L=4960 (1,4960,16,80)", randn(1, 4960, 16, 80), randn(1, 4960, 16, 80),
+         randn(1, 4960, 16, 80), None, True),
+        ("lengths 1, L-1, L (3,700,2,64)", randn(3, 700, 2, 64), randn(3, 700, 2, 64),
+         randn(3, 700, 2, 64), lengths(1, 699, 700), False),
+        ("lengths 1, L-1, L causal (3,700,2,64)", randn(3, 700, 2, 64), randn(3, 700, 2, 64),
+         randn(3, 700, 2, 64), lengths(1, 699, 700), True),
+        ("GQA 40/8 Dk=Dv=128 (1,1000,40/8)", randn(1, 1000, 40, 128), randn(1, 1000, 8, 128),
+         randn(1, 1000, 8, 128), lengths(999), False),
+    ]
+    for name, q, k, v, lens, causal in cases:
+        flash_compare(k4, f"form edge {name}", q, k, v, lens, causal, timed=False)
+        flash_compare(k4, f"form edge v2 {name}", q, k, v, lens, causal, timed=False, v2=True)
+    plan = k4.plan_for(*cases[3][1:4], v2=True)
+    check(-(-1100 // 128) % (plan.cluster * plan.splits) != 0,
+          f"the 9-tile edge runs {plan.cluster}x{plan.splits} CTAs per head: not ragged")
 
 
 # (M, K, N) of the Qwen2.5-VL-32B decoder: per layer q, o (5120, 5120),

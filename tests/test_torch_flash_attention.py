@@ -274,3 +274,118 @@ def test_attn_candidates_script_runs_on_the_cpu():
     for r in results.values():
         assert all(r[key] > 0 for key in ("sdpa_ms", "flash_v1_ms", "flash_v2_ms"))
         assert r["launches"] == {"flash_attention": 0, "flash_attention_v2": 0}
+
+
+# --- the launch plan of the bf16 wgmma kernel --------------------------------
+
+_ROW = (1 << 20) * 64  # a 64-byte-aligned base address
+
+
+def _ops(*operands):
+    """(base, (batch, row, head) strides) triples for ``_plan``, each given
+    as (element offset from an aligned base, strides)."""
+    return [(_ROW + 2 * off, strides) for off, strides in operands]
+
+
+@pytest.mark.parametrize("name,offset,strides,path,width", [
+    # the Qwen vision v: qkv[:, :, 2] of a (1, 4960, 3, 16, 80) projection
+    ("qwen qkv v slice", 2 * 16 * 80, (4960 * 3 * 16 * 80, 3 * 16 * 80, 80), "tma", 0),
+    ("contiguous (B, L, H, D)", 0, (1608 * 16 * 80, 16 * 80, 80), "tma", 0),
+    ("row stride of 40 bf16", 0, (300 * 40, 40, 0), "tma", 0),
+    ("base 8 bytes off", 4, (300 * 4 * 64, 4 * 64, 64), "cp.async", 8),
+    ("base 4 bytes off", 2, (300 * 4 * 64, 4 * 64, 64), "cp.async", 4),
+    ("row stride of 36 bf16", 0, (300 * 2 * 36, 2 * 36, 36), "cp.async", 8),
+    ("row stride of 81 bf16", 0, (300 * 81, 81, 0), "cp.async", 2),
+])
+def test_plan_path_per_operand(name, offset, strides, path, width):
+    """TMA takes a 16-byte-aligned base and strides that are multiples of 16
+    bytes; anything else goes through cp.async at the widest copy that
+    divides them, per operand (the other two stay on TMA)."""
+    heads = 1 if strides[2] == 0 else 2
+    good = (0, (300 * heads * 64, heads * 64, 64))
+    for i in range(3):
+        ops = [good] * 3
+        ops[i] = (offset, strides)
+        plan = tfa._plan(2, 300, heads, heads, 64, 64, _ops(*ops), v2=False)
+        want_paths = ["tma"] * 3
+        want_paths[i] = path
+        assert plan.paths == tuple(want_paths), (name, i, plan)
+        assert plan.widths[i] == width and sum(plan.widths) == width, (name, plan)
+
+
+def test_plan_shared_memory_fits_every_head_dim():
+    """Every (Dk, Dv) ≤ 128: dims padded to 16, 2-4 ring stages, the bytes
+    within the 227 KB a CTA may take (the card's 80/80 plan: 4 stages)."""
+    ops = _ops(*[(0, (1 << 20, 1 << 12, 128))] * 3)
+    for dk in range(1, 129):
+        for dv in range(1, 129):
+            plan = tfa._plan(1, 256, 1, 1, dk, dv, ops, v2=False)
+            assert plan.dkp == -(-dk // 16) * 16 and plan.dvp == -(-dv // 16) * 16
+            assert 2 <= plan.stages <= 4 and plan.smem <= 232448, (dk, dv, plan)
+            if plan.stages < 4:  # one more stage would not fit
+                bigger = plan.smem + 2 * 128 * (tfa._dim_cols(plan.dkp) + tfa._dim_cols(plan.dvp))
+                assert bigger > 232448
+    assert tfa._plan(1, 256, 1, 1, 40, 56, ops, v2=False)[:2] == (48, 64)
+    assert tfa._plan(1, 256, 1, 1, 40, 56, ops, v2=False).smem == 148560
+    assert tfa._plan(1, 256, 1, 1, 80, 80, ops, v2=False)[4:] == (4, 1, 1, 185424)
+    assert tfa._plan(1, 256, 1, 1, 128, 128, ops, v2=False)[4:] == (3, 1, 1, 230480)
+
+
+@pytest.mark.parametrize("b,l,h,want", [
+    (1, 4960, 1, (8, 5)),     # B·H = 1: 39 query tiles over 40 CTAs
+    (2, 6432, 16, (4, 1)),    # B·H = 32: 128 CTAs of 13 tiles
+    (48, 784, 16, (1, 1)),    # B·H = 768 fills the card alone
+    (1, 1100, 2, (8, 2)),     # 9 query tiles, not a multiple of C
+])
+def test_plan_v2_cluster(b, l, h, want):
+    """v2's cluster size C and clusters per head S: the fewest rounds of
+    query-tile steps for one CTA per SM; v1 always 1 and 1."""
+    ops = _ops(*[(0, (l * h * 80, h * 80, 80))] * 3)
+    plan = tfa._plan(b, l, h, h, 80, 80, ops, v2=True)
+    assert (plan.cluster, plan.splits) == want
+    nq = -(-l // 128)
+    assert plan.cluster * plan.splits <= max(nq, 1) * 2 and plan.cluster <= 8
+    assert b * h * plan.cluster * plan.splits <= max(132, b * h)
+    assert tfa._plan(b, l, h, h, 80, 80, ops, v2=False)[5:7] == (1, 1)
+
+
+def test_plan_v2_cluster_reads_the_card():
+    """With the H100's answer (132 CTAs resident in clusters of 1 or 2, 120
+    in clusters of 4 or 8) the 4-tile shape takes C = 2 and S = 2: 128 CTAs
+    in one wave, where C = 4 would need two."""
+    resident = {1: 132, 2: 132, 4: 120, 8: 120}
+    ops = _ops(*[(0, (6432 * 16 * 80, 16 * 80, 80))] * 3)
+    plan = tfa._plan(2, 6432, 16, 16, 80, 80, ops, True, lambda dvp, smem, c: resident[c])
+    assert (plan.cluster, plan.splits) == (2, 2)
+
+
+def test_plan_ignores_causal_and_lengths():
+    """The plan is a function of shapes and addresses only: causal and
+    lengths never enter it, so v1 and v2 run one form on one input."""
+    import inspect
+
+    assert list(inspect.signature(tfa._plan).parameters) == [
+        "b", "l", "h", "kvh", "dk", "dv", "operands", "v2", "resident"]
+    q = torch.zeros(1, 300, 4, 40, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 300, 2, 56, dtype=torch.bfloat16)
+    assert tfa.plan_for(q, kv[..., :40], kv) == tfa.plan_for(q, kv[..., :40], kv)
+    assert tfa.plan_for(q, kv[..., :40], kv).paths == ("tma", "tma", "tma")
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take():
+    """Head dims past 128, a non-unit feature stride, other dtypes and
+    mismatched shapes raise before any launch."""
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    tfa._kernel_checks(q, q, q)
+    big = torch.zeros(1, 8, 2, 129, dtype=torch.bfloat16)
+    for args in ((big, big, q), (q, q, big), (q, q, q.half()), (q.half(),) * 3,
+                 (q, q, torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)[..., ::2])):
+        with pytest.raises(ValueError):
+            tfa._kernel_checks(*args)
+    for fn in (tfa.flash_attention, tfa.flash_attention_v2):
+        with pytest.raises(ValueError):
+            fn(q, q[:, :7], q)
+        with pytest.raises(ValueError):
+            fn(q, torch.zeros(1, 8, 3, 64, dtype=torch.bfloat16), q)
+        with pytest.raises(ValueError):
+            fn(q.to("meta"), q.to("meta"), q.to("meta"))
