@@ -34,8 +34,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``(1, 2560, 40/8, 128)`` and K4's edge cases, K4 (v1) timed beside it
    and every v2 output EQUAL to v1's on the same inputs, bit for bit;
    K5's stride-2 form (``conv3x3_s2_nchw``) at the detector's stride-2
-   positions at variant m (``(30, 3, 1024²)``→48, ``(30, 48, 512²)``→96,
-   ``(30, 96, 256²)``→192) and H = W = 2; K8 (``stochastic_round_quantize``)
+   positions at variant m (``(30, 3, 1024²)``→48 on the ``cp.async`` path,
+   ``(30, 48, 512²)``→96 and ``(30, 96, 256²)``→192 on clusters of 2 and
+   4), one f32 shape and ragged edges (H = W = 2; C = 3 and 20), each bf16
+   launch's plan printed; K8 (``stochastic_round_quantize``)
    on the mmE5-11B gate/up weight ``(4096, 14336)`` f32, the Qwen-32B gate
    ``(5120, 27648)`` bf16 and a rank-3 ``(4096, 32, 128)``, its int8
    values EQUAL to the plain version's on the same draws;
@@ -52,7 +54,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and (12864, 1280)×(1280, 5120); K7 (48, 784, 768) and (8, 1608, 1280);
    BLHD (48, 784, 12, 64) off a strided qkv slab), bf16, one f32 shape each
    and ragged edge shapes (K1-BLHD's in bf16 and f32); errors against
-   stated tolerances, median times, bounds and library yardsticks;
+   stated tolerances, median times, bounds and library yardsticks. K5's
+   edges reach every form its plan chooses, in bf16 and f32 (H and W off
+   the tile, H = W = 1 at d = 2, clusters of 3 and of 5 in two groups at
+   Cout 100 and 440, channel chunks at C = 192, polyphase tiles at d = 24,
+   the ``cp.async`` path at C = 20 and on an x 2 bytes off alignment);
+   each bf16 launch's plan (path, tile, phase, cluster, groups, chunks,
+   stages, shared bytes, grid) is printed; K5's sum over the page's 12
+   launches must not exceed ``F.conv2d`` + ``F.silu``'s;
 4b. the ViT page on the kernel routes: the same detector and ViT weights
    (seed 0) with ``DetectorConfig(pallas_convs=96, pallas_mode="stage")``,
    ``VisionConfig(fuse_ln=True)``, ``MMTPU_LN_STATS=1`` and
@@ -124,6 +133,11 @@ values just after.
 It prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device.
+
+    python3 chip_smoke.py --k5
+
+runs phase 1, K5's build and K5's checks of phases 4a and 3a only (a
+minute on the card), and prints no result line.
 """
 
 from __future__ import annotations
@@ -1448,6 +1462,20 @@ K5_SHAPES = {
     "c2f_3 cv2 (30,96,128,128) d=1": ((30, 96, 128, 128, 1), 4),
 }
 K5_HEADLINE = "c2f_2 cv1 (30,48,256,256) d=2"
+# K5's time at a page shape against F.conv2d + F.silu's, by C: at most equal
+# at C = 48, at most 1.25x at C = 96
+K5_LIBRARY_FACTOR = {48: 1.0, 96: 1.25}
+# (N, C, H, W, dilation, Cout, x 2 bytes off alignment) of K5's edge cases:
+# ragged tiles on the cp.async path (C 20) and on TMA, H = W = 1 at d = 2,
+# clusters of 3 (Cout 100, 56 -> 2) and 5 in two groups (Cout 440), channel
+# chunks (C 192), polyphase tiles (d 24), a misaligned base
+K5_EDGES = (
+    (2, 20, 13, 17, 1, 20, False), (3, 48, 7, 9, 4, 40, False), (1, 8, 5, 3, 2, 56, False),
+    (2, 96, 11, 6, 2, 100, False), (2, 48, 37, 21, 2, 48, False), (1, 48, 1, 1, 2, 48, False),
+    (2, 48, 19, 23, 1, 100, False), (1, 48, 18, 20, 2, 440, False),
+    (2, 192, 20, 36, 2, 48, False), (1, 48, 60, 52, 24, 48, False),
+    (2, 48, 21, 19, 2, 96, True),
+)
 # (M, K, N, bias) of K6: the ViT page's ln1 -> [Wq|Wk|Wv] and ln2 -> fc1 over
 # 48 crops x 784 patches, and the mmE5 tower's ln2 -> fc1 over 8 crops x 1608
 K6_SHAPES = {
@@ -1508,12 +1536,14 @@ def gate(name, got, want, allowed, dtype) -> dict:
 
 
 def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, timed=False,
-              stride=1):
+              stride=1, misaligned=False):
     """K5 against its plain version on channels-last x (``strided``: x is
     the upper channel half of a channels-last tensor twice as wide, as the
-    CSP stage hands it on); ``stride=2``: its stride-2 form (``d`` unused).
-    Tolerance per output: 2·9C·2⁻²⁴·Σ|x·w| (f32 sums in different orders,
-    ×1.1 for SiLU's slope) plus, in bf16, 2 steps of its rounding."""
+    CSP stage hands it on; ``misaligned``: x starts 2 bytes past a 16-byte
+    boundary, its strides aligned); ``stride=2``: its stride-2 form (``d``
+    unused). A bf16 launch prints its plan. Tolerance per output:
+    2·9C·2⁻²⁴·Σ|x·w| (f32 sums in different orders, ×1.1 for SiLU's slope)
+    plus, in bf16, 2 steps of its rounding."""
     import torch
     import torch.nn.functional as F
 
@@ -1521,8 +1551,18 @@ def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, tim
     dev = torch.device("cuda")
     wide = torch.randn((n, 2 * c if strided else c, h, w), generator=gen, device=dev)
     x = wide.to(dtype).contiguous(memory_format=torch.channels_last)[:, -c:]
+    if misaligned:
+        flat = torch.empty(x.numel() + 8, device=dev, dtype=dtype)
+        x = flat[1:1 + x.numel()].as_strided(x.shape, (h * w * c, 1, w * c, c)).copy_(x)
     wt = (torch.randn((cout, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(dtype)
     bias = torch.randn((cout,), generator=gen, device=dev) * 0.5
+    if dtype == torch.bfloat16:
+        out_hw = (h, w) if stride == 1 else (h // 2, w // 2)
+        plan = k5.plan_for(x, cout, stride, d if stride == 1 else 1, out_hw)
+        print(f"  plan {name}: {plan.path}{f' {plan.width} B' if plan.width else ''} tile "
+              f"{plan.tile[0]}x{plan.tile[1]} phase {plan.phase} cluster {plan.cluster} groups "
+              f"{plan.groups} chunks {plan.nchunks}x{plan.pc} stages {plan.stages} "
+              f"({plan.smem} B shared) grid {plan.grid[0]}x{plan.grid[1]}")
     if stride == 1:
         def kernel():
             return k5.conv3x3_nchw(x, wt, bias, act="silu", dilation=d)
@@ -1657,6 +1697,63 @@ def ln_stats_case(k7, gen, name, shape, dtype, timed=False):
     return out
 
 
+def k5_checks(k5) -> dict:
+    """K5 at the kernel-route page's four shapes (timed), one f32 shape, and
+    edge shapes that reach every form ``_plan`` chooses, bf16 and f32: H
+    and W off the tile, H = W = 1, a cluster of 3 (Cout 100), two groups of
+    clusters (Cout 440 > 8·48), channel chunks (C 192), polyphase tiles (d
+    24), the ``cp.async`` path (C 20, and an x 2 bytes off alignment); the
+    per-page sums over the 12 launches, held to F.conv2d + F.silu's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+    for name, ((n, c, h, w, d), _) in K5_SHAPES.items():
+        res[name] = conv_case(k5, gen, name, n, c, h, w, d, bf16,
+                              strided=name.endswith("d=2"), timed=True)
+    res["f32"] = conv_case(k5, gen, "f32 (4,48,64,64) d=2", 4, 48, 64, 64, 2, f32, timed=True)
+    for n, c, h, w, d, cout, misaligned in K5_EDGES:
+        for dtype in (bf16, f32):
+            conv_case(k5, gen, f"edge ({n},{c},{h},{w}) d={d} cout={cout}"
+                               f"{' base+2B' if misaligned else ''}", n, c, h, w, d, dtype,
+                      cout=cout, strided=c == 48, misaligned=misaligned)
+    per_page = sum(res[s]["ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    bound = sum(res[s]["bound_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    lib = sum(res[s]["library_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
+    print(f"K5 per page (12 launches) from these medians: {per_page:.3f} ms "
+          f"(bound {bound:.3f} ms, F.conv2d+F.silu {lib:.3f} ms)")
+    check(per_page <= lib, f"K5 per page {per_page:.3f} ms > F.conv2d+F.silu {lib:.3f} ms")
+    for name, r in res.items():  # each page shape: at most the library (C 48), 1.25x (C 96)
+        limit = K5_LIBRARY_FACTOR.get(K5_SHAPES.get(name, ((0, 0),))[0][1])
+        if limit:
+            check(r["ms"] <= limit * r["library_ms"],
+                  f"K5 {name}: {r['ms']:.4f} ms > {limit} x F.conv2d+F.silu {r['library_ms']:.4f}")
+    return res
+
+
+def k5_s2_checks(k5) -> dict:
+    """K5's stride-2 form at the detector's positions (timed), ragged edges,
+    one f32 shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+    for name, (n, c, h, w, cout) in K5_S2_SHAPES.items():
+        res[name] = conv_case(k5, gen, f"s2 {name}", n, c, h, w, 1, bf16, cout=cout,
+                              timed=True, stride=2)
+        torch.cuda.empty_cache()
+    res["f32"] = conv_case(k5, gen, "s2 f32 (4,48,64,64)->96", 4, 48, 64, 64, 1, f32,
+                           cout=96, timed=True, stride=2)
+    for n, c, h, w, cout in ((2, 8, 2, 2, 16), (2, 20, 14, 18, 40), (3, 48, 10, 6, 56),
+                             (1, 3, 6, 4, 48)):
+        for dtype in (bf16, f32):
+            conv_case(k5, gen, f"s2 ragged ({n},{c},{h},{w})->{cout}", n, c, h, w, 1, dtype,
+                      cout=cout, strided=c == 48, stride=2)
+    return res
+
+
 def route_kernel_checks(k1, k5, k6, k7) -> dict:
     """K5, K6, K7 and K1-BLHD against their plain versions."""
     import torch
@@ -1665,17 +1762,7 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
     phase("4a. K5, K6, K7 and K1-BLHD against their plain versions (kernel-route shapes)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    res = {"k5": {}, "k6": {}, "k7": {}}
-    for name, ((n, c, h, w, d), _) in K5_SHAPES.items():
-        res["k5"][name] = conv_case(k5, gen, name, n, c, h, w, d, bf16,
-                                    strided=name.endswith("d=2"), timed=True)
-    res["k5"]["f32"] = conv_case(k5, gen, "f32 (4,48,64,64) d=2", 4, 48, 64, 64, 2, f32,
-                                 timed=True)
-    for n, c, h, w, d, cout in ((2, 20, 13, 17, 1, 20), (3, 48, 7, 9, 4, 40),
-                                (1, 8, 5, 3, 2, 56), (2, 96, 11, 6, 2, 100)):
-        for dtype in (bf16, f32):
-            conv_case(k5, gen, f"ragged ({n},{c},{h},{w}) d={d} cout={cout}", n, c, h, w, d,
-                      dtype, cout=cout, strided=c == 48)
+    res = {"k5": k5_checks(k5), "k6": {}, "k7": {}}
     for name, (m, k, n, with_bias) in K6_SHAPES.items():
         res["k6"][name] = ln_matmul_case(k6, gen, name, m, k, n, with_bias, bf16, timed=True)
         torch.cuda.empty_cache()
@@ -1720,11 +1807,6 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
              lambda t=qkv: k1.encoder_attention_blhd_reference(*t, 0.3),
              abs_v(k1.encoder_attention_blhd_reference, *qkv, 0.3))
             for l in (1, 8, 17, 130) for qkv in [blhd_views(2, l, 3, 40, dtype)]])
-    per_page = sum(res["k5"][s]["ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
-    bound = sum(res["k5"][s]["bound_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
-    lib = sum(res["k5"][s]["library_ms"] * cnt for s, (_, cnt) in K5_SHAPES.items())
-    print(f"K5 per page (12 launches) from these medians: {per_page:.3f} ms "
-          f"(bound {bound:.3f} ms, F.conv2d+F.silu {lib:.3f} ms)")
     return res
 
 
@@ -2051,18 +2133,7 @@ def last_port_checks(k1, k2, k4, k5) -> dict:
                     randn(2, l, 2, 56, dtype=dtype), lengths, causal, timed=False, v2=True)
 
     # K5's stride-2 form at the detector's positions, ragged edges, one f32
-    res["s2"] = {}
-    for name, (n, c, h, w, cout) in K5_S2_SHAPES.items():
-        res["s2"][name] = conv_case(k5, gen, f"s2 {name}", n, c, h, w, 1, bf16, cout=cout,
-                                    timed=True, stride=2)
-        torch.cuda.empty_cache()
-    res["s2"]["f32"] = conv_case(k5, gen, "s2 f32 (4,48,64,64)->96", 4, 48, 64, 64, 1, f32,
-                                 cout=96, timed=True, stride=2)
-    for n, c, h, w, cout in ((2, 8, 2, 2, 16), (2, 20, 14, 18, 40), (3, 48, 10, 6, 56),
-                             (1, 3, 6, 4, 48)):
-        for dtype in (bf16, f32):
-            conv_case(k5, gen, f"s2 ragged ({n},{c},{h},{w})->{cout}", n, c, h, w, 1, dtype,
-                      cout=cout, strided=c == 48, stride=2)
+    res["s2"] = k5_s2_checks(k5)
 
     # K8 on the card's draws
     res["k8"] = {}
@@ -2137,6 +2208,13 @@ def main() -> int:
 
     start = time.perf_counter()
     smi = card()
+    if sys.argv[1:] == ["--k5"]:
+        build(("K5", k5))
+        phase("4a/3a. K5 alone: both forms against their plain versions")
+        k5_checks(k5)
+        k5_s2_checks(k5)
+        print(f"K5 alone: {time.perf_counter() - start:.1f} s")
+        return 0
     build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
           ("K8", SimpleNamespace(build_info=k2.sr_build_info)))
     counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)

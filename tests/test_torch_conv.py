@@ -1,7 +1,8 @@
 """K5, the 3×3 conv: its plain PyTorch versions (stride 1 and the stride-2
-form) against the JAX Pallas kernels (interpret mode), and the GL-CRM kernel
-route of the port's detector against
-the JAX modules' ``pallas_max_channels`` route, same weights, f32.
+form) against the JAX Pallas kernels (interpret mode), the GL-CRM kernel
+route of the port's detector against the JAX modules'
+``pallas_max_channels`` route, same weights, f32, and the bf16 kernel's
+launch plan and weight layout, which the CPU computes for the card.
 
 Tolerances: f32 2e-5 absolute on outputs of magnitude up to ~10 (the two
 sides sum 9·C products in different orders); bf16 at most 2 bf16 steps at
@@ -252,3 +253,140 @@ def test_kernel_biases_stay_f32_in_a_bf16_detector():
             assert p.dtype == torch.float32 and torch.equal(p, ref[name])
         else:
             assert p.dtype == torch.bfloat16
+
+
+# --- the bf16 kernel's launch plan (K5 on the card) --------------------------
+
+_MAX_SMEM = 232448
+
+
+def _plan_of(n, c, h, w, cout, stride=1, dilation=1, ptr=0, pixel=None):
+    """The plan of a channels-last x whose pixels are ``pixel`` elements
+    apart (C, or 2C for the channel half of a wider tensor)."""
+    pixel = pixel or c
+    oh, ow = (h, w) if stride == 1 else (h // 2, w // 2)
+    return k5._plan(n, c, h, w, cout, oh, ow, stride, dilation, ptr % 16,
+                    (h * w * pixel, w * pixel, pixel))
+
+
+# (N, C, H, W, Cout, stride, dilation, pixel stride, base) -> path, tile
+# rows, cluster, groups, chunks, stages
+PLAN_CASES = {
+    "c2f_2 cv1 slice": ((30, 48, 256, 256, 48, 1, 2, 96, 96), ("tma", 16, 1, 1, 1, 4)),
+    "c2f_2 cv2": ((30, 48, 256, 256, 48, 1, 1, 48, 0), ("tma", 16, 1, 1, 1, 4)),
+    "c2f_3 cv1 slice": ((30, 96, 128, 128, 96, 1, 2, 192, 192), ("tma", 8, 2, 1, 1, 3)),
+    "c2f_3 cv2": ((30, 96, 128, 128, 96, 1, 1, 96, 0), ("tma", 16, 2, 1, 1, 2)),
+    "s2 stem": ((30, 3, 1024, 1024, 48, 2, 1, 3, 0), ("cp.async", 16, 1, 1, 1, 4)),
+    "s2 48->96": ((30, 48, 512, 512, 96, 2, 1, 48, 0), ("tma", 8, 2, 1, 1, 3)),
+    "s2 96->192": ((30, 96, 256, 256, 192, 2, 1, 96, 0), ("tma", 8, 4, 1, 2, 2)),
+    "ragged H, W": ((2, 48, 37, 21, 48, 1, 2, 96, 96), ("tma", 16, 1, 1, 1, 4)),
+    "H = W = 1": ((1, 48, 1, 1, 48, 1, 2, 96, 96), ("tma", 16, 1, 1, 1, 4)),
+    "cout 100": ((2, 48, 19, 23, 100, 1, 1, 96, 96), ("tma", 16, 3, 1, 1, 4)),
+    "cout 440": ((1, 48, 18, 20, 440, 1, 2, 96, 96), ("tma", 16, 5, 2, 1, 4)),
+    "C 192": ((2, 192, 20, 36, 48, 1, 2, 192, 0), ("tma", 16, 1, 1, 3, 2)),
+    "d 24": ((1, 48, 60, 52, 48, 1, 24, 96, 96), ("cp.async", 16, 1, 1, 1, 4)),
+    "C 20": ((2, 20, 13, 17, 20, 1, 1, 20, 0), ("cp.async", 16, 1, 1, 1, 4)),
+    "base 2 B off": ((2, 48, 21, 19, 96, 1, 2, 48, 2), ("cp.async", 16, 2, 1, 1, 4)),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_plan_forms(name):
+    """The form `_plan` chooses at the page shapes, the stride-2 shapes and
+    the chip check's edge cases; every plan fits the card's 227 KB."""
+    (n, c, h, w, cout, stride, d, pixel, base), want = PLAN_CASES[name]
+    plan = _plan_of(n, c, h, w, cout, stride, d, base, pixel)
+    got = (plan.path, plan.tile[0], plan.cluster, plan.groups, plan.nchunks, plan.stages)
+    assert got == want, plan
+    assert plan.tile[1] == 16 and plan.smem <= _MAX_SMEM
+    assert plan.groups * plan.cluster * 48 >= cout and plan.cluster <= 8
+    assert plan.nchunks * plan.pc >= c and plan.pc % 16 == 0
+    assert plan.grid[0] % plan.cluster == 0 and plan.grid[1] == plan.groups
+    assert plan.grid[0] // plan.cluster <= 132 // plan.cluster
+    assert (plan.width == 0) == (plan.path == "tma")
+    assert plan.phase == (d if name == "d 24" else 1)
+
+
+@pytest.mark.parametrize("c,pixel,base,width", [
+    (48, 96, 96, 0),    # the CSP's channel half: 96-byte base, 192-byte pixels
+    (96, 192, 192, 0),
+    (3, 3, 0, 2),       # the stem: 6-byte pixels
+    (20, 20, 0, 8),     # 40-byte pixels
+    (20, 40, 0, 16),    # 2C not a multiple of 16, the strides are
+    (48, 48, 2, 2),     # a base 2 bytes off alignment
+    (48, 48, 8, 8),
+])
+def test_plan_halo_path(c, pixel, base, width):
+    """TMA exactly where the base, 2C and the strides are multiples of 16
+    bytes; else cp.async with the widest copy the base and strides allow."""
+    plan = _plan_of(2, c, 20, 24, 48, ptr=base, pixel=pixel)
+    assert plan.path == ("tma" if width == 0 else "cp.async") and plan.width == width
+
+
+def test_plan_ints_and_shared_bytes():
+    """The ints the C entry point takes, and the shared bytes the source's
+    layout computes: resident weights, 4 stages of the halo's 32- and
+    16-channel boxes (64 and 32 bytes a pixel, each box 1024-aligned; a
+    warpgroup's epilogue rows reuse its stage), the barriers and biases."""
+    plan = _plan_of(30, 48, 256, 256, 48, dilation=2, ptr=96, pixel=96)
+    assert plan.ints() == [0, 4, 1, 1, 1, 1, 48, 4, plan.smem, 132]
+    halo = 20 * 20  # (16 - 1) + 2·2 + 1 pixels square
+    weights = 48 * 448 * 2  # 9·48 = 432 deep, padded to 448
+    boxes = halo * 64 + 13 * 1024  # 400 · 32 = 12,800 bytes rounded up to 13 KB
+    assert plan.smem == 1024 + weights + 4 * boxes + 8 * 13 + 4 * 48
+    assert k5._atoms(48) == [32, 16] and k5._atoms(96) == [64, 32] and k5._atoms(112) == [64, 32, 16]
+
+
+def test_plan_reads_the_card_residency():
+    """The persistent grid is as many clusters as the card holds at once,
+    at most one per tile; a cluster size the card cannot hold at all makes
+    the plan split Cout into more groups."""
+    def resident(mr, smem, q):
+        return 120 if q <= 4 else 0
+
+    plan = k5._plan(1, 48, 18, 20, 440, 18, 20, 1, 2, 0, (18 * 20 * 48, 20 * 48, 48), resident)
+    assert (plan.cluster, plan.groups) == (4, 3)
+    # 4 tiles (18 x 20 pixels in tiles of 16 x 16): 4 clusters of 4 per group
+    assert plan.grid == (4 * 4, 3)
+    small = _plan_of(1, 48, 8, 8, 48)
+    assert small.grid == (1, 1)
+
+
+@pytest.mark.parametrize("cout,c,nchunks", [(48, 48, 1), (100, 20, 1), (48, 192, 3)])
+def test_weight_layout(cout, c, nchunks):
+    """``_weights`` puts w[o, c, ky, kx] at the wgmma-swizzled place of row
+    o mod 48, column tap·pc + c of its chunk, and zeros past C and Cout;
+    the packing is kept on the weight until the weight changes."""
+    rng = np.random.default_rng(cout + c)
+    w = torch.from_numpy(rng.normal(size=(cout, c, 3, 3)).astype(np.float32)).bfloat16()
+    plan = _plan_of(2, c, 20, 36, cout, dilation=2)
+    assert plan.nchunks == nchunks
+    got = k5._weights(w, plan)
+    nb, pc, kp = plan.groups * plan.cluster, plan.pc, k5._kp(plan.pc)
+    assert got.shape == (nb, nchunks, kp // 64, 48, 64)
+    flat = got.reshape(nb, nchunks, -1)
+    want = torch.zeros(nb * 48, nchunks * pc, 9, dtype=torch.bfloat16)
+    want[:cout, :c] = w.reshape(cout, c, 9)
+    for b in range(nb):
+        for j in range(nchunks):
+            k = torch.arange(9 * pc)
+            tap, ch = k // pc, k % pc
+            for o in range(48):
+                off = (k // 64) * 48 * 64 + o * 64 + (((k % 64) // 8) ^ (o % 8)) * 8 + k % 8
+                assert torch.equal(flat[b, j, off], want[b * 48 + o, j * pc + ch, tap])
+    assert k5._weights(w, plan) is got
+    w.add_(1)
+    assert k5._weights(w, plan) is not got
+
+
+def test_non_cuda_device_raises_without_counting():
+    """A tensor on neither the CPU nor a CUDA device raises before any
+    launch, in both wrappers, and neither counter moves."""
+    x = torch.zeros(1, 48, 8, 8, device="meta").contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(48, 48, 3, 3, device="meta")
+    before = (k5.conv3x3_nchw.launches, k5.conv3x3_s2_nchw.launches)
+    for call in (lambda: k5.conv3x3_nchw(x, w, act="silu", dilation=2),
+                 lambda: k5.conv3x3_s2_nchw(x, w, act="silu")):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            call()
+    assert (k5.conv3x3_nchw.launches, k5.conv3x3_s2_nchw.launches) == before
