@@ -111,7 +111,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. K3 against its plain version at the Qwen2.5-VL-32B decoder's shapes
     (M = 1 and M = 1535; ``lm_head`` at M = 1), ragged and single-group
     shapes, bf16 and f32; decode shapes timed back to back over weight
-    copies larger than L2, cuBLAS bf16 ``x @ W`` beside as context;
+    copies larger than L2, cuBLAS bf16 ``x @ W`` beside as context; the
+    GEMV form's edges in bf16 and f32 (M = 1-4, N = 1030 and 40, one group
+    of 100 packed rows, shares crossing tiles, K = 8, a ``packed`` 8 bytes
+    off 16-byte alignment, groups wider than the kernel's x window, one with
+    tiles cut across CTAs), each GEMV launch's plan printed, two calls
+    EQUAL bit for bit at gate,up and ``lm_head``, and the count of
+    int-to-float conversions (``I2F``/``I2FP``) in the GEMV's machine code
+    (``cuobjdump -sass``, "not available" without the tool);
 12. the full-width Qwen2.5-VL-32B int4 page parse at native resolution:
     the model built on the card from seed 0, a 2200×1700 synthetic page
     smart-resized to 1120×868 (4960 patches, a 1535-token prompt); one
@@ -138,6 +145,10 @@ CUDA device.
 
 runs phase 1, K5's build and K5's checks of phases 4a and 3a only (a
 minute on the card), and prints no result line.
+
+    python3 chip_smoke.py --k3
+
+runs phase 1, K3's build and phase 11 only, and prints no result line.
 """
 
 from __future__ import annotations
@@ -1158,6 +1169,52 @@ K3_SHAPES = {
 }
 K3_PREFILL_M = 1535
 K3_HEADLINE = "decode gate,up (1,5120)x(5120,27648)"
+# (M, K, N, n_groups, byte offset of packed, what) of the GEMV form's edges
+K3_GEMV_EDGES = (
+    (1, 5120, 1024, 40, 0, "M = 1"),
+    (2, 5120, 1024, 40, 0, "M = 2"),
+    (3, 5120, 1024, 40, 0, "M = 3"),
+    (4, 5120, 1024, 40, 0, "M = 4"),
+    (1, 5120, 1030, 40, 0, "N not a multiple of 16"),
+    (3, 2048, 40, 16, 0, "N < 128"),
+    (2, 200, 520, 1, 0, "one group of 100 packed rows"),
+    (1, 16384, 16384, 128, 0, "shares cross tiles and cut them at group boundaries"),
+    (1, 8, 16, 1, 0, "K so small that most row slices get no rows"),
+    (4, 1024, 768, 8, 8, "packed 8 bytes off 16-byte alignment: element loads"),
+    # groups wider than the kernel's x window (1,024 packed rows at M = 1, 512
+    # at M = 2, 256 at M = 3-4): a group's rows are flushed and x restaged
+    # mid-group
+    (4, 2048, 520, 1, 0, "a group of 1,024 packed rows at M = 4"),
+    (2, 4096, 256, 1, 0, "a group of 2,048 packed rows at M = 2"),
+    (1, 8192, 300, 2, 0, "groups of 2,048 packed rows at M = 1"),
+    (1, 20480, 300, 5, 0, "groups of 2,048 packed rows at M = 1, tiles cut across CTAs"),
+)
+
+
+def k3_sass(k3) -> None:
+    """Count the int-to-float conversions (``I2F``, ``I2FP``) in the machine
+    code of the built GEMV, read by ``cuobjdump -sass`` (whose whole listing
+    of K3 is written beside the built library, as ``<library>.sass``)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        print("GEMV I2F/I2FP count: not available (no cuobjdump)")
+        return
+    lib = k3.build_info().path
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(f"GEMV I2F/I2FP count: not available (cuobjdump {proc.returncode})")
+        return
+    lib.with_suffix(".sass").write_text(proc.stdout)
+    for body in proc.stdout.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        if "gemv" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        conv = sum(op in ("I2F", "I2FP") for op in ops)
+        print(f"  {name}: {len(ops)} instructions, I2F/I2FP {conv}")
 
 
 def int4_checks(k3) -> dict:
@@ -1165,19 +1222,32 @@ def int4_checks(k3) -> dict:
     import torch
 
     phase("11. K3 int4 matmul against its plain version (Qwen2.5-VL-32B shapes)")
+    k3_sass(k3)
     gen = torch.Generator(device="cuda").manual_seed(11)
     dev = torch.device("cuda")
 
-    def operands(m, k, n, n_groups, dtype):
+    def operands(m, k, n, n_groups, dtype, offset=0):
+        """``packed`` is a view ``offset`` bytes into a larger buffer."""
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
-                               dtype=torch.uint8)
+        buf = torch.randint(0, 256, (k // 2 * n + offset,), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        packed = buf[offset:].view(k // 2, n)
         scale = torch.randn((n_groups, n), generator=gen, device=dev) * 0.02
         return x, packed, scale
 
-    def run(name, m, k, n, n_groups, dtype, timed):
-        x, packed, scale = operands(m, k, n, n_groups, dtype)
+    def run(name, m, k, n, n_groups, dtype, timed, offset=0, same_bits=False, cut=False):
+        x, packed, scale = operands(m, k, n, n_groups, dtype, offset)
         got = k3.int4_matmul(x, packed, scale)
+        if same_bits:  # deterministic: a second call gives the same bits
+            again = k3.int4_matmul(x, packed, scale)
+            check(torch.equal(got, again), f"{name}: two calls differ")
+        if m <= 4:
+            plan = k3.plan_for(x, packed, scale)
+            check(plan.cut_tiles() > 0 or not cut, f"{name}: no tile is cut across CTAs")
+            sizes = [b - a for a, b in map(plan.share, range(plan.grid))]
+            print(f"  GEMV plan: x rows {plan.mt}, {plan.tiles} tiles x {plan.n_groups} groups = "
+                  f"{plan.units} units over {plan.grid} CTAs ({min(sizes)}-{max(sizes)} each), "
+                  f"{plan.cut_tiles()} tiles cut" + (", bit-equal twice" if same_bits else ""))
         want = k3.int4_matmul_reference(x, packed, scale)
         torch.cuda.synchronize()
         check(got.dtype == dtype and got.shape == (m, n), f"{name}: {got.dtype} {got.shape}")
@@ -1239,9 +1309,11 @@ def int4_checks(k3) -> dict:
     for m in (1, K3_PREFILL_M):
         for label, (k, n, _) in K3_SHAPES.items():
             name = f"{'decode' if m == 1 else 'prefill'} {label} ({m},{k})x({k},{n})"
-            results[name] = run(name, m, k, n, k // 128, torch.bfloat16, timed=True)
+            results[name] = run(name, m, k, n, k // 128, torch.bfloat16, timed=True,
+                                same_bits=name == K3_HEADLINE)
     name = "decode lm_head (1,5120)x(5120,152064)"
-    results[name] = run(name, 1, 5120, 152064, 40, torch.bfloat16, timed=True)
+    results[name] = run(name, 1, 5120, 152064, 40, torch.bfloat16, timed=True,
+                        same_bits=True)
     results["f32"] = run("f32 k,v (1535,5120)x(5120,1024)", K3_PREFILL_M, 5120, 1024, 40,
                          torch.float32, timed=True)
     for m, k, n, groups in ((37, 200, 136, 1), (1, 8, 16, 1), (130, 72, 200, 1),
@@ -1250,6 +1322,10 @@ def int4_checks(k3) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             run(f"ragged ({m},{k})x({k},{n}) {groups} group(s)", m, k, n, groups, dtype,
                 timed=False)
+    for m, k, n, groups, offset, what in K3_GEMV_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            run(f"GEMV edge ({m},{k})x({k},{n}) {groups} group(s) packed +{offset} B: {what}",
+                m, k, n, groups, dtype, timed=False, offset=offset, cut="cut" in what)
     step = sum(results[f"decode {lab} (1,{k})x({k},{n})"]["ms"] * cnt
                for lab, (k, n, cnt) in K3_SHAPES.items()) * 64
     step += results[name]["ms"]
@@ -2214,6 +2290,11 @@ def main() -> int:
         k5_checks(k5)
         k5_s2_checks(k5)
         print(f"K5 alone: {time.perf_counter() - start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--k3"]:
+        build(("K3", k3))
+        int4_checks(k3)
+        print(f"K3 alone: {time.perf_counter() - start:.1f} s")
         return 0
     build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
           ("K8", SimpleNamespace(build_info=k2.sr_build_info)))

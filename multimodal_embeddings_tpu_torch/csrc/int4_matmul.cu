@@ -32,15 +32,21 @@
 //   step ahead. Each warp keeps a per-group partial accumulator and folds it
 //   into the output accumulator with the group's scale row after the group's
 //   last k-step.
-// * M <= 4 (decode): a GEMV. What bounds it: decode reads every weight byte
-//   once per token for 2 flops per weight per row, so HBM bandwidth bounds it
-//   (17.0 GB per 32B decode step: 5.07 ms at 3.35 TB/s), and bandwidth needs
-//   bytes in flight: each block owns 128 output columns, its 256 threads are
-//   8 column threads (one 16-byte load of packed bytes per packed row) x 32
-//   slices of contiguous packed rows, unrolled 4 deep; where N gives too few
-//   column tiles to fill 132 SMs twice (q/o/k/v/down), the packed rows are
-//   split over blocks too and the last block of a column tile sums the
-//   splits' f32 partials in order.
+// * M <= 4 (decode): a GEMV on the CUDA cores. What bounds it: decode reads
+//   every weight byte once per token for 2 flops per weight per row, so HBM
+//   bandwidth bounds it (17.0 GB per 32B decode step: 5.07 ms at 3.35 TB/s),
+//   and the instruction issue comes next (32 G nibbles per step). So a nibble
+//   is never converted from int to float: masked in place, its bits are a
+//   subnormal float that multiplies a power-of-two-scaled x exactly (gv_word;
+//   one LOP3 and one FFMA per nibble, where an I2F-based dequantization took
+//   ~11 instructions per byte); the sum over the stored nibble n becomes the
+//   sum over q = n - 8 with -8 times the rows' x sum at each group's fold.
+//   x is staged per CTA in shared memory. The (256-column tile, group) units
+//   are cut into equal contiguous shares over the CTAs the card holds at once
+//   (stream-K), each thread keeping the next 8 rows' 16-byte loads in flight
+//   in registers, and a cut tile's partials are summed in a fixed order.
+//   A tensor-core GEMV would need the weight laid out again, which the
+//   shared layout above forbids.
 //
 // Ragged M, K and N are zero-filled at the tile edges; vector loads are used
 // where rows are aligned (checked in the launcher) and element loads
@@ -261,163 +267,441 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 }
-
 // --------------------------------------------------------------------------
 // M <= 4: GEMV
 // --------------------------------------------------------------------------
 
-constexpr int GV_CT = 8;            // column threads, 16 columns (one 16-byte load) each
-constexpr int GV_SL = 32;           // row slices
-constexpr int GV_THREADS = GV_CT * GV_SL;
-constexpr int GV_BN = 16 * GV_CT;   // 128 output columns per block
+constexpr int GV_THREADS = 128;
+constexpr int GV_CT = 16;                  // column threads, 16 columns (one 16-byte load) each
+constexpr int GV_SL = GV_THREADS / GV_CT;  // 8 row slices
+constexpr int GV_TN = 16 * GV_CT;          // 256 output columns per tile
+constexpr int GV_WARPS = GV_THREADS / 32;
+constexpr int GV_XBYTES = 20480;           // the x window in shared memory
 constexpr int GV_MAX_M = 4;
 
+// consecutive packed rows a thread takes per chunk: 8, or 2 where four rows
+// of x need the registers; a chunk is 8 slices of them (64 rows at 8)
+__host__ __device__ constexpr int gv_rows(int mt) { return mt == 4 ? 2 : 8; }
+__host__ __device__ constexpr int gv_chunk(int mt) { return GV_SL * gv_rows(mt); }
+// a packed row of x takes 20 bytes per row of x: its four scaled values and
+// the f32 sum of its two rows
+__host__ __device__ constexpr int gv_xrows(int mt) { return GV_XBYTES / (20 * mt); }
+__host__ __device__ constexpr int gv_smem(int mt) {
+  return GV_XBYTES + GV_WARPS * mt * GV_TN * 4;
+}
+// within the 48 KB a launch may take without raising its attribute (the
+// kernel's static shared memory is a few bytes)
+static_assert(gv_smem(GV_MAX_M) + 64 <= 48 * 1024, "the GEMV's shared memory");
+
+// A 16-byte load of weight bytes, which are read once per call: not kept in
+// L1, evicted first from L2.
+__device__ __forceinline__ uint4 ld_stream(const uint8_t* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// One 32-bit word of packed bytes (columns c0 .. c0 + 3) times one packed
+// row's x. A nibble masked in place (LOP3) is, as the bits of a float, the
+// subnormal n · 2^(p - 149) for its bit position p (0, 4, 8 or 12: bytes 2
+// and 3 are read from w >> 16), so it is multiplied by the row's x scaled by
+// 2^(k - p) (xv = x_lo·2^k, x_hi·2^(k-4), x_lo·2^(k-8), x_hi·2^(k-12)) and
+// the product is x·n·2^(k - 149), exact: an 8-bit by 4-bit significand, with
+// k chosen per x window so that every x within 2^118 of the window's largest
+// lands at or above 2^-149. One LOP3 and one FFMA per nibble and a SHF per
+// word, no int->float conversion. The sum over n (0 .. 15) is turned into
+// the sum over q = n - 8 at the fold, with -8 times the f32 sum of the rows'
+// x (gv_flush).
 template <int MT>
-__device__ __forceinline__ void fold(float (&acc)[MT][16], float (&part)[MT][16],
-                                     const float* __restrict__ scale, int g, int N, int n) {
+__device__ __forceinline__ void gv_word(float (&part)[MT][16], int c0, uint32_t w,
+                                        const float4 (&xv)[MT]) {
+  const uint32_t v = w >> 16;
+  const float d0 = __uint_as_float(w & 0xFu), d1 = __uint_as_float(w & 0xF0u);
+  const float d2 = __uint_as_float(w & 0xF00u), d3 = __uint_as_float(w & 0xF000u);
+  const float d4 = __uint_as_float(v & 0xFu), d5 = __uint_as_float(v & 0xF0u);
+  const float d6 = __uint_as_float(v & 0xF00u), d7 = __uint_as_float(v & 0xF000u);
 #pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const float sc = n + c < N ? scale[(size_t)g * N + n + c] : 0.f;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      acc[m][c] += part[m][c] * sc;
-      part[m][c] = 0.f;
-    }
+  for (int m = 0; m < MT; ++m) {
+    part[m][c0] = fmaf(xv[m].y, d1, fmaf(xv[m].x, d0, part[m][c0]));
+    part[m][c0 + 1] = fmaf(xv[m].w, d3, fmaf(xv[m].z, d2, part[m][c0 + 1]));
+    part[m][c0 + 2] = fmaf(xv[m].y, d5, fmaf(xv[m].x, d4, part[m][c0 + 2]));
+    part[m][c0 + 3] = fmaf(xv[m].w, d7, fmaf(xv[m].z, d6, part[m][c0 + 3]));
   }
 }
 
-// Block (blockIdx.x, blockIdx.y) = (128-column tile, split of the packed
-// rows). Each of the 32 slices takes a contiguous run of the split's rows
-// and keeps one partial per group, folded with the group's scale when the
-// run leaves the group. Slices are summed through warp shuffles and shared
-// memory; with several splits each block writes its f32 partial to `ws` and
-// the last block of a column tile to arrive (atomic counter, reset after
-// use) sums the splits in order, so the result does not depend on timing.
+// 2^e as a float, -126 <= e <= 127
+__device__ __forceinline__ float gv_exp2(int e) { return __int_as_float((e + 127) << 23); }
+
+// acc += (sum over the rows so far of x·q) · scale, and part, xsum = 0: the
+// rows' x·n sum is part · 2^(149 - k) (two exact scalings), less 8 times
+// their x sum, in one rounding.
+template <int MT>
+__device__ __forceinline__ void gv_flush(float (&acc)[MT][16], float (&part)[MT][16],
+                                         float (&xsum)[MT], const float (&sc)[16], float unscale) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float corr = -8.f * xsum[m];
+#pragma unroll
+    for (int cc = 0; cc < 16; ++cc) {
+      acc[m][cc] += fmaf(part[m][cc] * 18446744073709551616.f, unscale, corr) * sc[cc];
+      part[m][cc] = 0.f;
+    }
+    xsum[m] = 0.f;
+  }
+}
+
+// x / d for 0 <= x < 2^31 by a multiply and a shift (no division, so no
+// int->float conversion); `gv_divisor` finds mul and shr on the host.
+struct GvDiv {
+  int d;
+  uint32_t mul, shr;
+  __device__ __forceinline__ int div(int x) const {
+    return d == 1 ? x : (int)(__umulhi((uint32_t)x, mul) >> shr);
+  }
+};
+
+GvDiv gv_divisor(int d) {
+  GvDiv r{d, 0u, 0u};
+  if (d > 1) {
+    int log2d = 0;  // ceil(log2(d))
+    while ((1ll << log2d) < d) ++log2d;
+    const int p = 31 + log2d;
+    r.mul = (uint32_t)(((1ull << p) + (uint64_t)d - 1) / (uint64_t)d);
+    r.shr = (uint32_t)(p - 32);
+  }
+  return r;
+}
+
+// The GEMV's operands and its plan, computed on the host. There are
+// units = ceil(N / 256) · n_groups (tile, group) units; CTA c's share is
+// [start(c), start(c + 1)) with start(c) = c · base + min(c, rem), base =
+// units / grid and rem = units % grid: the cut gemv_plan describes.
+struct GemvArgs {
+  const bf16* x;
+  const uint8_t* p;
+  const float* scale;
+  float* ws;
+  int* counters;
+  int M, K, N, n_groups, half, nch, base, rem;
+  GvDiv by_groups, by_half;
+  bool vecw, vecs;
+  __device__ __forceinline__ int start(int c) const { return c * base + min(c, rem); }
+};
+
+// A position in a CTA's share: 256-column tile t, group g, chunk ch.
+struct GvPos {
+  int t, g, ch;
+  __device__ __forceinline__ void next(int nch, int n_groups) {
+    if (++ch == nch) {
+      ch = 0;
+      if (++g == n_groups) {
+        g = 0;
+        ++t;
+      }
+    }
+  }
+};
+
+// Stream-K over (256-column tile, group) units: CTA c takes a contiguous
+// share of the units in tile-major order, so a share spans whole groups of
+// one or more tiles, and the shares differ by at most one unit. Its steps are
+// chunks of those groups: thread (slice sl, column thread ct) takes R
+// consecutive packed rows (R = 8, or 2 at MT = 4) of a chunk at 16 columns,
+// loading the next step's rows into registers while it computes this one's.
+// x is staged per window of packed rows (the rows the share needs in a tile,
+// up to XR): for each row, x_lo and x_hi scaled for gv_word by 2^k, k from
+// the window's largest |x|, and the f32 sum x_lo + x_hi. Each thread folds
+// its group partial with the group's 16 scales (four 16-byte loads, issued
+// before the chunk's products) after the group's last chunk (gv_flush). At a
+// tile's last unit in the share the slices are summed (shuffle, then the 4
+// warps in order through shared memory); a tile whole in the share is
+// stored, a cut one leaves its f32 partial in ws (slot 0 where the share
+// starts in the tile, else 1) and the tile's last CTA to arrive (acq_rel
+// counter, reset after use) sums the partials in CTA order, so the result
+// does not depend on timing.
 template <int MT, typename OutT>
 __global__ void __launch_bounds__(GV_THREADS)
-    int4_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ p,
-                     const float* __restrict__ scale, OutT* __restrict__ y,
-                     float* __restrict__ ws, int* __restrict__ counters, int M, int K,
-                     int N, int n_groups, int rows_per_split, bool vecw) {
-  __shared__ float red[GV_SL / 4][MT][GV_BN];
+    int4_gemv_kernel(const GemvArgs a, OutT* __restrict__ y) {
+  constexpr int R = gv_rows(MT), CHUNK = gv_chunk(MT), XR = gv_xrows(MT);
+  extern __shared__ __align__(16) unsigned char gv_buf[];
+  float4* xs = reinterpret_cast<float4*>(gv_buf);                  // [MT][XR]
+  float* xsums = reinterpret_cast<float*>(gv_buf + 16 * MT * XR);  // [MT][XR]
+  float* red = reinterpret_cast<float*>(gv_buf + GV_XBYTES);
   __shared__ bool is_last;
+  __shared__ unsigned xmax;  // the window's largest |x|, as bits
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ct = tid % GV_CT, sl = tid / GV_CT;
-  const int n = blockIdx.x * GV_BN + ct * 16;
-  const int G = K / n_groups, half = G / 2, rows = K / 2;
-  const int r0 = blockIdx.y * rows_per_split, r1 = min(rows, r0 + rows_per_split);
-  const int per = (r1 - r0 + GV_SL - 1) / GV_SL;
-  const int s0 = min(r1, r0 + sl * per), s1 = min(r1, s0 + per);
+  const int c = blockIdx.x, ng = a.n_groups, half = a.half, N = a.N;
+  const int u0 = a.start(c), u1 = a.start(c + 1);
+  const int steps = (u1 - u0) * a.nch;
+  // launched with programmatic stream serialization: the CTAs may be resident
+  // before the previous kernel in the stream ends; nothing is read before it has
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
 
-  float acc[MT][16], part[MT][16];
+  const int t0 = a.by_groups.div(u0);
+  GvPos ld{t0, u0 - t0 * ng, 0}, cu = ld;
+  auto fetch = [&](uint4 (&w)[R]) {  // the weight rows of step ld, then advance ld
+    const int n = ld.t * GV_TN + ct * 16, l0 = ld.ch * CHUNK + sl * R;
+    const uint8_t* src = a.p + ((size_t)ld.g * half + l0) * N + n;
+    if (a.vecw && n + 16 <= N && l0 + R <= half) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+      for (int j = 0; j < R; ++j) w[j] = ld_stream(src + (size_t)j * N, policy);
+    } else {  // element loads; nibble 8 (q = 0) past N and past the group
 #pragma unroll
-    for (int c = 0; c < 16; ++c) acc[m][c] = part[m][c] = 0.f;
+      for (int j = 0; j < R; ++j) {
+        uint32_t e[4] = {0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u};
+        if (l0 + j < half) {
+#pragma unroll
+          for (int cc = 0; cc < 16; ++cc)
+            if (n + cc < N)
+              e[cc >> 2] = (e[cc >> 2] & ~(0xFFu << (8 * (cc & 3)))) |
+                           (uint32_t)src[(size_t)j * N + cc] << (8 * (cc & 3));
+        }
+        w[j] = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+    ld.next(a.nch, ng);
+  };
 
-  int g = s0 / half;
+  float acc[MT][16], part[MT][16], xsum[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    xsum[m] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[m][j] = part[m][j] = 0.f;
+  }
+  float unscale = 1.f;  // 2^(85 - k) of the staged window
+  uint4 cur[R], nxt[R];
+  if (steps > 0) fetch(cur);
+  int xw0 = -2 * XR;  // x is staged for packed rows [xw0, xw0 + XR)
+
+  // the tile's sum over the slices, stored where the share holds the tile
+  // whole, else left in ws for the tile's last CTA to arrive, which sums
+  // the partials in CTA order (uniform: every thread calls it)
+  auto finish = [&](int t) {
+    const int first = t * ng;
+    const bool whole = first >= u0 && first + ng <= u1;
+    // slices 2·warp and 2·warp + 1 by shuffle, then the warps in order
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int cc = 0; cc < 16; ++cc) {
+        const float v = acc[m][cc] + __shfl_xor_sync(0xffffffffu, acc[m][cc], 16);
+        if (lane < 16) red[(warp * MT + m) * GV_TN + cc * GV_CT + ct] = v;
+        acc[m][cc] = 0.f;
+      }
+    __syncthreads();
+    const int mine = 2 * c + (u0 >= first ? 0 : 1);  // this share's ws slot
+    for (int o = tid; o < MT * GV_TN; o += GV_THREADS) {
+      const int m = o / GV_TN, col = o % GV_TN, gn = t * GV_TN + col;
+      if (m >= a.M || gn >= N) continue;
+      const int at = (col % 16) * GV_CT + col / 16;
+      float sum = 0.f;
+#pragma unroll
+      for (int w2 = 0; w2 < GV_WARPS; ++w2) sum += red[(w2 * MT + m) * GV_TN + at];
+      if (whole)
+        store_out(y + (size_t)m * N + gn, sum);
+      else
+        a.ws[((size_t)mine * MT + m) * GV_TN + col] = sum;
+    }
+    if (!whole) {
+      int c_first = c, c_last = c;  // the CTAs whose shares meet the tile
+      while (a.start(c_first) > first) --c_first;
+      while (a.start(c_last + 1) < first + ng) ++c_last;
+      // the barrier orders every thread's partial before thread 0's
+      // release, and its acquire before the partials' reads
+      __syncthreads();
+      if (tid == 0) {
+        int arrived;
+        asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;"
+                     : "=r"(arrived) : "l"(a.counters + t) : "memory");
+        is_last = arrived == c_last - c_first;
+      }
+      __syncthreads();
+      if (is_last) {
+        const int first_slot = 2 * c_first + (a.start(c_first) >= first ? 0 : 1);
+        for (int o = tid; o < MT * GV_TN; o += GV_THREADS) {
+          const int m = o / GV_TN, col = o % GV_TN, gn = t * GV_TN + col;
+          if (m >= a.M || gn >= N) continue;
+          float sum = __ldcg(&a.ws[((size_t)first_slot * MT + m) * GV_TN + col]);
 #pragma unroll 4
-  for (int r = s0; r < s1; ++r) {
-    const int gr = r / half;
-    if (gr != g) {
-      fold<MT>(acc, part, scale, g, N, n);
-      g = gr;
-    }
-    uint32_t w[4];
-    if (vecw && n + 16 <= N) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + (size_t)r * N + n));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = 0x88888888u;  // nibble 8: q = 0
-      for (int c = 0; c < 16 && n + c < N; ++c) {
-        w[c >> 2] &= ~(0xFFu << (8 * (c & 3)));
-        w[c >> 2] |= (uint32_t)p[(size_t)r * N + n + c] << (8 * (c & 3));
+          for (int c2 = c_first + 1; c2 <= c_last; ++c2)  // shares starting in the tile
+            sum += __ldcg(&a.ws[((size_t)2 * c2 * MT + m) * GV_TN + col]);
+          store_out(y + (size_t)m * N + gn, sum);
+        }
+        if (tid == 0) a.counters[t] = 0;
       }
     }
-    const int klo = g * G + (r - g * half), khi = klo + half;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m >= M) break;
-      const float xl = __bfloat162float(x[(size_t)m * K + klo]);
-      const float xh = __bfloat162float(x[(size_t)m * K + khi]);
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const uint32_t b = w[c >> 2] >> (8 * (c & 3));
-        const float lo = (float)((int)(b & 15u) - 8), hi = (float)((int)((b >> 4) & 15u) - 8);
-        part[m][c] = fmaf(xh, hi, fmaf(xl, lo, part[m][c]));
-      }
-    }
-  }
-  if (s0 < s1) fold<MT>(acc, part, scale, g, N, n);
+    __syncthreads();  // red is free for the next tile
+  };
 
-  // the 4 slices of a warp (lanes ct, ct+8, ct+16, ct+24), then the 8 warps
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) fetch(nxt);
+    const int n = cu.t * GV_TN + ct * 16, l0 = cu.ch * CHUNK + sl * R;
+    const bool fold = cu.ch == a.nch - 1;  // the group's last chunk
+    const int r_a = cu.g * half + cu.ch * CHUNK;
+    const int r_b = cu.g * half + min(half, (cu.ch + 1) * CHUNK);
+    const bool restage = r_a < xw0 || r_b > xw0 + XR;  // the chunk leaves the window
+    float sc[16];
+    if (fold || (restage && cu.ch > 0)) {
+      const float* srow = a.scale + (size_t)cu.g * N + n;
+      if (a.vecs && n + 16 <= N) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(srow) + q);
+          sc[4 * q] = v.x;
+          sc[4 * q + 1] = v.y;
+          sc[4 * q + 2] = v.z;
+          sc[4 * q + 3] = v.w;
+        }
+      } else {
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < GV_CT) red[warp][m][ct * 16 + c] = v;
+        for (int cc = 0; cc < 16; ++cc) sc[cc] = n + cc < N ? __ldg(srow + cc) : 0.f;
+      }
     }
-  __syncthreads();
-  const int splits = gridDim.y;
-  for (int o = tid; o < MT * GV_BN; o += GV_THREADS) {
-    const int m = o / GV_BN, col = o % GV_BN, gn = blockIdx.x * GV_BN + col;
-    if (m >= M || gn >= N) continue;
-    float sum = 0.f;
+    if (restage) {
+      // a group wider than the window: its rows so far go with this window's k
+      if (cu.ch > 0) gv_flush<MT>(acc, part, xsum, sc, unscale);
+      // stage the rows the share still needs in this tile, up to XR, eight
+      // rows per thread in flight at a time: first x as f32 and the window's
+      // largest |x|, then k = 125 - its exponent (at most 149), and x scaled
+      if (tid == 0) xmax = 0u;
+      __syncthreads();
+      xw0 = r_a;
+      const int len = min(XR, (min(u1, (cu.t + 1) * ng) - cu.t * ng) * half - r_a);
+      unsigned big = 0u;
+      for (int r0 = 0; r0 < len; r0 += 8 * GV_THREADS) {
+        __nv_bfloat16 v[MT][8][2];
 #pragma unroll
-    for (int w2 = 0; w2 < GV_SL / 4; ++w2) sum += red[w2][m][col];
-    if (splits == 1)
-      store_out(y + (size_t)m * N + gn, sum);
-    else
-      ws[((size_t)blockIdx.y * M + m) * N + gn] = sum;
+        for (int i = 0; i < 8; ++i) {
+          const int r = r0 + i * GV_THREADS + tid, pr = r_a + r;
+          const int k = pr + a.by_half.div(pr) * half;  // its low row
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const bool in = r < len && m < a.M;
+            v[m][i][0] = in ? a.x[(size_t)m * a.K + k] : __float2bfloat16(0.f);
+            v[m][i][1] = in ? a.x[(size_t)m * a.K + k + half] : __float2bfloat16(0.f);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = r0 + i * GV_THREADS + tid;
+          if (r < len)
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              const float lo = __bfloat162float(v[m][i][0]), hi = __bfloat162float(v[m][i][1]);
+              big = max(big, max(__float_as_uint(fabsf(lo)), __float_as_uint(fabsf(hi))));
+              xs[m * XR + r] = make_float4(lo, hi, 0.f, 0.f);
+              xsums[m * XR + r] = lo + hi;
+            }
+        }
+      }
+      big = __reduce_max_sync(0xffffffffu, big);
+      if (lane == 0) atomicMax(&xmax, big);
+      __syncthreads();
+      const int e = (int)(xmax >> 23) - 127;  // -127 for a zero or subnormal largest |x|
+      const int k = min(149, 125 - e);
+      const float up = gv_exp2(k - 64), up64 = 18446744073709551616.f;
+      unscale = gv_exp2(85 - k);
+      for (int r = tid; r < len; r += GV_THREADS)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float4 f = xs[m * XR + r];
+          const float lo = f.x * up * up64, hi = f.y * up * up64;
+          xs[m * XR + r] = make_float4(lo, hi * 0.0625f, lo * 0.00390625f, hi * 0.000244140625f);
+        }
+      __syncthreads();
+    }
+    const float4* xrow = xs + (cu.g * half + l0 - xw0);
+    const float* srow_x = xsums + (cu.g * half + l0 - xw0);
+    const int rows = min(R, half - l0);  // R but in a group's last rows
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j >= rows) break;
+      float4 xv[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        xv[m] = xrow[m * XR + j];
+        xsum[m] += srow_x[m * XR + j];
+      }
+      gv_word<MT>(part, 0, cur[j].x, xv);
+      gv_word<MT>(part, 4, cur[j].y, xv);
+      gv_word<MT>(part, 8, cur[j].z, xv);
+      gv_word<MT>(part, 12, cur[j].w, xv);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) cur[j] = nxt[j];
+    if (fold) {  // acc += (the group's x·q sum) * scale[g]
+      gv_flush<MT>(acc, part, xsum, sc, unscale);
+      if (cu.g == ng - 1 || s == steps - 1) {  // the tile's last unit in the share
+        finish(cu.t);
+      }
+    }
+    cu.next(a.nch, ng);
   }
-  if (splits == 1) return;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int o = tid; o < MT * GV_BN; o += GV_THREADS) {
-    const int m = o / GV_BN, col = o % GV_BN, gn = blockIdx.x * GV_BN + col;
-    if (m >= M || gn >= N) continue;
-    float sum = 0.f;
-    for (int k2 = 0; k2 < splits; ++k2) sum += __ldcg(&ws[((size_t)k2 * M + m) * N + gn]);
-    store_out(y + (size_t)m * N + gn, sum);
-  }
-  if (tid == 0) counters[blockIdx.x] = 0;
+}
+
+template <int MT, typename OutT>
+int gemv_launch(GemvArgs a, OutT* y, int grid, cudaStream_t s) {
+  const long long units = (long long)a.base * grid + a.rem;
+  a.nch = (a.half + gv_chunk(MT) - 1) / gv_chunk(MT);
+  if (units * a.nch > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // programmatic stream serialization lets the CTAs be launched while the
+  // previous kernel drains (the kernel waits for it before any read)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(GV_THREADS);
+  cfg.dynamicSmemBytes = gv_smem(MT);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err2 = cudaLaunchKernelEx(&cfg, int4_gemv_kernel<MT, OutT>, a, y);
+  return (int)(err2 != cudaSuccess ? err2 : cudaGetLastError());
+}
+
+template <int MT, typename OutT>
+int gemv_resident(int* ctas) {
+  int per_sm = 0, dev = 0, sms = 0;
+  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, int4_gemv_kernel<MT, OutT>, GV_THREADS, gv_smem(MT));
+  if (err == 0) err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *ctas = per_sm * sms;
+  return err;
 }
 
 template <typename OutT>
 int launch(const bf16* x, const uint8_t* p, const float* scale, OutT* y, float* ws,
-           int* counters, int M, int K, int N, int n_groups, int splits, cudaStream_t s) {
+           int* counters, int M, int K, int N, int n_groups, int grid, cudaStream_t s) {
   const int G = K / n_groups;
   if (M <= GV_MAX_M) {
-    if (splits < 1 || splits > 65535 || (splits > 1 && (ws == nullptr || counters == nullptr)))
+    const long long units = (long long)((N + GV_TN - 1) / GV_TN) * n_groups;
+    if (grid < 1 || grid > units || ws == nullptr || counters == nullptr)
       return (int)cudaErrorInvalidValue;
-    const bool vecw = N % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-    const int rows = K / 2, rows_per_split = (rows + splits - 1) / splits;
-    const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
-    if (M == 1)
-      int4_gemv_kernel<1, OutT><<<grid, GV_THREADS, 0, s>>>(
-          x, p, scale, y, ws, counters, M, K, N, n_groups, rows_per_split, vecw);
-    else if (M == 2)
-      int4_gemv_kernel<2, OutT><<<grid, GV_THREADS, 0, s>>>(
-          x, p, scale, y, ws, counters, M, K, N, n_groups, rows_per_split, vecw);
-    else
-      int4_gemv_kernel<4, OutT><<<grid, GV_THREADS, 0, s>>>(
-          x, p, scale, y, ws, counters, M, K, N, n_groups, rows_per_split, vecw);
-  } else {
-    const bool vecx = K % 8 == 0 && (G / 2) % 8 == 0 &&
-                      (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    const bool vecw = N % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 7) == 0;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    int4_mm_kernel<OutT><<<grid, THREADS, 0, s>>>(x, p, scale, y, M, K, N, n_groups, vecx, vecw);
+    GemvArgs a{x, p, scale, ws, counters, M, K, N, n_groups, G / 2, 0,
+               (int)(units / grid), (int)(units % grid), gv_divisor(n_groups),
+               gv_divisor(G / 2),
+               N % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0,
+               N % 4 == 0 && (reinterpret_cast<uintptr_t>(scale) & 15) == 0};
+    if (M == 1) return gemv_launch<1, OutT>(a, y, grid, s);
+    if (M == 2) return gemv_launch<2, OutT>(a, y, grid, s);
+    return gemv_launch<4, OutT>(a, y, grid, s);
   }
+  const bool vecx = K % 8 == 0 && (G / 2) % 8 == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vecw = N % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+  const dim3 grid2((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (grid2.y > 65535) return (int)cudaErrorInvalidValue;
+  int4_mm_kernel<OutT><<<grid2, THREADS, 0, s>>>(x, p, scale, y, M, K, N, n_groups, vecx, vecw);
   return (int)cudaGetLastError();
 }
 
@@ -427,13 +711,14 @@ extern "C" {
 
 // out_dtype: 0 = float32, 1 = bfloat16 (y). x (M, K) bf16, packed (K/2, N)
 // uint8, scale (n_groups, N) f32 and y (M, N) are contiguous row-major; K is
-// even and a multiple of n_groups with an even group size. For M <= 4 the
-// packed rows are cut into `splits` parts; with splits > 1, ws holds
-// splits * M * N f32 and counters ceil(N / 128) int32 zeros (left zero).
-// Returns the cudaError_t of the launch (0 = launched).
+// even and a multiple of n_groups with an even group size. For M <= 4, `grid`
+// CTAs (1 .. ceil(N / 256) · n_groups) share the (tile, group) units; ws
+// holds grid · 2 · MT · 256 f32 (MT = 1, 2, 4 for M = 1, 2, 3-4) and counters
+// ceil(N / 256) int32 zeros (left zero). Returns the cudaError_t of the
+// launch (0 = launched).
 int int4_matmul_launch(int out_dtype, const void* x, const void* packed,
                        const void* scale, void* y, int M, int K, int N,
-                       int n_groups, int splits, void* ws, void* counters,
+                       int n_groups, int grid, void* ws, void* counters,
                        void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || n_groups <= 0 || K % n_groups != 0 ||
       (K / n_groups) % 2 != 0)
@@ -445,10 +730,24 @@ int int4_matmul_launch(int out_dtype, const void* x, const void* packed,
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (out_dtype == 1)
-    return launch(xb, p, sc, static_cast<bf16*>(y), w, cnt, M, K, N, n_groups, splits, s);
+    return launch(xb, p, sc, static_cast<bf16*>(y), w, cnt, M, K, N, n_groups, grid, s);
   if (out_dtype == 0)
-    return launch(xb, p, sc, static_cast<float*>(y), w, cnt, M, K, N, n_groups, splits, s);
+    return launch(xb, p, sc, static_cast<float*>(y), w, cnt, M, K, N, n_groups, grid, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The GEMV form's CTAs resident on the current card at once (the occupancy
+// calls) for x of `m` rows and out_dtype as above; -1 on an error.
+int int4_gemv_resident_ctas(int out_dtype, int m) {
+  int ctas = 0, err;
+  if (m <= 0 || m > GV_MAX_M || out_dtype < 0 || out_dtype > 1) return -1;
+  if (out_dtype == 1)
+    err = m == 1 ? gemv_resident<1, bf16>(&ctas)
+                 : m == 2 ? gemv_resident<2, bf16>(&ctas) : gemv_resident<4, bf16>(&ctas);
+  else
+    err = m == 1 ? gemv_resident<1, float>(&ctas)
+                 : m == 2 ? gemv_resident<2, float>(&ctas) : gemv_resident<4, float>(&ctas);
+  return err == 0 ? ctas : -1;
 }
 
 }  // extern "C"

@@ -219,16 +219,20 @@ def _weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
     (zeros past C, Cout and 9·pc), in 64-deep atoms of 48 rows, each row's
     16-byte pieces swizzled as ``wgmma`` reads them (piece q of row n at q
     XOR n mod 8). Kept on ``w`` until w changes (its data pointer or
-    ``_version``) or the plan does, so a layer's weight is laid out once."""
-    key = (w.data_ptr(), w._version, plan.groups * plan.cluster, plan.nchunks, plan.pc)
-    cached = getattr(w, "_k5_layout", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
+    ``_version``) or the plan does, so a layer's weight is laid out once.
+    An inference tensor has no ``_version`` and may change in place inside
+    ``torch.inference_mode()`` unseen, so its layout is made anew on every
+    call."""
     cout, c = w.shape[:2]
     nb, kp = plan.groups * plan.cluster, _kp(plan.pc)
+    key = None if w.is_inference() else (w.data_ptr(), w._version, nb, plan.nchunks, plan.pc)
+    cached = getattr(w, "_k5_layout", None)
+    if key is not None and cached is not None and cached[0] == key:
+        return cached[1]
     with torch.no_grad():
         out = _pack(w, nb, kp, plan.nchunks, plan.pc, cout, c)
-    w._k5_layout = (key, out)
+    if key is not None:
+        w._k5_layout = (key, out)
     return out
 
 
@@ -265,11 +269,11 @@ def build_info() -> _build.BuildInfo:
 
 
 def conv3x3_reference(x, w, bias=None, act: str = "none", dilation: int = 1) -> torch.Tensor:
-    """Plain version of ``conv3x3_nchw``: the f32 convolution of x and w as
-    given, plus the f32 bias, then SiLU, cast to x's dtype."""
+    """Plain version of ``conv3x3_nchw``: the f32 convolution of x and w
+    cast to x's dtype, plus the f32 bias, then SiLU, cast to x's dtype."""
     if act not in _ACTS:
         raise ValueError(f"act must be 'none' or 'silu', not {act!r}")
-    out = F.conv2d(x.float(), w.float(), padding=dilation, dilation=dilation)
+    out = F.conv2d(x.float(), w.to(x.dtype).float(), padding=dilation, dilation=dilation)
     if bias is not None:
         out = out + bias.float().reshape(1, -1, 1, 1)
     if act == "silu":
@@ -341,7 +345,7 @@ def _launch(x, w, bias, act, stride, pad, dilation, out_hw) -> torch.Tensor:
 
 def conv3x3_nchw(
     x: torch.Tensor,  # (N, C, H, W)
-    w: torch.Tensor,  # (Cout, C, 3, 3)
+    w: torch.Tensor,  # (Cout, C, 3, 3), cast to x's dtype
     bias=None,  # (Cout,) f32
     *,
     act: str = "none",  # "none" | "silu"
@@ -355,7 +359,7 @@ def conv3x3_nchw(
         raise ValueError(f"dilation {dilation}")
     if x.device.type == "cpu":
         return conv3x3_reference(x, w, bias, act, dilation)
-    out = _launch(x, w, bias, act, 1, dilation, dilation, x.shape[2:])
+    out = _launch(x, w.to(x.dtype), bias, act, 1, dilation, dilation, x.shape[2:])
     conv3x3_nchw.launches += 1
     return out
 

@@ -13,7 +13,9 @@ Port of ``multimodal_embeddings_tpu/kernels/quantization_int4.py``:
   (``_mm4_kernel``) with a hand-written CUDA kernel, ``csrc/int4_matmul.cu``:
   per group, ``part = bf16(x_g) · q_g`` summed in f32, then
   ``acc += part · scale[g]``; one cast to x's type at the end. **x is rounded
-  to bf16 even when it is f32**, as in the TPU kernel;
+  to bf16 even when it is f32**, as in the TPU kernel. For M <= 4 the kernel
+  is a GEMV whose (256-column tile, group) units ``gemv_plan`` cuts into
+  equal contiguous shares over the CTAs the card holds at once;
 * ``int4_apply``: a packed 2-D weight applied to the last axis of x.
 
 The plain version follows the kernel's rounding, not the JAX package's CPU
@@ -35,14 +37,16 @@ from multimodal_embeddings_tpu_torch.kernels import _build
 
 _SOURCE = "int4_matmul"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the GEMV form (M <= 4): 128 output columns per block; below this many
-# column tiles the packed rows are split over blocks as well, so that every
-# SM has two blocks' loads in flight
+# the GEMV form (M <= 4): 256 output columns per tile; its work is
+# (tile, group) units, and a CTA takes at least this many where the units
+# are too few to give every resident CTA as many: each CTA has a fixed cost
+# (filling its loads, staging x, summing its tiles), and of 1, 2, 4, 8 and
+# 16, 4 gives the shortest decode step (scripts/torch_k3_gemv_probe.py)
 _GEMV_MAX_M = 4
-_GEMV_COLS = 128
-_GEMV_MIN_BLOCKS = 264
-_GEMV_MIN_ROWS_PER_SPLIT = 256
-_counters: dict = {}
+_GEMV_COLS = 256
+_GEMV_MIN_UNITS = 4
+# (kind, device, stream) -> the GEMV's workspace and arrival counters
+_scratch: dict = {}
 
 
 class Q4Tensor(NamedTuple):
@@ -104,6 +108,8 @@ def _lib():
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     )
     lib.int4_matmul_launch.restype = ctypes.c_int
+    lib.int4_gemv_resident_ctas.argtypes = [ctypes.c_int] * 2
+    lib.int4_gemv_resident_ctas.restype = ctypes.c_int
     return lib
 
 
@@ -113,21 +119,92 @@ def build_info() -> _build.BuildInfo:
     return _build.load(_SOURCE)[1]
 
 
-def gemv_splits(k: int, n: int) -> int:
-    """How many parts the GEMV form cuts the K/2 packed rows into."""
+class GemvPlan(NamedTuple):
+    """How the GEMV form (M <= 4) cuts its work: ``tiles`` 256-column tiles
+    × ``n_groups`` groups make ``units`` (tile, group) units in tile-major
+    order, and CTA c of ``grid`` takes the contiguous share ``share(c)``."""
+
+    mt: int  # rows of x the kernel holds: 1, 2 or 4
+    tiles: int
+    n_groups: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.n_groups
+
+    def share(self, c: int) -> tuple:
+        """CTA c's units ``[start(c), start(c + 1))``, as the kernel cuts
+        them: ``start(c) = c·base + min(c, rem)`` with ``base, rem =
+        divmod(units, grid)``, so the first ``rem`` shares hold one unit
+        more."""
+        base, rem = divmod(self.units, self.grid)
+        return c * base + min(c, rem), (c + 1) * base + min(c + 1, rem)
+
+    def cut_tiles(self) -> int:
+        """Tiles whose units more than one CTA shares."""
+        owners = [set() for _ in range(self.tiles)]
+        for c in range(self.grid):
+            u0, u1 = self.share(c)
+            for t in range(u0 // self.n_groups, -(-u1 // self.n_groups)):
+                owners[t].add(c)
+        return sum(len(o) > 1 for o in owners)
+
+
+def _gemv_mt(m: int) -> int:
+    return 1 if m == 1 else 2 if m == 2 else 4
+
+
+@functools.lru_cache(maxsize=256)
+def gemv_plan(m: int, k: int, n: int, n_groups: int, ctas: int) -> GemvPlan:
+    """The GEMV form's plan for an (m, k) x and a (k/2, n) weight in
+    ``n_groups`` groups, on a card that holds ``ctas`` of its CTAs at once:
+    one CTA per resident slot, each with an equal contiguous share of the
+    units (shares differ by at most one unit), but at least
+    ``_GEMV_MIN_UNITS`` units per CTA where the units are few, and never
+    more CTAs than units."""
+    if not 1 <= m <= _GEMV_MAX_M or ctas < 1:
+        raise ValueError(f"the GEMV form takes 1 <= m <= {_GEMV_MAX_M} rows on >= 1 CTA")
     tiles = -(-n // _GEMV_COLS)
-    if tiles >= _GEMV_MIN_BLOCKS:
-        return 1
-    return max(1, min(-(-_GEMV_MIN_BLOCKS // tiles), (k // 2) // _GEMV_MIN_ROWS_PER_SPLIT))
+    units = tiles * n_groups
+    grid = max(1, min(ctas, -(-units // _GEMV_MIN_UNITS)))
+    return GemvPlan(_gemv_mt(m), tiles, n_groups, grid)
 
 
-def _split_counters(device, n: int) -> torch.Tensor:
-    """Zeroed int32 arrival counters of the split GEMV, one per column tile,
-    kept per device (the kernel leaves them zero)."""
-    t = _counters.get(device)
-    if t is None or t.numel() < n:
-        t = _counters[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-    return t
+@functools.cache
+def _gemv_ctas(device_index: int, out_code: int, mt: int) -> int:
+    """CTAs of the GEMV form the card holds at once (the occupancy calls)."""
+    with torch.cuda.device(device_index):
+        got = _lib().int4_gemv_resident_ctas(out_code, mt)
+    if got < 1:
+        raise RuntimeError(f"int4 GEMV occupancy query failed ({got})")
+    return got
+
+
+def plan_for(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> GemvPlan:
+    """The plan a GEMV launch on these CUDA operands takes."""
+    m, k = x.shape
+    mt = _gemv_mt(m)
+    ctas = _gemv_ctas(x.device.index, _DTYPE_CODES[x.dtype], mt)
+    return gemv_plan(m, k, packed.shape[1], scale.shape[0], ctas)
+
+
+def _gemv_scratch(device, stream: int, plan: GemvPlan):
+    """The workspace (grid · 2 · mt · 256 f32: each CTA's partials of its
+    first and last tile) and the zeroed int32 arrival counters, one per
+    tile, kept per (device, stream) and grown as needed (the kernel leaves
+    the counters zero): launches in one stream run one after another, so
+    they may share them, and launches in two streams never do."""
+    ws = _scratch.get(("ws", device, stream))
+    need = plan.grid * 2 * plan.mt * _GEMV_COLS
+    if ws is None or ws.numel() < need:
+        ws = _scratch["ws", device, stream] = torch.empty(
+            max(need, 2**20), dtype=torch.float32, device=device)
+    counters = _scratch.get(("counters", device, stream))
+    if counters is None or counters.numel() < plan.tiles:
+        counters = _scratch["counters", device, stream] = torch.zeros(
+            max(plan.tiles, 4096), dtype=torch.int32, device=device)
+    return ws, counters
 
 
 def int4_matmul_reference(
@@ -155,7 +232,9 @@ def int4_matmul(
     scale: torch.Tensor,  # (n_groups, N) f32
 ) -> torch.Tensor:
     """``bf16(x) @ dequant(packed, scale)`` in x's dtype, with no bf16 copy
-    of the weight in device memory."""
+    of the weight in device memory. The GEMV form (M <= 4) takes its
+    workspace from a cache per (device, stream), so calls in different
+    streams may overlap."""
     if x.dim() != 2 or packed.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"bad ranks x {x.dim()} packed {packed.dim()} scale {scale.dim()}")
     m, k = x.shape
@@ -176,17 +255,15 @@ def int4_matmul(
     xb = x.to(torch.bfloat16).contiguous()
     packed, scale = packed.contiguous(), scale.contiguous()
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
-    splits = gemv_splits(k, n) if m <= _GEMV_MAX_M else 1
-    ws = counters = None  # the split GEMV's f32 partials and arrival counters
-    if splits > 1:
-        ws = torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
-        counters = _split_counters(x.device, -(-n // _GEMV_COLS))
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    grid, ws, counters = 1, None, None
+    if m <= _GEMV_MAX_M:
+        plan = plan_for(x, packed, scale)
+        grid = plan.grid
+        ws, counters = (t.data_ptr() for t in _gemv_scratch(x.device, stream, plan))
     err = _lib().int4_matmul_launch(
         _DTYPE_CODES[x.dtype], xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-        y.data_ptr(), m, k, n, n_groups, splits,
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), stream,
+        y.data_ptr(), m, k, n, n_groups, grid, ws, counters, stream,
     )
     if err != 0:
         raise RuntimeError(f"int4_matmul launch failed: cudaError {err}")

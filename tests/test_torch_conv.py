@@ -379,6 +379,41 @@ def test_weight_layout(cout, c, nchunks):
     assert k5._weights(w, plan) is not got
 
 
+def test_weight_layout_of_an_inference_tensor():
+    """A weight made under ``torch.inference_mode()`` has no version counter:
+    ``_weights`` still lays it out as ``_pack`` does, and after an in-place
+    change inside inference mode it returns the new layout, not a stale one."""
+    rng = np.random.default_rng(48)
+    with torch.inference_mode():
+        w = torch.from_numpy(rng.normal(size=(48, 48, 3, 3)).astype(np.float32)).bfloat16()
+    assert w.is_inference()
+    plan = _plan_of(2, 48, 20, 36, 48, dilation=2)
+    nb, kp = plan.groups * plan.cluster, k5._kp(plan.pc)
+
+    def packed(t):
+        return k5._pack(t, nb, kp, plan.nchunks, plan.pc, 48, 48)
+
+    assert torch.equal(k5._weights(w, plan), packed(w))
+    with torch.inference_mode():
+        w.mul_(-2)
+        got = k5._weights(w, plan)
+    assert torch.equal(got, packed(w))
+    assert not torch.equal(got, packed(w / -2))
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_bf16_x_casts_an_f32_weight_as_jax_does(dilation):
+    """bf16 x with an f32 weight and SiLU: the stride-1 conv computes with
+    the weight cast to bf16, as JAX's ``w_flat.astype(x.dtype)`` does."""
+    x, k, b = _operands(20 + dilation, 1, 16, 8, 16, 16)
+    want = jax_conv(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k), jnp.asarray(b),
+                    act="silu", dilation=dilation, interpret=True)
+    got = k5.conv3x3_nchw(torch.from_numpy(x).bfloat16(), torch.from_numpy(k),
+                          torch.from_numpy(b), act="silu", dilation=dilation)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
 def test_non_cuda_device_raises_without_counting():
     """A tensor on neither the CPU nor a CUDA device raises before any
     launch, in both wrappers, and neither counter moves."""

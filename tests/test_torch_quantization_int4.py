@@ -149,6 +149,68 @@ def test_launch_counter_and_dispatch():
         tq4.int4_matmul(x, p, torch.ones(3, 16))
 
 
+# (M, K, N, n_groups) of the GEMV form: the Qwen2.5-VL-32B decode shapes and
+# the chip check's GEMV edge cases
+GEMV_SHAPES = {
+    "q,o": (1, 5120, 5120, 40), "k,v": (1, 5120, 1024, 40),
+    "gate,up": (1, 5120, 27648, 40), "down": (1, 27648, 5120, 216),
+    "lm_head": (1, 5120, 152064, 40),
+    "M 2": (2, 5120, 1024, 40), "M 3": (3, 5120, 1024, 40), "M 4": (4, 5120, 1024, 40),
+    "N 1030": (1, 5120, 1030, 40), "N 40": (3, 2048, 40, 16),
+    "one group of 100 rows": (2, 200, 520, 1), "shares cross tiles": (1, 16384, 16384, 128),
+    "K 8": (1, 8, 16, 1), "element loads": (4, 1024, 768, 8),
+    "group wider than the x window M 4": (4, 2048, 520, 1),
+    "group wider than the x window M 2": (2, 4096, 256, 1),
+    "groups wider than the x window M 1": (1, 8192, 300, 2),
+    "wide groups, tiles cut": (1, 20480, 300, 5),
+}
+
+
+@pytest.mark.parametrize("ctas", [264, 132, 7])
+@pytest.mark.parametrize("name", list(GEMV_SHAPES))
+def test_gemv_plan_covers_every_tile_row_once(name, ctas):
+    """The shares of ``gemv_plan`` cover every (256-column tile, packed row)
+    exactly once; each starts and ends on a group boundary (a tile edge is
+    one); no share is empty; the grid never exceeds the CTAs asked for; the
+    shares differ by at most one unit."""
+    m, k, n, n_groups = GEMV_SHAPES[name]
+    plan = tq4.gemv_plan(m, k, n, n_groups, ctas)
+    assert plan.mt == (1 if m == 1 else 2 if m == 2 else 4)
+    assert plan.tiles == -(-n // 256) and plan.n_groups == n_groups
+    assert 1 <= plan.grid <= min(ctas, plan.units)
+    half = k // n_groups // 2
+    covered = np.zeros((plan.tiles, k // 2), np.int32)
+    sizes = []
+    for c in range(plan.grid):
+        u0, u1 = plan.share(c)
+        assert u1 > u0
+        sizes.append(u1 - u0)
+        for u in range(u0, u1):
+            t, g = divmod(u, n_groups)
+            covered[t, g * half:(g + 1) * half] += 1
+    assert (covered == 1).all()
+    assert plan.share(0)[0] == 0 and plan.share(plan.grid - 1)[1] == plan.units
+    assert max(sizes) - min(sizes) <= 1
+    if plan.grid < ctas:  # few units: at least _GEMV_MIN_UNITS per CTA where possible
+        assert plan.grid == max(1, -(-plan.units // tq4._GEMV_MIN_UNITS))
+
+
+def test_gemv_plan_cut_tiles_and_checks():
+    """A tile is cut when more than one CTA shares it; the plan refuses more
+    than 4 rows and a grid of no CTA."""
+    whole = tq4.GemvPlan(1, 4, 10, 2)  # 40 units, 20 per CTA: tiles 0-1 and 2-3
+    assert whole.cut_tiles() == 0
+    cut = tq4.GemvPlan(1, 4, 10, 3)  # 14, 13, 13 units: tiles 1 and 2 are cut
+    assert [cut.share(c) for c in range(3)] == [(0, 14), (14, 27), (27, 40)]
+    assert cut.cut_tiles() == 2
+    # the chip check's wide-group edge: 6 units, 2 per CTA, both tiles cut
+    assert tq4.gemv_plan(*GEMV_SHAPES["wide groups, tiles cut"], 264).cut_tiles() == 2
+    with pytest.raises(ValueError):
+        tq4.gemv_plan(5, 256, 256, 2, 264)
+    with pytest.raises(ValueError):
+        tq4.gemv_plan(1, 256, 256, 2, 0)
+
+
 def _int4_flat(module, x, seed):
     flat = traverse_util.flatten_dict(unbox(module.init(jax.random.PRNGKey(0), x)), sep="/")
     rng = _rng(seed)
