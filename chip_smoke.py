@@ -116,9 +116,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of 100 packed rows, shares crossing tiles, K = 8, a ``packed`` 8 bytes
     off 16-byte alignment, groups wider than the kernel's x window, one with
     tiles cut across CTAs), each GEMV launch's plan printed, two calls
-    EQUAL bit for bit at gate,up and ``lm_head``, and the count of
-    int-to-float conversions (``I2F``/``I2FP``) in the GEMV's machine code
-    (``cuobjdump -sass``, "not available" without the tool);
+    EQUAL bit for bit at decode gate,up, ``lm_head`` and prefill gate,up;
+    the M > 4 wgmma form's edges in bf16 and f32 (M = 5 and 129, N = 48 and
+    1040, G = 64, 256 and one group of 512, more tiles than CTAs) and a
+    ``packed`` 8 bytes off that takes the ``mma.sync`` form; the form each
+    case took, the Python rule held to the launcher's, and all four
+    prefill shapes on the wgmma form; from the machine code
+    (``cuobjdump -sass``, "not available" without the tool) each kernel's
+    int-to-float conversions (``I2F``/``I2FP``, none in the GEMV or the
+    wgmma form) and ``HGMMA`` count (> 0 in the wgmma form), and from
+    ``ptxas`` each kernel's registers and spills (none);
 12. the full-width Qwen2.5-VL-32B int4 page parse at native resolution:
     the model built on the card from seed 0, a 2200×1700 synthetic page
     smart-resized to 1120×868 (4960 patches, a 1535-token prompt); one
@@ -1191,30 +1198,77 @@ K3_GEMV_EDGES = (
 )
 
 
+# (M, K, N, n_groups, byte offset of packed, what) of the wgmma form's edges,
+# and one shape the rule sends to the mma.sync form
+K3_WGMMA_EDGES = (
+    (5, 1024, 256, 8, 0, "M = 5: TMA zero-fills 123 of the tile's rows"),
+    (129, 512, 384, 4, 0, "M = 129: a second M tile of one row"),
+    (200, 1024, 1040, 8, 0, "N = 1040: a last N tile of 16 columns"),
+    (300, 512, 48, 4, 0, "N = 48 < 128"),
+    (64, 640, 256, 10, 0, "G = 64: chunks of 64 rows"),
+    (300, 1024, 256, 4, 0, "G = 256: two chunks per group"),
+    (150, 512, 256, 1, 0, "one group of 512 rows: four chunks"),
+    (1200, 512, 4736, 4, 0, "370 tiles on persistent CTAs"),
+    (64, 1024, 256, 8, 8, "packed 8 bytes off: the mma.sync form"),
+)
+
+
+def _short(name: str) -> str:
+    """A kernel's mangled name cut to its function name and template
+    arguments."""
+    import re
+
+    m = re.search(r"(int4_(?:mm_wgmma|mm|gemv)_kernel)(?:I(.*?)EEv)?", name)
+    if m is None:
+        return name
+    args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16").replace("Li", "")
+    return f"{m.group(1)}<{args.replace('E', ',')}>" if args else m.group(1)
+
+
 def k3_sass(k3) -> None:
-    """Count the int-to-float conversions (``I2F``, ``I2FP``) in the machine
-    code of the built GEMV, read by ``cuobjdump -sass`` (whose whole listing
-    of K3 is written beside the built library, as ``<library>.sass``)."""
+    """For every K3 kernel: ``ptxas``'s registers and spills (from the
+    build's report), and from the machine code (``cuobjdump -sass``, whose
+    whole listing of K3 is written beside the built library, as
+    ``<library>.sass``) the int-to-float conversions (``I2F``, ``I2FP``)
+    and the warpgroup products (``HGMMA``). The GEMV and the wgmma form have
+    no conversion and spill nothing; the wgmma form has HGMMA."""
     import re
     import shutil
 
+    info = k3.build_info()
+    for block in info.log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        spills = f"{spill.group(1)}/{spill.group(2)}" if spill else "?"
+        print(f"  ptxas {_short(name)}: {regs.group(1) if regs else '?'} registers, "
+              f"spill stores/loads {spills} bytes")
+        if "wgmma" in name or "gemv" in name:
+            check(spills == "0/0", f"{_short(name)} spills {spills} bytes")
+    if not info.log:
+        print("  ptxas report: not available (the library was built earlier)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
-        print("GEMV I2F/I2FP count: not available (no cuobjdump)")
+        print("K3 I2F/I2FP and HGMMA counts: not available (no cuobjdump)")
         return
-    lib = k3.build_info().path
-    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
+    proc = subprocess.run([tool, "-sass", str(info.path)], capture_output=True, text=True)
     if proc.returncode != 0:
-        print(f"GEMV I2F/I2FP count: not available (cuobjdump {proc.returncode})")
+        print(f"K3 I2F/I2FP and HGMMA counts: not available (cuobjdump {proc.returncode})")
         return
-    lib.with_suffix(".sass").write_text(proc.stdout)
+    info.path.with_suffix(".sass").write_text(proc.stdout)
+    wgmma_seen = False
     for body in proc.stdout.split("Function : ")[1:]:
         name = body.split(None, 1)[0]
-        if "gemv" not in name:
-            continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
         conv = sum(op in ("I2F", "I2FP") for op in ops)
-        print(f"  {name}: {len(ops)} instructions, I2F/I2FP {conv}")
+        hgmma = sum(op == "HGMMA" for op in ops)
+        print(f"  {_short(name)}: {len(ops)} instructions, I2F/I2FP {conv}, HGMMA {hgmma}")
+        if "wgmma" in name:
+            wgmma_seen = True
+            check(hgmma > 0 and conv == 0, f"{_short(name)}: HGMMA {hgmma}, I2F/I2FP {conv}")
+        elif "gemv" in name:
+            check(conv == 0, f"{_short(name)}: I2F/I2FP {conv}")
+    check(wgmma_seen, "no wgmma-form kernel in K3's machine code")
 
 
 def int4_checks(k3) -> dict:
@@ -1237,6 +1291,8 @@ def int4_checks(k3) -> dict:
 
     def run(name, m, k, n, n_groups, dtype, timed, offset=0, same_bits=False, cut=False):
         x, packed, scale = operands(m, k, n, n_groups, dtype, offset)
+        form, launcher = k3.form_for(x, packed, scale), k3.launcher_form(x, packed, scale)
+        check(form == launcher, f"{name}: the Python rule says {form}, the launcher {launcher}")
         got = k3.int4_matmul(x, packed, scale)
         if same_bits:  # deterministic: a second call gives the same bits
             again = k3.int4_matmul(x, packed, scale)
@@ -1260,14 +1316,16 @@ def int4_checks(k3) -> dict:
         ratio = (err / allowed).max().item()
         check(ratio <= 1.0, f"{name}: error {ratio:.3g}x its bound")
         out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
-               "bound_share": ratio}
+               "bound_share": ratio, "form": form}
         note = ""
         if dtype == torch.bfloat16:
             share = out["mean_abs_err"] / bf16_step(want).mean().item()
             check(share <= K2_MEAN_STEP_SHARE,
                   f"{name}: mean err {share:.3g} of a bf16 step > {K2_MEAN_STEP_SHARE}")
             note = f" mean/step {share:.2e}"
-        line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {out['max_abs_err']:.3e} "
+        line = (f"{name} {str(dtype).split('.')[-1]} [{form}"
+                f"{', bit-equal twice' if same_bits and m > 4 else ''}]: "
+                f"max_abs_err {out['max_abs_err']:.3e} "
                 f"mean_abs_err {out['mean_abs_err']:.3e}{note} err/allowed {ratio:.3f}")
         if timed:
             w = k3.dequantize_int4(k3.Q4Tensor(packed, scale), dtype)
@@ -1310,7 +1368,9 @@ def int4_checks(k3) -> dict:
         for label, (k, n, _) in K3_SHAPES.items():
             name = f"{'decode' if m == 1 else 'prefill'} {label} ({m},{k})x({k},{n})"
             results[name] = run(name, m, k, n, k // 128, torch.bfloat16, timed=True,
-                                same_bits=name == K3_HEADLINE)
+                                same_bits=label == "gate,up")
+            if m > 4:
+                check(results[name]["form"] == "wgmma", f"{name}: took the {results[name]['form']} form")
     name = "decode lm_head (1,5120)x(5120,152064)"
     results[name] = run(name, 1, 5120, 152064, 40, torch.bfloat16, timed=True,
                         same_bits=True)
@@ -1322,6 +1382,12 @@ def int4_checks(k3) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             run(f"ragged ({m},{k})x({k},{n}) {groups} group(s)", m, k, n, groups, dtype,
                 timed=False)
+    for m, k, n, groups, offset, what in K3_WGMMA_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            out = run(f"wgmma edge ({m},{k})x({k},{n}) {groups} group(s) packed +{offset} B: {what}",
+                      m, k, n, groups, dtype, timed=False, offset=offset)
+            check(out["form"] == ("mma_sync" if offset else "wgmma"),
+                  f"wgmma edge {what}: took the {out['form']} form")
     for m, k, n, groups, offset, what in K3_GEMV_EDGES:
         for dtype in (torch.bfloat16, torch.float32):
             run(f"GEMV edge ({m},{k})x({k},{n}) {groups} group(s) packed +{offset} B: {what}",
@@ -2423,6 +2489,10 @@ def main() -> int:
     by_name["ln_matmul"]["layer_norm_then_matmul_ms_context"] = k6_head["ln_then_matmul_ms"]
     by_name["int8_matmul"]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
     by_name["int4_matmul"]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
+    # the M > 4 (wgmma) form at the headline prefill shape, beside the decode headline
+    pre = int4[f"prefill gate,up ({K3_PREFILL_M},5120)x(5120,27648)"]
+    by_name["int4_matmul"]["prefill_gate_up"] = {
+        key: pre[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
     by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
     for name, res in (("encoder_attention_blf", vit), ("encoder_attention", masked[torch.bfloat16])):
         by_name[name]["flash_attention_v1_ms_context"] = res["flash_attention_v1_ms_context"]

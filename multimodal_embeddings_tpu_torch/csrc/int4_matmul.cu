@@ -19,19 +19,42 @@
 // The packed weight is read from device memory as bytes and becomes bf16 only
 // in shared memory or registers, so no bf16 copy of W exists in HBM.
 //
-// Two kernels:
+// Three forms (form_of; kernels/quantization_int4.py::mm_form mirrors it):
 //
-// * M > 4 (prefill): tensor cores, after K2 (csrc/int8_matmul.cu). What
-//   bounds it: at the 32B prefill's M = 1535 rows a product does ~6000 flops
-//   per weight byte, so the tensor cores bound it (95.8 TFLOP per prefill,
-//   96.9 ms at 989 TFLOP/s). 128x128 output tiles of 8 warps (each 64x32),
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate). A k-step takes 16 packed
-//   rows = 32 weight rows, 16 low-nibble and 16 high-nibble rows, with the x
-//   columns of the same 32 rows beside them, so every packed byte is read
-//   once. A two-stage shared-memory ring is filled from registers loaded one
-//   step ahead. Each warp keeps a per-group partial accumulator and folds it
-//   into the output accumulator with the group's scale row after the group's
-//   last k-step.
+// * M > 4 where TMA can describe every operand (G = 64 or G % 128 == 0,
+//   N % 16 == 0, 16-byte-aligned bases; every Qwen2.5-VL-32B prefill
+//   projection): the wgmma form. What bounds it: at the 32B prefill's
+//   M = 1535 rows a product does ~6000 flops per weight byte, so the tensor
+//   cores bound it (95.8 TFLOP per prefill, 96.9 ms at 989 TFLOP/s), and
+//   next the shared memory a chunk of 128 weight rows moves per CTA against
+//   its 1,024 tensor-core cycles: wgmma's reads of x (64 KB) and TMA's
+//   writes (40 KB). Persistent CTAs of 384 threads in clusters of two walk
+//   128 x 128 output tiles. One thread keeps a ring of 5 stages by TMA, a
+//   stage one chunk: x's 128 x 128 bf16 (each CTA of the pair loads half the
+//   rows, multicast into both), the chunk's 64 x 128 packed bytes and the
+//   group's 128 scales. The product is taken transposed, y^T = q^T x^T, so
+//   the weight is wgmma's register operand: each of two consumer warpgroups
+//   turns its 64 columns' nibbles into A fragments (ldmatrix.trans, then per
+//   two values one LOP3 and one bf16x2 FMA: 0x4300 | n is the bf16 128 + n,
+//   less 136 is q, exact, no int-to-float conversion), the next chunk's
+//   while this chunk's wgmma m64n128k16 run against x as the K-major B; a
+//   group's first product starts from zero (scale-d = 0), and after the
+//   group's last the f32 fold acc += part * scale. Measured on the way
+//   (scripts/torch_k3_prefill_probe.py): a dequantising warpgroup writing a
+//   bf16 B tile to shared memory for both consumers (wgmma SS) moved ~168 KB
+//   per chunk; the double-buffered A fragments keep the dequantisation off
+//   the path between two chunks' products; the multicast halves x's L2
+//   reads. Each output is summed by one thread in a fixed order: two calls
+//   give the same bits.
+// * M > 4 otherwise (a G, N or base the rule refuses): the mma.sync form,
+//   after K2 (csrc/int8_matmul.cu). 128x128 output tiles of 8 warps (each
+//   64x32), mma.sync m16n8k16 (bf16 in, f32 accumulate). A k-step takes 16
+//   packed rows = 32 weight rows, 16 low-nibble and 16 high-nibble rows, with
+//   the x columns of the same 32 rows beside them, so every packed byte is
+//   read once. A two-stage shared-memory ring is filled from registers loaded
+//   one step ahead, the nibbles turned into bf16 as above. Each warp keeps a
+//   per-group partial accumulator and folds it into the output accumulator
+//   with the group's scale row after the group's last k-step.
 // * M <= 4 (decode): a GEMV on the CUDA cores. What bounds it: decode reads
 //   every weight byte once per token for 2 flops per weight per row, so HBM
 //   bandwidth bounds it (17.0 GB per 32B decode step: 5.07 ms at 3.35 TB/s),
@@ -48,13 +71,16 @@
 //   A tensor-core GEMV would need the weight laid out again, which the
 //   shared layout above forbids.
 //
-// Ragged M, K and N are zero-filled at the tile edges; vector loads are used
-// where rows are aligned (checked in the launcher) and element loads
-// elsewhere.
+// Ragged M and N: TMA reads rows and columns past the edge as zero in the
+// wgmma form, whose stores are masked; the other two zero-fill their tiles'
+// edges, with vector loads where rows are aligned (checked in the launcher)
+// and element loads elsewhere.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -105,12 +131,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// nibble pair -> two bf16 values (exact: |q| <= 8)
-__device__ __forceinline__ uint32_t nib_pair(uint32_t b0, uint32_t b1, int shift) {
-  const float lo = (float)((int)((b0 >> shift) & 15u) - 8);
-  const float hi = (float)((int)((b1 >> shift) & 15u) - 8);
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// Two nibbles -> bf16x2 (q_a, q_b), q = n - 8, with no int->float
+// conversion: a PRMT puts bytes a and b of w at bytes 0 and 2 (selector
+// 0x4140: bytes 0, 1; 0x4342: bytes 2, 3), a LOP3 keeps their low nibbles n
+// under 0x4300 (the bf16 bits of 128 + n), and one packed bf16x2 FMA
+// subtracts 136 (0xC308), exact. For the high nibbles w is shifted right 4.
+__device__ __forceinline__ uint32_t q_bf16x2(uint32_t t) {  // the low nibbles of bytes 0, 2
+  uint32_t u, r;  // (t & 0x000F000F) | 0x43004300 as one LOP3: the second constant in a register
+  asm("lop3.b32 %0, %1, 0x000F000F, %2, 0xEA;\n" : "=r"(u) : "r"(t), "r"(0x43004300u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(u), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t q_pair(uint32_t w, uint32_t sel) {
+  return q_bf16x2(__byte_perm(w, 0u, sel));
 }
 
 // One k-step's global loads, held in registers until the ring slot is free:
@@ -172,10 +206,10 @@ __device__ __forceinline__ void stage_store(Stage& s, const Fetch& f, int tid) {
   const uint32_t w0 = f.w.x, w1 = f.w.y;  // bytes 0-3, 4-7
   const int row = tid >> 4, col = (tid & 15) * 8;
   // low nibbles -> row, high nibbles -> 16 + row
-  const uint4 lo = make_uint4(nib_pair(w0, w0 >> 8, 0), nib_pair(w0 >> 16, w0 >> 24, 0),
-                              nib_pair(w1, w1 >> 8, 0), nib_pair(w1 >> 16, w1 >> 24, 0));
-  const uint4 hi = make_uint4(nib_pair(w0, w0 >> 8, 4), nib_pair(w0 >> 16, w0 >> 24, 4),
-                              nib_pair(w1, w1 >> 8, 4), nib_pair(w1 >> 16, w1 >> 24, 4));
+  const uint4 lo = make_uint4(q_pair(w0, 0x4140u), q_pair(w0, 0x4342u), q_pair(w1, 0x4140u),
+                              q_pair(w1, 0x4342u));
+  const uint4 hi = make_uint4(q_pair(w0 >> 4, 0x4140u), q_pair(w0 >> 4, 0x4342u),
+                              q_pair(w1 >> 4, 0x4140u), q_pair(w1 >> 4, 0x4342u));
   *reinterpret_cast<uint4*>(&s.b[row * B_LD + col]) = lo;
   *reinterpret_cast<uint4*>(&s.b[(PK + row) * B_LD + col]) = hi;
 }
@@ -207,11 +241,12 @@ __global__ void __launch_bounds__(THREADS)
   stage_store(ring[0], f, tid);
   __syncthreads();
 
-  for (int t = 0; t < steps; ++t) {
-    const int g = t / spg, sub = t % spg;
+  // (g, sub): step t's group and k-step in it, counted (no division)
+  for (int t = 0, g = 0, sub = 0; t < steps; ++t) {
     if (t + 1 < steps) {
-      const int g1 = (t + 1) / spg, sub1 = (t + 1) % spg;
-      fetch(f, x, p, M, K, N, G, g1, sub1 * PK, m0, n0, vecx, vecw, tid);
+      const bool wrap = sub + 1 == spg;
+      fetch(f, x, p, M, K, N, G, wrap ? g + 1 : g, wrap ? 0 : (sub + 1) * PK, m0, n0, vecx,
+            vecw, tid);
     }
     const Stage& s = ring[t & 1];
 #pragma unroll
@@ -248,6 +283,10 @@ __global__ void __launch_bounds__(THREADS)
     }
     if (t + 1 < steps) stage_store(ring[(t + 1) & 1], f, tid);
     __syncthreads();
+    if (++sub == spg) {
+      sub = 0;
+      ++g;
+    }
   }
 
   // epilogue: accumulator (row g or g + 8, columns 2*(lane % 4) + {0, 1})
@@ -267,6 +306,415 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 }
+// --------------------------------------------------------------------------
+// M > 4 where TMA can describe the operands: warp-specialised wgmma
+// --------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 384;  // WG0 loads (one thread), WG1-2 dequantise and multiply
+constexpr int WT = 128;          // output tile: 128 rows of x x 128 columns of W
+constexpr int WC = 2;            // CTAs per cluster: adjacent N tiles sharing each x tile
+constexpr int SMEM_LIMIT = 232448;
+
+// A chunk is KC weight rows of one group: KC / 2 packed rows whose low
+// nibbles are the chunk's k rows [0, KC/2) and high nibbles its rows
+// [KC/2, KC). KC = 128 for G % 128 == 0 (chunk c of a group takes packed
+// rows [64c, 64c + 64) and x columns g*G + 64c and g*G + G/2 + 64c, 64 each:
+// at G = 128 that is x's natural order), KC = 64 for G = 64 (one 64-column
+// x box).
+template <int KC>
+struct WgShape {
+  static constexpr int X_BYTES = WT * KC * 2;  // x: KC / 64 atoms of 128 rows x 128 B
+  static constexpr int P_BYTES = KC / 2 * WT;  // packed: KC / 2 rows x 128 B
+  static constexpr int S_BYTES = WT * 4;       // the group's 128 f32 scales
+  static constexpr int STAGE = X_BYTES + P_BYTES;
+  // the 1,024 bytes in front align the base for the swizzle
+  static constexpr int fit(int s) { return 1024 + s * (STAGE + S_BYTES) + 16 * s; }
+  // ring stages: as many as fit, at most 8 (5 at KC = 128: 41,472 bytes each)
+  static constexpr int stages() {
+    int s = 8;
+    while (fit(s) > SMEM_LIMIT) --s;
+    return s;
+  }
+  static constexpr int STAGES = stages();
+  static constexpr int SMEM = fit(STAGES);
+};
+static_assert(WgShape<128>::STAGES >= 3, "the wgmma form's ring");
+
+// One launch: the TMA maps of x (boxes of 64 columns x 128 / WC rows,
+// 128-byte swizzle: each CTA of a cluster loads its share of the tile's rows
+// for all), packed (128 bytes x KC/2 rows, 128-byte swizzle) and scale (128
+// f32 x 1 row), the output and its shape; `groups` counts the clusters' tile
+// groups (WC adjacent N tiles of one M tile).
+struct WgParams {
+  CUtensorMap xmap, pmap, smap;
+  void* y;
+  int M, N, G, nchunks, cpg, mt, groups;
+};
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed; a wait of more
+// than ~10 s (a barrier that can never complete) traps, so a fault in the
+// pipeline ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// arrive on the barrier at the same offset in cluster member `cta`
+__device__ __forceinline__ void bar_arrive_remote(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the same box into every CTA of the cluster, each signalling its own barrier
+__device__ __forceinline__ void tma_load_2d_all(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"((uint16_t)((1u << WC) - 1))
+      : "memory");
+}
+
+// box at (c0: column, c1: row) into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float2 lds64f(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// shared-memory matrix descriptor of a K-major operand with the 128-byte
+// swizzle: start and stride byte offsets (8 rows of 128 bytes)
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d (64 x 128, f32) = [d +] A (registers) . B (smem, K-major), k = 16
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The A fragments of one chunk's KS k-steps for this thread's columns n,
+// n + 1 (rows lane / 4 and lane / 4 + 8 of its warp's 16), from the packed
+// tile at `pt`. One ldmatrix.trans of four 8 x 8 matrices of 16-bit pairs
+// (8 packed rows x the warp's 16 byte columns each, row addresses `lane_off`
+// with the 128-byte swizzle) gives the thread, per matrix, columns n, n + 1
+// of packed rows 2c and 2c + 1 (c = lane % 4) in one word: bytes n@2c,
+// (n+1)@2c, n@2c+1, (n+1)@2c+1. So a word v makes, with no PRMT, the low
+// k-step's pairs q(v) (column n) and q(v >> 8) (n + 1) and the high
+// k-step's q(v >> 4) and q(v >> 12).
+template <int KS>
+__device__ __forceinline__ void dequant_chunk(uint32_t (&a)[KS][4], uint32_t pt,
+                                              uint32_t lane_off) {
+  constexpr int LOW = KS / 2;
+#pragma unroll
+  for (int h = 0; h < LOW / 2; ++h) {  // low k-steps 2h, 2h + 1: packed rows 32h ..
+    uint32_t r[4];
+    ldsm_x4_trans(r, pt + 32 * h * 128 + lane_off);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int j = 2 * h + q;
+      const uint32_t v0 = r[2 * q], v1 = r[2 * q + 1];  // rows 16j + 2c, +1 and 16j + 8 + 2c, +1
+      a[j][0] = q_bf16x2(v0), a[j][1] = q_bf16x2(v0 >> 8);
+      a[j][2] = q_bf16x2(v1), a[j][3] = q_bf16x2(v1 >> 8);
+      a[LOW + j][0] = q_bf16x2(v0 >> 4), a[LOW + j][1] = q_bf16x2(v0 >> 12);
+      a[LOW + j][2] = q_bf16x2(v1 >> 4), a[LOW + j][3] = q_bf16x2(v1 >> 12);
+    }
+  }
+}
+
+// acc += part * scale[g]: rows n (d[4i], d[4i + 1]) and n + 1 (d[4i + 2], d[4i + 3])
+__device__ __forceinline__ void fold(float (&acc)[64], const float (&part)[64], float2 sc) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    acc[4 * i] = fmaf(part[4 * i], sc.x, acc[4 * i]);
+    acc[4 * i + 1] = fmaf(part[4 * i + 1], sc.x, acc[4 * i + 1]);
+    acc[4 * i + 2] = fmaf(part[4 * i + 2], sc.y, acc[4 * i + 2]);
+    acc[4 * i + 3] = fmaf(part[4 * i + 3], sc.y, acc[4 * i + 3]);
+  }
+}
+
+// The product is taken transposed, y^T = q^T x^T, so the dequantised weight
+// is wgmma's register operand A and never goes back to shared memory:
+// consumer warpgroup g takes the tile's columns [64g, 64g + 64) as A's 64
+// rows and x's 128 rows (K-major, as TMA wrote them) as B. A row r of warp w
+// stands for column 16w + 2(r % 8) + (r % 16) / 8 of the warpgroup's 64, so
+// a thread's two A rows (lane / 4 and lane / 4 + 8) are two adjacent columns
+// n, n + 1, which ldmatrix hands it together (dequant_chunk), and it stores
+// its outputs (row m, columns n, n + 1) as pairs.
+//
+// CTAs run in clusters of WC, a cluster taking WC adjacent N tiles of one M
+// tile at a time: each CTA loads its 128 / WC rows of the x tile by a TMA
+// multicast into all, so x is read from L2 once per cluster (x is 80% of a
+// stage's bytes, and L2 to SM traffic bounds the loads: 4.2 GB per gate,up
+// call with CTAs alone), and a stage is refilled only when the consumers of
+// every CTA have released it (its empty barrier counts them all). The
+// persistent clusters walk the tile groups p = cluster, + clusters, ... in
+// M-fastest order (M tile p % mt, N tiles WC (p / mt) + rank), so the
+// clusters resident together share W's columns and x in L2; where a group
+// runs past N, its last CTAs compute tiles past N and store nothing. Each
+// tile is nchunks chunks in order; both roles keep one count of chunks
+// across the CTA's tiles, which sets the ring slot and barrier parity of
+// each. A
+// consumer issues chunk t's products, dequantises chunk t + 1 into its
+// second set of A registers while they run, waits for them, releases the
+// stage and folds; the two warpgroups' products and folds interleave as
+// the tensor cores take them (a turn-taking schedule between them measured
+// 2% slower per prefill, scripts/torch_k3_prefill_probe.py).
+template <int KC, typename OutT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    int4_mm_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using Sh = WgShape<KC>;
+  constexpr int S = Sh::STAGES, KS = KC / 16;  // k-steps per chunk
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t scales = base + S * Sh::STAGE;
+  const uint32_t bars = scales + S * Sh::S_BYTES;
+  auto x_tile = [&](int s) { return base + s * Sh::STAGE; };
+  auto p_tile = [&](int s) { return base + s * Sh::STAGE + Sh::X_BYTES; };
+  auto full_bar = [&](int s) { return bars + 8 * s; };         // x, packed, scale landed
+  auto empty_bar = [&](int s) { return bars + 8 * (S + s); };  // consumers done with them
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      bar_init(full_bar(s), 1);
+      bar_init(empty_bar(s), 8 * WC);  // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // no CTA signals or writes into another before its barriers exist
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int rank = (int)cluster_rank(), group0 = blockIdx.x / WC, groups_step = gridDim.x / WC;
+  if (wg == 0) {
+    // ---------------- loads: one thread issues every TMA copy ----------------
+    regs_dec<40>();
+    if (tid == 0) {
+      int s = 0, ph = 0, mi = group0, gn = 0;
+      while (mi >= p.mt) mi -= p.mt, ++gn;
+      for (int t = group0; t < p.groups; t += groups_step) {
+        const int m0 = mi * WT + rank * (WT / WC), n0 = (WC * gn + rank) * WT;  // m0: our rows
+        for (int c = 0, g = 0, sub = 0; c < p.nchunks; ++c) {
+          bar_wait(empty_bar(s), ph ^ 1);
+          const uint32_t full = full_bar(s), xr = x_tile(s) + rank * (WT / WC) * 128;
+          bar_arrive_tx(full, Sh::STAGE + Sh::S_BYTES);
+          if constexpr (KC == 64) {
+            tma_load_2d_all(xr, &p.xmap, full, g * p.G, m0);
+          } else {
+            tma_load_2d_all(xr, &p.xmap, full, g * p.G + 64 * sub, m0);
+            tma_load_2d_all(xr + Sh::X_BYTES / 2, &p.xmap, full, g * p.G + p.G / 2 + 64 * sub,
+                            m0);
+          }
+          tma_load_2d(p_tile(s), &p.pmap, full, n0, g * (p.G / 2) + sub * (KC / 2));
+          tma_load_2d(scales + s * Sh::S_BYTES, &p.smap, full, n0, g);
+          if (++s == S) s = 0, ph ^= 1;
+          if (++sub == p.cpg) sub = 0, ++g;
+        }
+        mi += groups_step;
+        while (mi >= p.mt) mi -= p.mt, ++gn;
+      }
+    }
+    cluster_sync();  // no CTA exits while another may still write into it
+    return;
+  }
+
+  // ---------------- consumers: 64 columns of the tile each ----------------
+  regs_inc<232>();
+  const int g = wg - 1, warp = tid / 32, lane = tid % 32, c4 = lane & 3;
+  const int ncol = 64 * g + 16 * warp + 2 * (lane >> 2);  // this thread's columns n, n + 1
+  // the row this lane addresses for ldmatrix: packed row lane (+ 32h), the
+  // warp's 16-byte column chunk XOR row % 8 (the 128-byte swizzle)
+  const uint32_t lane_off =
+      (uint32_t)lane * 128 + (((uint32_t)(ncol >> 4) ^ (uint32_t)(lane & 7)) << 4);
+  float acc[64], part[64];
+  uint32_t a0[KS][4], a1[KS][4];  // A of this chunk and of the next, dequantised under this one's products
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  int s = 0, ph = 0, mi = group0, gn = 0, t = group0, c = 0, sub = 0;
+  while (mi >= p.mt) mi -= p.mt, ++gn;
+  bar_wait(full_bar(0), 0);
+  dequant_chunk<KS>(a0, p_tile(0), lane_off);
+  // One chunk: its products from `cur`, the next chunk's A into `nxt` while
+  // they run, then the fold. False after the CTA's last chunk.
+  auto chunk = [&](uint32_t(&cur)[KS][4], uint32_t(&nxt)[KS][4]) -> bool {
+    const bool last = sub == p.cpg - 1;  // the group's last chunk: fold after it
+    fence_regs(cur);
+    wgmma_fence();
+    // B: x's 128 rows, k-step j in atom j / 4 at byte 32 (j % 4); the
+    // group's first product starts part at zero
+    const uint64_t xd = desc128(x_tile(s));
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      wgmma_rs_n128(part, cur[j], xd + (((j >> 2) * WT * 128 + (j & 3) * 32) >> 4),
+                    sub > 0 || j > 0);
+    wgmma_commit();
+    const float2 sc = lds64f(scales + s * Sh::S_BYTES + ncol * 4);
+    const int done = s;
+    // the next chunk: in this tile, or the first of the next tile
+    const bool tile_end = c + 1 == p.nchunks;
+    const bool more = !tile_end || t + groups_step < p.groups;
+    if (++s == S) s = 0, ph ^= 1;
+    if (more) {
+      bar_wait(full_bar(s), ph);
+      dequant_chunk<KS>(nxt, p_tile(s), lane_off);
+    }
+    wgmma_wait0();
+    fence_regs(part);
+    fence_regs(cur);
+    __syncwarp();
+    if (lane == 0)  // the stage is free in every CTA of the cluster
+      for (int r = 0; r < WC; ++r) bar_arrive_remote(empty_bar(done), r);
+    if (last) fold(acc, part, sc);
+    if (++sub == p.cpg) sub = 0;
+    if (!tile_end) {
+      ++c;
+      return true;
+    }
+    // epilogue: y[m, n], y[m, n + 1] for m = 8i + 2c4 + {0, 1}; N % 16 == 0,
+    // so the pair is inside N or outside it whole
+    const int n = (WC * gn + rank) * WT + ncol;
+    if (n < p.N) {
+      OutT* y = static_cast<OutT*>(p.y) + n;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = mi * WT + 8 * i + 2 * c4 + e;
+          if (m < p.M) store_pair(y + (size_t)m * p.N, acc[4 * i + e], acc[4 * i + 2 + e]);
+        }
+    }
+    if (!more) return false;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    c = 0;
+    t += groups_step;
+    mi += groups_step;
+    while (mi >= p.mt) mi -= p.mt, ++gn;
+    return true;
+  };
+  while (chunk(a0, a1) && chunk(a1, a0)) {
+  }
+  cluster_sync();
+}
+
 // --------------------------------------------------------------------------
 // M <= 4: GEMV
 // --------------------------------------------------------------------------
@@ -679,11 +1127,141 @@ int gemv_resident(int* ctas) {
   return err;
 }
 
+// cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
+// looked up at run time through the runtime's entry-point query, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) matrix of row_bytes per row, in
+// boxes of box_cols x box_rows; rows and columns past the edge read as zero.
+// Returns 0, or 1000 + the CUresult.
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, long long cols,
+              long long rows, long long row_bytes, int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return 1999;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// The form a launch takes (kernels/quantization_int4.py::mm_form mirrors it):
+// 0 the GEMV for M <= 4; 2 the wgmma form where TMA can describe every
+// operand and a chunk is whole: G = 64 or G % 128 == 0 (so K % 8 == 0), N %
+// 16 == 0 (packed's and scale's row strides), x, packed and scale on 16-byte
+// boundaries; 1 the mma.sync form for every other M > 4 shape (a G that is
+// not one of those, an N that is not a multiple of 16, a base off 16 bytes).
+int form_of(int M, int K, int N, int n_groups, const void* x, const void* p, const void* s) {
+  if (M <= GV_MAX_M) return 0;
+  const int G = K / n_groups;
+  const uintptr_t bases =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(s);
+  return (G == 64 || G % 128 == 0) && N % 16 == 0 && bases % 16 == 0 ? 2 : 1;
+}
+
+// the launch configuration of `grid` CTAs in clusters of WC (attr: its one
+// attribute, kept by the caller)
+template <int KC>
+cudaLaunchConfig_t wgmma_config(int grid, cudaStream_t s, cudaLaunchAttribute (&attr)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = WgShape<KC>::SMEM;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = WC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int KC, typename OutT>
+int wgmma_launch(const bf16* x, const uint8_t* p, const float* scale, OutT* y, int M, int K,
+                 int N, int n_groups, int grid, cudaStream_t s) {
+  using Sh = WgShape<KC>;
+  WgParams prm;
+  memset(&prm, 0, sizeof(prm));
+  prm.y = y;
+  prm.M = M;
+  prm.N = N;
+  prm.G = K / n_groups;
+  prm.nchunks = K / KC;
+  prm.cpg = prm.G / KC;
+  prm.mt = (M + WT - 1) / WT;
+  const long long groups = (long long)prm.mt * (((N + WT - 1) / WT + WC - 1) / WC);
+  if (groups > 0x7FFFFFFFLL || grid < WC || grid % WC != 0 || grid > WC * groups)
+    return (int)cudaErrorInvalidValue;
+  prm.groups = (int)groups;
+  int err = encode_2d(&prm.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2LL * K, 64, WT / WC,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_2d(&prm.pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p, N, K / 2, N, WT, KC / 2,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_2d(&prm.smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, n_groups, 4LL * N, WT,
+                    1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  void* kernel = reinterpret_cast<void*>(int4_mm_wgmma_kernel<KC, OutT>);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wgmma_config<KC>(grid, s, attr);
+  void* args[] = {&prm};
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The wgmma form's CTAs resident on the current card at once, in clusters
+template <int KC, typename OutT>
+int wgmma_resident(int* ctas) {
+  void* kernel = reinterpret_cast<void*>(int4_mm_wgmma_kernel<KC, OutT>);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       WgShape<KC>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wgmma_config<KC>(WC, nullptr, attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  *ctas = WC * clusters;
+  return (int)e;
+}
+
 template <typename OutT>
 int launch(const bf16* x, const uint8_t* p, const float* scale, OutT* y, float* ws,
            int* counters, int M, int K, int N, int n_groups, int grid, cudaStream_t s) {
   const int G = K / n_groups;
-  if (M <= GV_MAX_M) {
+  const int form = form_of(M, K, N, n_groups, x, p, scale);
+  if (form == 0) {
     const long long units = (long long)((N + GV_TN - 1) / GV_TN) * n_groups;
     if (grid < 1 || grid > units || ws == nullptr || counters == nullptr)
       return (int)cudaErrorInvalidValue;
@@ -696,6 +1274,9 @@ int launch(const bf16* x, const uint8_t* p, const float* scale, OutT* y, float* 
     if (M == 2) return gemv_launch<2, OutT>(a, y, grid, s);
     return gemv_launch<4, OutT>(a, y, grid, s);
   }
+  if (form == 2)
+    return G == 64 ? wgmma_launch<64, OutT>(x, p, scale, y, M, K, N, n_groups, grid, s)
+                   : wgmma_launch<128, OutT>(x, p, scale, y, M, K, N, n_groups, grid, s);
   const bool vecx = K % 8 == 0 && (G / 2) % 8 == 0 &&
                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool vecw = N % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 7) == 0;
@@ -714,8 +1295,11 @@ extern "C" {
 // even and a multiple of n_groups with an even group size. For M <= 4, `grid`
 // CTAs (1 .. ceil(N / 256) · n_groups) share the (tile, group) units; ws
 // holds grid · 2 · MT · 256 f32 (MT = 1, 2, 4 for M = 1, 2, 3-4) and counters
-// ceil(N / 256) int32 zeros (left zero). Returns the cudaError_t of the
-// launch (0 = launched).
+// ceil(N / 256) int32 zeros (left zero). In the wgmma form (int4_matmul_form
+// 2), `grid` persistent CTAs in clusters of int4_wgmma_cluster() (a multiple
+// of it, up to it times the groups of that many adjacent 128 x 128 tiles)
+// walk the tile groups; the mma.sync form ignores it. Returns the cudaError_t of the launch (0 =
+// launched), or 1000 + the CUresult of a failed TMA map encoding.
 int int4_matmul_launch(int out_dtype, const void* x, const void* packed,
                        const void* scale, void* y, int M, int K, int N,
                        int n_groups, int grid, void* ws, void* counters,
@@ -735,6 +1319,32 @@ int int4_matmul_launch(int out_dtype, const void* x, const void* packed,
     return launch(xb, p, sc, static_cast<float*>(y), w, cnt, M, K, N, n_groups, grid, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The form int4_matmul_launch takes for these operands: 0 the GEMV (M <= 4),
+// 1 the mma.sync form, 2 the wgmma form (the rule is form_of's).
+int int4_matmul_form(int M, int K, int N, int n_groups, const void* x, const void* packed,
+                     const void* scale) {
+  if (M <= 0 || K <= 0 || N <= 0 || n_groups <= 0 || K % n_groups != 0) return -1;
+  return form_of(M, K, N, n_groups, x, packed, scale);
+}
+
+// The wgmma form's CTAs (in clusters of WC) resident on the current card at
+// once for groups of `group_rows` rows and out_dtype as above; -1 on an
+// error. The wrapper's grid is a multiple of WC up to this count.
+int int4_wgmma_resident_ctas(int out_dtype, int group_rows) {
+  int ctas = 0, err;
+  const bool kc64 = group_rows == 64;
+  if (out_dtype == 1)
+    err = kc64 ? wgmma_resident<64, bf16>(&ctas) : wgmma_resident<128, bf16>(&ctas);
+  else if (out_dtype == 0)
+    err = kc64 ? wgmma_resident<64, float>(&ctas) : wgmma_resident<128, float>(&ctas);
+  else
+    return -1;
+  return err == 0 && ctas >= WC ? ctas : -1;
+}
+
+// CTAs per cluster of the wgmma form
+int int4_wgmma_cluster() { return WC; }
 
 // The GEMV form's CTAs resident on the current card at once (the occupancy
 // calls) for x of `m` rows and out_dtype as above; -1 on an error.

@@ -10,12 +10,26 @@ Port of ``multimodal_embeddings_tpu/kernels/quantization_int4.py``:
   ``(G/2, N)`` uint8 block; a nibble stores ``q + 8``. Scales are f32
   ``(n_groups, N)``, ``max|w|_group / 7``;
 * ``int4_matmul``: replaces the Pallas TPU kernel ``int4_matmul``
-  (``_mm4_kernel``) with a hand-written CUDA kernel, ``csrc/int4_matmul.cu``:
+  (``_mm4_kernel``) with hand-written CUDA kernels, ``csrc/int4_matmul.cu``:
   per group, ``part = bf16(x_g) · q_g`` summed in f32, then
   ``acc += part · scale[g]``; one cast to x's type at the end. **x is rounded
-  to bf16 even when it is f32**, as in the TPU kernel. For M <= 4 the kernel
-  is a GEMV whose (256-column tile, group) units ``gemv_plan`` cuts into
-  equal contiguous shares over the CTAs the card holds at once;
+  to bf16 even when it is f32**, as in the TPU kernel. A launch takes one of
+  three forms (``mm_form``, the launcher's rule mirrored):
+
+  - ``gemv`` (M ≤ 4, decode): HBM-bound; its (256-column tile, group) units
+    are cut by ``gemv_plan`` into equal contiguous shares over the CTAs the
+    card holds at once;
+  - ``wgmma`` (M > 4 where TMA can describe every operand: G = 64 or
+    G % 128 == 0, N % 16 == 0, x, packed and scale on 16-byte boundaries;
+    every Qwen2.5-VL-32B prefill projection): tensor-core bound at the 32B
+    prefill's M = 1535. Persistent CTAs in clusters of two (``wgmma_grid``)
+    over 128 × 128 tiles, a TMA ring of x (multicast within the pair),
+    packed and scale per chunk of 128 weight rows; the product taken as
+    y^T = q^T x^T, so each consumer warpgroup turns nibbles straight into
+    ``wgmma``'s register operand without an int-to-float conversion
+    (``0x4300 | n`` is the bf16 128 + n, less 136 is q), the next chunk's
+    while this one's ``wgmma`` run, and folds ``part · scale`` per group;
+  - ``mma_sync`` (every other M > 4 shape): the ragged form on ``mma.sync``.
 * ``int4_apply``: a packed 2-D weight applied to the last axis of x.
 
 The plain version follows the kernel's rounding, not the JAX package's CPU
@@ -45,6 +59,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GEMV_MAX_M = 4
 _GEMV_COLS = 256
 _GEMV_MIN_UNITS = 4
+# the wgmma form's output tile (128 x 128) and the C launcher's form codes
+_WGMMA_TILE = 128
+_FORMS = ("gemv", "mma_sync", "wgmma")
 # (kind, device, stream) -> the GEMV's workspace and arrival counters
 _scratch: dict = {}
 
@@ -110,6 +127,12 @@ def _lib():
     lib.int4_matmul_launch.restype = ctypes.c_int
     lib.int4_gemv_resident_ctas.argtypes = [ctypes.c_int] * 2
     lib.int4_gemv_resident_ctas.restype = ctypes.c_int
+    lib.int4_matmul_form.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.int4_matmul_form.restype = ctypes.c_int
+    lib.int4_wgmma_resident_ctas.argtypes = [ctypes.c_int] * 2
+    lib.int4_wgmma_resident_ctas.restype = ctypes.c_int
+    lib.int4_wgmma_cluster.argtypes = []
+    lib.int4_wgmma_cluster.restype = ctypes.c_int
     return lib
 
 
@@ -189,6 +212,72 @@ def plan_for(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> Gemv
     return gemv_plan(m, k, packed.shape[1], scale.shape[0], ctas)
 
 
+def mm_form(m: int, k: int, n: int, n_groups: int, aligned: bool = True) -> str:
+    """The kernel form a launch takes, by the launcher's rule
+    (``csrc/int4_matmul.cu::form_of``): ``"gemv"`` for m <= 4; ``"wgmma"``
+    where TMA can describe every operand and a chunk of the group is whole
+    (G = k / n_groups is 64 or a multiple of 128, n % 16 == 0, and x, packed
+    and scale start on 16-byte boundaries: ``aligned``); ``"mma_sync"``
+    for every other shape."""
+    if m <= _GEMV_MAX_M:
+        return "gemv"
+    g = k // n_groups
+    if (g == 64 or g % 128 == 0) and n % 16 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _kernel_operands(x, packed, scale):
+    """x rounded to bf16 and the three operands contiguous, as the kernel
+    takes them."""
+    return x.to(torch.bfloat16).contiguous(), packed.contiguous(), scale.contiguous()
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def form_for(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> str:
+    """``mm_form`` of these operands as ``int4_matmul`` hands them to the
+    kernel."""
+    xb, packed, scale = _kernel_operands(x, packed, scale)
+    m, k = x.shape
+    return mm_form(m, k, packed.shape[1], scale.shape[0], _aligned(xb, packed, scale))
+
+
+def launcher_form(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> str:
+    """The form the C launcher itself picks for these CUDA operands (builds
+    the library): the check that ``mm_form`` mirrors it."""
+    xb, packed, scale = _kernel_operands(x, packed, scale)
+    m, k = x.shape
+    code = _lib().int4_matmul_form(m, k, packed.shape[1], scale.shape[0], xb.data_ptr(),
+                                   packed.data_ptr(), scale.data_ptr())
+    if not 0 <= code < len(_FORMS):
+        raise ValueError(f"int4_matmul_form refused the shapes ({code})")
+    return _FORMS[code]
+
+
+def wgmma_grid(m: int, n: int, ctas: int, cluster: int) -> int:
+    """The wgmma form's persistent CTAs, in clusters of ``cluster`` that take
+    that many adjacent 128 × 128 tiles of one M tile at a time: as many
+    clusters as the card holds at once (``ctas`` CTAs; a CTA takes a whole
+    SM's shared memory), never more than the tile groups."""
+    n_tiles = -(-n // _WGMMA_TILE)
+    groups = -(-m // _WGMMA_TILE) * -(-n_tiles // cluster)
+    return cluster * max(1, min(groups, ctas // cluster))
+
+
+@functools.cache
+def _wgmma_ctas(device_index: int, out_code: int, group_rows: int) -> tuple:
+    """(CTAs of the wgmma form the card holds at once, CTAs per cluster):
+    the occupancy calls and the kernel's cluster size."""
+    with torch.cuda.device(device_index):
+        got = _lib().int4_wgmma_resident_ctas(out_code, group_rows)
+    if got < 1:
+        raise RuntimeError(f"int4 wgmma occupancy query failed ({got})")
+    return got, _lib().int4_wgmma_cluster()
+
+
 def _gemv_scratch(device, stream: int, plan: GemvPlan):
     """The workspace (grid · 2 · mt · 256 f32: each CTA's partials of its
     first and last tile) and the zeroed int32 arrival counters, one per
@@ -252,15 +341,17 @@ def int4_matmul(
         raise ValueError(f"int4_matmul runs on cpu or one cuda device, not {x.device}")
     if x.dtype not in _DTYPE_CODES or scale.dtype != torch.float32:
         raise ValueError("x must be float32 or bfloat16 and scale float32")
-    xb = x.to(torch.bfloat16).contiguous()
-    packed, scale = packed.contiguous(), scale.contiguous()
+    xb, packed, scale = _kernel_operands(x, packed, scale)
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     grid, ws, counters = 1, None, None
-    if m <= _GEMV_MAX_M:
+    form = mm_form(m, k, n, n_groups, _aligned(xb, packed, scale))
+    if form == "gemv":
         plan = plan_for(x, packed, scale)
         grid = plan.grid
         ws, counters = (t.data_ptr() for t in _gemv_scratch(x.device, stream, plan))
+    elif form == "wgmma":
+        grid = wgmma_grid(m, n, *_wgmma_ctas(x.device.index, _DTYPE_CODES[x.dtype], k // n_groups))
     err = _lib().int4_matmul_launch(
         _DTYPE_CODES[x.dtype], xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
         y.data_ptr(), m, k, n, n_groups, grid, ws, counters, stream,

@@ -284,3 +284,159 @@ def test_synthetic_int4_weights():
     assert abs(a.kernel_scale.std().item() - 0.02) < 0.002
     assert torch.all(a.bias == np.float32(0.02))
     assert tquant.param_bytes(a) == 512 * 512 + 8 * 512 * 4 + 512 * 4
+
+
+# (M, K, N, n_groups, 16-byte-aligned operands, form): the Qwen2.5-VL-32B
+# projections at prefill (M = 1535) and decode, the chip check's ragged
+# shapes, and its wgmma-form edges
+FORM_CASES = {
+    "prefill q,o": (1535, 5120, 5120, 40, True, "wgmma"),
+    "prefill k,v": (1535, 5120, 1024, 40, True, "wgmma"),
+    "prefill gate,up": (1535, 5120, 27648, 40, True, "wgmma"),
+    "prefill down": (1535, 27648, 5120, 216, True, "wgmma"),
+    "decode q,o": (1, 5120, 5120, 40, True, "gemv"),
+    "decode gate,up": (1, 5120, 27648, 40, True, "gemv"),
+    "decode down": (1, 27648, 5120, 216, True, "gemv"),
+    "decode lm_head": (1, 5120, 152064, 40, True, "gemv"),
+    "ragged G 200": (37, 200, 136, 1, True, "mma_sync"),
+    "ragged K 8": (1, 8, 16, 1, True, "gemv"),
+    "ragged G 72": (130, 72, 200, 1, True, "mma_sync"),
+    "ragged N 1030": (300, 1024, 1030, 8, True, "mma_sync"),
+    "ragged N 40": (5, 384, 40, 3, True, "mma_sync"),
+    "ragged N 24": (9, 256, 24, 2, True, "mma_sync"),
+    "ragged M 3": (3, 5120, 1030, 40, True, "gemv"),
+    "ragged M 2": (2, 2048, 520, 16, True, "gemv"),
+    "edge M 5": (5, 1024, 256, 8, True, "wgmma"),
+    "edge M 129": (129, 512, 384, 4, True, "wgmma"),
+    "edge N 1040": (200, 1024, 1040, 8, True, "wgmma"),
+    "edge N 48": (300, 512, 48, 4, True, "wgmma"),
+    "edge G 64": (64, 640, 256, 10, True, "wgmma"),
+    "edge G 256": (300, 1024, 256, 4, True, "wgmma"),
+    "edge one group of 512": (150, 512, 256, 1, True, "wgmma"),
+    "edge 370 tiles": (1200, 512, 4736, 4, True, "wgmma"),
+    "edge packed off 16 B": (64, 1024, 256, 8, False, "mma_sync"),
+    "G 192": (64, 384, 256, 2, True, "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("name", list(FORM_CASES))
+def test_form_rule(name):
+    """``mm_form`` is the launcher's rule: the GEMV for M <= 4; the wgmma
+    form where TMA can describe every operand with whole chunks (G = 64 or a
+    multiple of 128, N % 16 == 0, 16-byte-aligned bases), which every Qwen
+    prefill projection takes; the mma.sync form for the rest. ``form_for``
+    reads the alignment from the operands the kernel would get."""
+    m, k, n, n_groups, aligned, form = FORM_CASES[name]
+    assert tq4.mm_form(m, k, n, n_groups, aligned) == form
+    if m * k + k // 2 * n <= 2**24:
+        x = torch.zeros(m, k, dtype=torch.bfloat16)
+        buf = torch.zeros(k // 2 * n + 8, dtype=torch.uint8)
+        packed = (buf[:-8] if aligned else buf[8:]).view(k // 2, n)
+        assert tq4.form_for(x, packed, torch.zeros(n_groups, n)) == form
+
+
+def test_wgmma_grid():
+    """CTAs in clusters of adjacent N tiles: as many as the card holds, never
+    more than one cluster per tile group."""
+    assert tq4.wgmma_grid(1535, 27648, 132, 2) == 132
+    assert tq4.wgmma_grid(1535, 1024, 132, 2) == 96  # k,v: 12 x 4 tile pairs
+    assert tq4.wgmma_grid(1535, 1040, 132, 2) == 120  # 9 N tiles: 5 pairs, one tile past N
+    assert tq4.wgmma_grid(5, 48, 132, 2) == 2
+    assert tq4.wgmma_grid(1535, 27648, 131, 2) == 130
+    assert tq4.wgmma_grid(1535, 27648, 120, 4) == 120
+    assert tq4.wgmma_grid(1535, 5120, 132, 1) == 132
+
+
+def _bits_bf16(bits: torch.Tensor) -> torch.Tensor:
+    """int32 values below 2^15 read as the bits of bf16 values, as f32."""
+    return bits.to(torch.int16).view(torch.bfloat16).float()
+
+
+def _q_pair(w: torch.Tensor, sel: int) -> torch.Tensor:
+    """The kernel's ``q_pair`` on int64 words w, in torch bit operations:
+    PRMT(w, 0, sel) (selector nibble i picks byte i of the result: 0-3 from
+    w, 4-7 zero), then ``(t & 0x000F000F) | 0x43004300``, then the bf16x2 FMA
+    ``t * 1 - 136``. Returns the (low half, high half) values as f32."""
+    result = torch.zeros_like(w)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 0xF
+        byte = (w >> (8 * src)) & 0xFF if src < 4 else torch.zeros_like(w)
+        result |= byte << (8 * i)
+    t = (result & 0x000F000F) | 0x43004300
+    return _bits_bf16(t & 0xFFFF) - 136.0, _bits_bf16(t >> 16) - 136.0
+
+
+def test_bf16_nibble_trick_is_exact_for_every_byte():
+    """``0x4300 | n`` is the bf16 128 + n, and 128 + n - 136 is exactly
+    n - 8 in bf16, for the low and the high nibble of all 256 bytes."""
+    b = torch.arange(256, dtype=torch.int64)
+    for nib in (b & 15, b >> 4):
+        v = _bits_bf16(0x4300 | nib)
+        assert torch.equal(v, 128.0 + nib.float())
+        q = (v.bfloat16() - torch.tensor(136.0, dtype=torch.bfloat16)).float()
+        assert torch.equal(q, (nib - 8).float())
+
+
+def test_dequant_word_selectors_follow_the_layout():
+    """The kernel's four ``q_pair`` calls per word (selectors 0x4140,
+    0x4342, and the word shifted right 4 for the high nibbles) give, for 16
+    packed bytes of a row, the 16 columns' low-nibble q then their
+    high-nibble q in column order: ``unpack_int4``'s rows p and G/2 + p."""
+    rng = _rng(12)
+    packed = rng.integers(0, 256, size=(8, 16)).astype(np.uint8)
+    want = tq4.unpack_int4(tq4.Q4Tensor(torch.from_numpy(packed), torch.ones(1, 16))).float()
+    words = torch.from_numpy(packed.view("<u4").astype(np.int64))  # (8, 4) little-endian words
+    for shift, rows in ((0, want[:8]), (4, want[8:])):
+        cols = []
+        for c in range(4):
+            w = words[:, c] >> shift
+            for sel in (0x4140, 0x4342):
+                lo, hi = _q_pair(w, sel)
+                cols += [lo, hi]
+        assert torch.equal(torch.stack(cols, dim=1), rows)
+
+
+def _wgmma_order(x: np.ndarray, packed: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """The wgmma form's arithmetic in its order, on the CPU: chunks of KC =
+    64 (G = 64) or 128 weight rows; chunk ``sub`` of group g is packed rows
+    g·G/2 + sub·KC/2 .. (+KC/2), dequantized by the bf16 trick into B rows
+    low nibbles then high nibbles, against x columns g·G + sub·KC/2 .. and
+    g·G + G/2 + sub·KC/2 ..; ``part`` starts from zero at each group's first
+    chunk (scale-d = 0), and after the group's last chunk acc = fma(part,
+    scale[g], acc) in f32 (the product exact in f64, one rounding)."""
+    m, k = x.shape
+    n_groups, n = scale.shape
+    g = k // n_groups
+    kc = 64 if g == 64 else 128
+    half = kc // 2
+    xb = torch.from_numpy(x).bfloat16().float()
+    p = torch.from_numpy(packed.astype(np.int64))
+    acc = torch.zeros(m, n, dtype=torch.float32)
+    for grp in range(n_groups):
+        part = torch.zeros(m, n, dtype=torch.float32)
+        for sub in range(g // kc):
+            rows = p[grp * g // 2 + sub * half: grp * g // 2 + (sub + 1) * half]
+            b = torch.cat([_bits_bf16(0x4300 | (rows & 15)) - 136.0,
+                           _bits_bf16(0x4300 | (rows >> 4)) - 136.0])
+            lo = grp * g + sub * half
+            a = torch.cat([xb[:, lo:lo + half], xb[:, lo + g // 2:lo + g // 2 + half]], dim=1)
+            part = part + a @ b
+        s = torch.from_numpy(scale[grp]).double()
+        acc = (part.double() * s + acc.double()).float()
+    return acc.numpy()
+
+
+@pytest.mark.parametrize("m,k,n,n_groups", [(8, 512, 128, 4), (37, 512, 48, 2),
+                                             (16, 640, 32, 10), (5, 512, 16, 1)])
+def test_wgmma_order_emulation_matches_pallas(m, k, n, n_groups):
+    """The wgmma form's order (G = 128, 256, 64, and one group of 512 rows
+    in four chunks) against the JAX Pallas kernel in interpret mode. Both
+    sum exact bf16·int4 products in f32 group by group, in different orders
+    within a group: rtol 1e-5 with a floor of 1e-5·max|y|."""
+    rng = _rng(m * k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    packed, scale = _q4(rng, k, n, n_groups)
+    want = jq4.int4_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scale),
+                           interpret=True)
+    assert tq4.mm_form(max(m, 5), k, n, n_groups) == "wgmma"
+    _close(_wgmma_order(x, packed, scale), want)
