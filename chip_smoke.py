@@ -81,7 +81,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    L ∈ {17, 130, 1608} in bf16 and f32;
 7. K2 against its plain version at the mmE5-11B text stack's five shapes
    in bf16, one f32 shape and ragged shapes, with the bf16 cuBLAS time of
-   ``x @ W_bf16`` beside it as context (not the same function);
+   ``x @ W_bf16`` and ``torch._weight_int8pack_mm`` ("none" where the card's
+   torch has no CUDA kernel for it) beside it as context (neither is the
+   same function); the form each case took, the Python rule held to the
+   launcher's, all five text shapes on the wgmma form, gate,up and k,v
+   EQUAL bit for bit over two calls; the wgmma form's edges (M = 5, 129
+   and 600, N = 48 and 1040, K = 200 and 20488, more tiles than CTAs, tiles
+   cut across CTAs, 256-row tiles) and an x 8 bytes off that takes the
+   ``mma.sync`` form; each wgmma launch's stream-K plan; from ``ptxas``
+   each kernel's registers and spills (none in the wgmma form) and from
+   ``cuobjdump -sass`` its ``I2F``/``I2FP`` (none) and ``HGMMA`` (> 0)
+   counts; beside each timed median (one call from an idle card, the host's
+   time per call included), the device time per call of 20 back-to-back
+   calls;
 8. the full-width mmE5 page: the same detector, then mmE5-Mllama-11B
    ``int8-mixed`` (bf16 vision tower, int8 text stack) at full width and
    depth over 48 crops at 560 px in chunks of 8, random weights from seed 0
@@ -152,6 +164,10 @@ CUDA device.
 
 runs phase 1, K5's build and K5's checks of phases 4a and 3a only (a
 minute on the card), and prints no result line.
+
+    python3 chip_smoke.py --k2
+
+runs phase 1, K2's build and phase 7 only, and prints no result line.
 
     python3 chip_smoke.py --k3
 
@@ -734,19 +750,74 @@ K2_SHAPES = {
 K2_HEADLINE = "gate,up (512,4096)x(4096,14336)"
 
 
+# (M, K, N, byte offset of x, what) of the wgmma form's edges, and one
+# shape the rule sends to the mma.sync form
+K2_WGMMA_EDGES = (
+    (5, 1024, 256, 0, "M = 5: TMA zero-fills 123 of the tile's rows"),
+    (129, 512, 384, 0, "M = 129: a second M tile of one row"),
+    (300, 512, 48, 0, "N = 48 < 128: the pair's second tile past N"),
+    (200, 1024, 1040, 0, "N = 1040: a last N tile of 16 columns"),
+    (64, 200, 256, 0, "K = 200: a last chunk of 72 rows"),
+    (1200, 512, 4736, 0, "370 tiles, more than the card's CTAs"),
+    (256, 2048, 512, 0, "8 tiles over 16 chunks, each cut across CTAs"),
+    (600, 20488, 1040, 0, "256-row tiles: M = 600, N = 1040, a last chunk of 8 rows, "
+     "tiles cut across CTAs"),
+    (64, 1024, 256, 8, "x 8 bytes off: the mma.sync form"),
+)
+
+
+def int8_library(x, q, scale):
+    """``torch._weight_int8pack_mm`` on these operands, as library context:
+    it takes the weight as (N, K) and bf16 scales, so its rounding is not
+    K2's. None where the card's torch has no CUDA kernel for it."""
+    import torch
+
+    wt, sb = q.t().contiguous(), scale.to(torch.bfloat16)
+    try:
+        torch._weight_int8pack_mm(x, wt, sb)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:120]})")
+        return None
+    ms = median_ms(lambda: torch._weight_int8pack_mm(x, wt, sb))
+    del wt, sb
+    return ms
+
+
 def int8_checks(k2) -> dict:
     """K2 against its plain version at the text stack's shapes."""
     import torch
 
     phase("7. K2 against its plain version (mmE5-11B text shapes)")
+    for tile_m, chunk in k2._WG_CHUNK.items():
+        consts = k2.wgmma_constants(tile_m)
+        print(f"K2 wgmma form: tile {consts[0]}x{consts[1]}, chunk {consts[2]} rows, "
+              f"cluster {consts[3]}, {consts[4]} stages; "
+              f"{k2.wgmma_resident(tile_m)} resident CTAs")
+        check(consts[:4] == (tile_m, k2._WG_TILE_N, chunk, k2._WG_CLUSTER),
+              f"the plan's constants differ from the kernel's {consts}")
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
 
-    def run(name, m, k, n, dtype, timed):
-        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    def run(name, m, k, n, dtype, timed, offset=0, same_bits=False, cut=False):
+        buf = torch.randn((m * k + offset // 2,), generator=gen, device=dev).to(dtype)
+        x = buf[offset // 2:].view(m, k)
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
         scale = (torch.rand((n,), generator=gen, device=dev) + 0.5) * (0.02 / 127)
+        form, launcher = k2.form_for(x, q, scale), k2.launcher_form(x, q, scale)
+        check(form == launcher, f"{name}: the Python rule says {form}, the launcher {launcher}")
         got = k2.int8_matmul(x, q, scale)
+        if same_bits:  # deterministic: a second call gives the same bits
+            check(torch.equal(got, k2.int8_matmul(x, q, scale)), f"{name}: two calls differ")
+        plan_note = ""
+        if form == "wgmma":
+            plan = k2.plan_for(x, q)
+            check(plan.cut_groups() > 0 or not cut, f"{name}: no tile is cut across CTAs")
+            sizes = [b - a for a, b in map(plan.share, range(plan.sets))]
+            plan_note = (f" plan: {plan.mt}x{plan.nt} tiles of {plan.tile_m} rows, "
+                         f"{plan.groups} groups x {plan.nchunks} chunks in {plan.seqs} "
+                         f"sequence(s) over {plan.clusters} clusters ({min(sizes)}-{max(sizes)} "
+                         f"units), {plan.cut_groups()} groups cut")
         want = k2.int8_matmul_reference(x, q, scale)
         torch.cuda.synchronize()
         check(got.dtype == dtype and got.shape == (m, n), f"{name}: {got.dtype} {got.shape}")
@@ -763,35 +834,56 @@ def int8_checks(k2) -> dict:
             check(share <= K2_MEAN_STEP_SHARE,
                   f"{name}: mean err {share:.3g} of a bf16 step > {K2_MEAN_STEP_SHARE}")
             note = f" mean/step {share:.2e}"
-        out = {"max_abs_err": max_err, "mean_abs_err": mean_err, "bound_share": ratio}
-        line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {max_err:.3e} "
-                f"mean_abs_err {mean_err:.3e}{note} err/allowed {ratio:.3f}")
+        out = {"max_abs_err": max_err, "mean_abs_err": mean_err, "bound_share": ratio,
+               "form": form, "tile_m": plan.tile_m if form == "wgmma" else None}
+        line = (f"{name} {str(dtype).split('.')[-1]} [{form}"
+                f"{', bit-equal twice' if same_bits else ''}]: max_abs_err {max_err:.3e} "
+                f"mean_abs_err {mean_err:.3e}{note} err/allowed {ratio:.3f}{plan_note}")
         if timed:
             w = q.to(dtype)
             out["ms"] = median_ms(lambda: k2.int8_matmul(x, q, scale))
+            out["device_ms"] = device_ms([lambda: k2.int8_matmul(x, q, scale)] * 20)
             out["plain_ms"] = median_ms(lambda: k2.int8_matmul_reference(x, q, scale), runs=10)
             out["cublas_ms"] = median_ms(lambda: x @ w)
+            del w
+            out["library_ms"] = int8_library(x, q, scale) if dtype == torch.bfloat16 else None
             out["bound_ms"], out["bound_by"] = bound_ms(
                 2.0 * m * k * n,
                 m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(),
                 dtype,
             )
-            line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.4f} ms "
+            lib = out["library_ms"]
+            line += (f" kernel {out['ms']:.4f} ms (back to back {out['device_ms']:.4f}) "
+                     f"plain {out['plain_ms']:.4f} ms "
                      f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) "
-                     f"[context: cuBLAS bf16 x@W {out['cublas_ms']:.4f} ms]")
+                     f"[context: cuBLAS bf16 x@W {out['cublas_ms']:.4f} ms; "
+                     f"torch._weight_int8pack_mm {'none' if lib is None else f'{lib:.4f} ms'}]")
         print(line, flush=True)
         return out
 
     results = {}
     for name, ((m, k, n), _) in K2_SHAPES.items():
-        results[name] = run(name, m, k, n, torch.bfloat16, timed=True)
+        results[name] = run(name, m, k, n, torch.bfloat16, timed=True,
+                            same_bits=name.startswith(("gate,up", "k,v")))
+        check(results[name]["form"] == "wgmma", f"{name}: took the {results[name]['form']} form")
     results["f32"] = run("k,v f32 (512,4096)x(4096,1024)", 512, 4096, 1024,
                          torch.float32, timed=True)
     for m, k, n in ((37, 200, 136), (1, 8, 16), (130, 72, 200), (300, 1000, 1030)):
         for dtype in (torch.bfloat16, torch.float32):
             run(f"ragged ({m},{k})x({k},{n})", m, k, n, dtype, timed=False)
-    chunk_ms = sum(results[s]["ms"] * count for s, (_, count) in K2_SHAPES.items())
-    print(f"K2 per embed chunk (280 launches) from these medians: {chunk_ms:.2f} ms")
+    for m, k, n, offset, what in K2_WGMMA_EDGES:
+        out = run(f"wgmma edge ({m},{k})x({k},{n}) x +{offset} B: {what}", m, k, n,
+                  torch.bfloat16, timed=False, offset=offset, cut="cut" in what)
+        check(out["form"] == ("mma_sync" if offset else "wgmma"),
+              f"wgmma edge {what}: took the {out['form']} form")
+        check(("256-row" in what) == (out["tile_m"] == 256),
+              f"wgmma edge {what}: tiles of {out['tile_m']} rows")
+    kernel_sass("K2", k2.build_info(), wgmma="int8_mm_wgmma")
+    def per_chunk(key):
+        return sum(results[s][key] * count for s, (_, count) in K2_SHAPES.items())
+
+    print(f"K2 per embed chunk (280 launches) from these medians: {per_chunk('ms'):.2f} ms "
+          f"(back to back {per_chunk('device_ms'):.2f} ms; bound {per_chunk('bound_ms'):.2f} ms)")
     return results
 
 
@@ -1218,24 +1310,27 @@ def _short(name: str) -> str:
     arguments."""
     import re
 
-    m = re.search(r"(int4_(?:mm_wgmma|mm|gemv)_kernel)(?:I(.*?)EEv)?", name)
+    m = re.search(r"(int[48]_(?:mm_wgmma|mm_bf16|mm_f32|mm|gemv)_kernel)(?:I(.*?)EEv)?", name)
     if m is None:
         return name
     args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16").replace("Li", "")
     return f"{m.group(1)}<{args.replace('E', ',')}>" if args else m.group(1)
 
 
-def k3_sass(k3) -> None:
-    """For every K3 kernel: ``ptxas``'s registers and spills (from the
-    build's report), and from the machine code (``cuobjdump -sass``, whose
-    whole listing of K3 is written beside the built library, as
-    ``<library>.sass``) the int-to-float conversions (``I2F``, ``I2FP``)
-    and the warpgroup products (``HGMMA``). The GEMV and the wgmma form have
-    no conversion and spill nothing; the wgmma form has HGMMA."""
+def kernel_sass(label: str, info, wgmma: str, gemv: str = "") -> None:
+    """For every kernel of one library (``info``: its ``BuildInfo``):
+    ``ptxas``'s registers and spills (from the build's report), and from the
+    machine code (``cuobjdump -sass``, whose whole listing is written beside
+    the built library, as ``<library>.sass``) the int-to-float conversions
+    (``I2F``, ``I2FP``) and the warpgroup products (``HGMMA``). The kernels
+    whose names hold ``wgmma`` (or ``gemv``, where given) have no conversion
+    and spill nothing; the ``wgmma`` ones have HGMMA."""
     import re
     import shutil
 
-    info = k3.build_info()
+    def no_conv(name):
+        return wgmma in name or bool(gemv and gemv in name)
+
     for block in info.log.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
         regs = re.search(r"Used (\d+) registers", block)
@@ -1243,17 +1338,17 @@ def k3_sass(k3) -> None:
         spills = f"{spill.group(1)}/{spill.group(2)}" if spill else "?"
         print(f"  ptxas {_short(name)}: {regs.group(1) if regs else '?'} registers, "
               f"spill stores/loads {spills} bytes")
-        if "wgmma" in name or "gemv" in name:
+        if no_conv(name):
             check(spills == "0/0", f"{_short(name)} spills {spills} bytes")
     if not info.log:
         print("  ptxas report: not available (the library was built earlier)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
-        print("K3 I2F/I2FP and HGMMA counts: not available (no cuobjdump)")
+        print(f"{label} I2F/I2FP and HGMMA counts: not available (no cuobjdump)")
         return
     proc = subprocess.run([tool, "-sass", str(info.path)], capture_output=True, text=True)
     if proc.returncode != 0:
-        print(f"K3 I2F/I2FP and HGMMA counts: not available (cuobjdump {proc.returncode})")
+        print(f"{label} I2F/I2FP and HGMMA counts: not available (cuobjdump {proc.returncode})")
         return
     info.path.with_suffix(".sass").write_text(proc.stdout)
     wgmma_seen = False
@@ -1263,12 +1358,12 @@ def k3_sass(k3) -> None:
         conv = sum(op in ("I2F", "I2FP") for op in ops)
         hgmma = sum(op == "HGMMA" for op in ops)
         print(f"  {_short(name)}: {len(ops)} instructions, I2F/I2FP {conv}, HGMMA {hgmma}")
-        if "wgmma" in name:
+        if wgmma in name:
             wgmma_seen = True
             check(hgmma > 0 and conv == 0, f"{_short(name)}: HGMMA {hgmma}, I2F/I2FP {conv}")
-        elif "gemv" in name:
+        elif no_conv(name):
             check(conv == 0, f"{_short(name)}: I2F/I2FP {conv}")
-    check(wgmma_seen, "no wgmma-form kernel in K3's machine code")
+    check(wgmma_seen, f"no wgmma-form kernel in {label}'s machine code")
 
 
 def int4_checks(k3) -> dict:
@@ -1276,7 +1371,7 @@ def int4_checks(k3) -> dict:
     import torch
 
     phase("11. K3 int4 matmul against its plain version (Qwen2.5-VL-32B shapes)")
-    k3_sass(k3)
+    kernel_sass("K3", k3.build_info(), wgmma="wgmma", gemv="gemv")
     gen = torch.Generator(device="cuda").manual_seed(11)
     dev = torch.device("cuda")
 
@@ -2357,6 +2452,11 @@ def main() -> int:
         k5_s2_checks(k5)
         print(f"K5 alone: {time.perf_counter() - start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--k2"]:
+        build(("K2", k2))
+        int8_checks(k2)
+        print(f"K2 alone: {time.perf_counter() - start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--k3"]:
         build(("K3", k3))
         int4_checks(k3)
@@ -2488,6 +2588,11 @@ def main() -> int:
     by_name = {k["name"]: k for k in kernels}
     by_name["ln_matmul"]["layer_norm_then_matmul_ms_context"] = k6_head["ln_then_matmul_ms"]
     by_name["int8_matmul"]["cublas_bf16_ms_context"] = k2_head["cublas_ms"]
+    by_name["int8_matmul"]["weight_int8pack_mm_ms_context"] = k2_head["library_ms"]
+    by_name["int8_matmul"]["shapes"] = {
+        s: {key: int8[s][key] for key in ("form", "tile_m", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "cublas_ms", "library_ms")}
+        for s in K2_SHAPES}
     by_name["int4_matmul"]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
     # the M > 4 (wgmma) form at the headline prefill shape, beside the decode headline
     pre = int4[f"prefill gate,up ({K3_PREFILL_M},5120)x(5120,27648)"]

@@ -144,6 +144,175 @@ def test_launch_counter_and_dispatch():
         tq.int8_matmul(x, q[:4], s)
 
 
+# (M, K, N) of the mmE5-11B text stack (chip_smoke.py's K2_SHAPES)
+_K2_SHAPES = [(512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336), (512, 14336, 4096),
+              (12808, 4096, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", _K2_SHAPES)
+def test_int8_mm_form_takes_wgmma_at_the_text_shapes(m, k, n):
+    assert tq.int8_mm_form(m, k, n) == "wgmma"
+    assert tq.int8_mm_form(m, k, n, dtype=torch.float32) == "f32"
+
+
+@pytest.mark.parametrize("m,k,n,aligned", [
+    (4, 4096, 1024, True),     # M <= 4
+    (1, 8, 16, True),
+    (37, 200, 136, True),      # N % 16 != 0
+    (300, 1000, 1030, True),   # N % 16 != 0
+    (130, 72, 200, True),      # N % 16 != 0
+    (64, 1020, 256, True),     # K % 8 != 0
+    (64, 1024, 256, False),    # a base off 16 bytes
+])
+def test_int8_mm_form_falls_back_to_mma_sync(m, k, n, aligned):
+    assert tq.int8_mm_form(m, k, n, aligned) == "mma_sync"
+
+
+def test_int8_form_for_reads_the_operands_alignment():
+    """``form_for`` takes the alignment from the contiguous operands it
+    hands the kernel: an x view 8 bytes into its buffer is refused."""
+    q, s = torch.zeros(256, 64, dtype=torch.int8), torch.ones(64)
+    buf = torch.zeros(8 * 256 + 4, dtype=torch.bfloat16)
+    base = buf.data_ptr() % 16
+    x = buf[(16 - base) % 16 // 2:][: 8 * 256].view(8, 256)  # 16-byte aligned view
+    assert tq.form_for(x, q, s) == ("wgmma" if tq._aligned(q, s) else "mma_sync")
+    off = buf[((16 - base) % 16 + 8) % 16 // 2:][: 8 * 256].view(8, 256)
+    assert off.data_ptr() % 16 == 8
+    assert tq.form_for(off, q, s) == "mma_sync"
+    assert tq.form_for(x.float(), q, s) == "f32"
+
+
+_PLANS = [(*shape, 132) for shape in _K2_SHAPES] + [
+    (5, 1024, 256, 132), (129, 512, 384, 132), (300, 512, 48, 132), (200, 1024, 1040, 132),
+    (64, 200, 256, 132), (1200, 512, 4736, 132), (256, 2048, 512, 132), (512, 4096, 1024, 8),
+    (512, 4096, 14336, 2), (40, 128, 16, 132), (600, 20488, 1040, 132),
+]
+
+
+@pytest.mark.parametrize("m,k,n,ctas", _PLANS)
+def test_int8_wgmma_plan_covers_every_unit_once(m, k, n, ctas):
+    """Every (group, chunk) unit is in exactly one cluster's share, each
+    sequence's shares are contiguous in order and differ in size by at most
+    one unit, no cluster is left without work, and a sequence is one M
+    tile's groups where the card holds 8 clusters per M tile."""
+    plan = tq.int8_wgmma_plan(m, k, n, ctas)
+    tm = plan.tile_m
+    assert tm == tq.wgmma_tile_m(m, k, n, ctas) and tm in (128, 256)
+    chunk = {128: 128, 256: 64}[tm]
+    assert plan.mt == -(-m // tm) and plan.nt == -(-n // 128) and plan.nchunks == -(-k // chunk)
+    assert plan.seqs == (plan.mt if 8 * plan.mt <= ctas // 2 else 1)
+    assert plan.ws_floats == plan.grid * 2 * 2 * 128 * tm // 2
+    assert plan.grid % plan.cluster == 0 and plan.grid <= max(ctas, plan.cluster)
+    assert plan.clusters % plan.seqs == 0
+    assert plan.sets == min(ctas // plan.cluster // plan.seqs, plan.units // plan.seqs)
+    shares = [plan.share(j) for j in range(plan.sets)]
+    assert shares[0][0] == 0 and shares[-1][1] == plan.units // plan.seqs
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [b - a for a, b in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    covered = np.zeros((plan.groups, plan.nchunks), np.int64)
+    for c in range(plan.clusters):
+        units = plan.units_of(c)
+        assert units and len({g % plan.mt for g, _ in units} if plan.seqs > 1 else {0}) == 1
+        for g, ch in units:
+            covered[g, ch] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("m,k,n,ctas", _PLANS)
+def test_int8_wgmma_plan_orders_a_cut_tiles_partials(m, k, n, ctas):
+    """A group's contributors are listed in cluster order with ascending,
+    adjacent chunk ranges that cover the group once: the fixed order in
+    which the kernel sums a cut tile's partials (k order)."""
+    plan = tq.int8_wgmma_plan(m, k, n, ctas)
+    cut = 0
+    for g in range(plan.groups):
+        parts = plan.contributors(g)
+        assert [c for c, _, _ in parts] == sorted(c for c, _, _ in parts)
+        assert parts[0][1] == 0 and parts[-1][2] == plan.nchunks
+        assert all(a[2] == b[1] and a[1] < a[2] for a, b in zip(parts, parts[1:]))
+        # the contributors are adjacent sets of one sequence: the kernel
+        # finds them by walking the share starts from its own
+        seqs = plan.seqs
+        assert [c % seqs for c, _, _ in parts] == [g % seqs] * len(parts)
+        sets = [c // seqs for c, _, _ in parts]
+        assert sets == list(range(sets[0], sets[-1] + 1))
+        cut += len(parts) > 1
+    assert cut == plan.cut_groups()
+
+
+@pytest.mark.parametrize("tile_m", [128, 256])
+def test_int8_wgmma_plan_at_the_text_shapes(tile_m):
+    """At the card's 132 CTAs: k,v keeps 64 or 66 clusters busy (its groups
+    cut into 512 units), gate,up's 7,168 units give shares of 108-109 (no
+    partial wave), each M tile its own sequence; the cross-attention k,v's
+    51 or 101 M tiles share one."""
+    mt = 512 // tile_m
+    kv = tq.int8_wgmma_plan(512, 4096, 1024, 132, tile_m)
+    assert (kv.tile_m, kv.units, kv.seqs, kv.clusters) == (tile_m, 512, mt, 66 // mt * mt)
+    assert kv.groups == mt * 4 and kv.cut_groups() == kv.groups
+    gu = tq.int8_wgmma_plan(512, 4096, 14336, 132, tile_m)
+    assert (gu.groups, gu.units, gu.seqs) == (mt * 56, 7168, mt)
+    assert {b - a for a, b in map(gu.share, range(gu.sets))} == (
+        {108, 109} if tile_m == 256 else {112})
+    cross = tq.int8_wgmma_plan(12808, 4096, 1024, 132, tile_m)
+    assert cross.seqs == 1 and cross.clusters == 66
+    one = tq.int8_wgmma_plan(512, 4096, 1024, 2 * kv.groups, tile_m)  # a cluster per group
+    assert one.cut_groups() == 0 and one.clusters == one.groups
+
+
+@pytest.mark.parametrize("m,k,n,tile_m,seqs", [
+    (512, 4096, 4096, 128, 4),    # q,o: 32-chunk shares, none cut on 128 rows
+    (512, 4096, 1024, 128, 4),    # k,v
+    (512, 4096, 14336, 256, 2),   # gate,up
+    (512, 14336, 4096, 256, 2),   # down
+    (12808, 4096, 1024, 256, 1),  # cross k,v: 51 M tiles share one sequence
+    (600, 20488, 1040, 256, 3),
+    (128, 65536, 4096, 128, 1),   # M <= 128
+])
+def test_int8_wgmma_tile_and_sequence_rules(m, k, n, tile_m, seqs):
+    """256-row tiles where a share of the 256-row plan holds at least 64
+    chunks; a sequence per M tile where the card holds 8 clusters per M
+    tile."""
+    plan = tq.int8_wgmma_plan(m, k, n, 132)
+    assert (plan.tile_m, plan.seqs) == (tile_m, seqs)
+
+
+def test_int8_matmul_plain_matches_pallas_at_a_narrowed_text_shape():
+    """K2's plain version (the CPU path) against the JAX Pallas kernel in
+    interpret mode at a narrowed text-stack shape, f32 (rtol 1e-5) and bf16
+    (2 bf16 steps over the f32 floor)."""
+    rng = _rng(13)
+    x = rng.normal(size=(64, 512)).astype(np.float32)
+    q = rng.integers(-127, 128, size=(512, 384)).astype(np.int8)
+    scale = (rng.uniform(0.5, 1.5, size=(1, 384)) * 0.02 / 127).astype(np.float32)
+    want = jq.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(scale), interpret=True)
+    _close(tq.int8_matmul(torch.from_numpy(x), torch.from_numpy(q),
+                          torch.from_numpy(scale)).numpy(), want)
+    want = np.asarray(jq.int8_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q),
+                                     jnp.asarray(scale), interpret=True).astype(jnp.float32))
+    got = tq.int8_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(q),
+                         torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_int8_matmul_cpu_dispatch_at_a_wgmma_shape():
+    """A CPU tensor at a shape the wgmma form takes still goes to the plain
+    version: the same values, no launch counted, no workspace made."""
+    rng = _rng(14)
+    x = torch.from_numpy(rng.normal(size=(64, 512)).astype(np.float32)).bfloat16()
+    q = torch.from_numpy(rng.integers(-127, 128, size=(512, 384)).astype(np.int8))
+    s = torch.from_numpy((rng.uniform(0.5, 1.5, size=(384,)) * 0.02 / 127).astype(np.float32))
+    assert tq.int8_mm_form(64, 512, 384) == "wgmma"
+    before, scratch, args = tq.int8_matmul.launches, dict(tq._scratch), dict(tq._launch_args)
+    got = tq.int8_matmul(x, q, s)
+    assert tq.int8_matmul.launches == before
+    assert tq._scratch == scratch and tq._launch_args == args
+    assert torch.equal(got, tq.int8_matmul_reference(x, q, s))
+
+
 def test_storage_dtypes():
     p2, p1 = torch.empty(4, 4), torch.empty(4)
     assert tquant.storage_dtype("weight", p2, torch.bfloat16) == torch.bfloat16
