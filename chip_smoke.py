@@ -61,7 +61,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ``cp.async`` path at C = 20 and on an x 2 bytes off alignment);
    each bf16 launch's plan (path, tile, phase, cluster, groups, chunks,
    stages, shared bytes, grid) is printed; K5's sum over the page's 12
-   launches must not exceed ``F.conv2d`` + ``F.silu``'s;
+   launches must not exceed ``F.conv2d`` + ``F.silu``'s. K6: every case's
+   form (wgmma, mma.sync, f32) held to the launcher's, the three path
+   shapes on the wgmma form and equal bit for bit twice, with the device
+   time per call of 20 calls back to back beside each median; the wgmma
+   form's edges (M = 1, 63, 129, 300; N = 48, 200, 1040; K = 136, 1280,
+   3000; runs that start mid row block; more units than CTAs), each plan
+   printed; ``ptxas`` registers and spills (none in the wgmma form) and
+   the ``HGMMA`` (> 0) and ``I2F``/``I2FP`` (0) counts from ``cuobjdump
+   -sass``;
 4b. the ViT page on the kernel routes: the same detector and ViT weights
    (seed 0) with ``DetectorConfig(pallas_convs=96, pallas_mode="stage")``,
    ``VisionConfig(fuse_ln=True)``, ``MMTPU_LN_STATS=1`` and
@@ -172,6 +180,11 @@ runs phase 1, K2's build and phase 7 only, and prints no result line.
     python3 chip_smoke.py --k3
 
 runs phase 1, K3's build and phase 11 only, and prints no result line.
+
+    python3 chip_smoke.py --k6
+
+runs phase 1, K6's build and K6's part of phase 4a only, and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -383,7 +396,7 @@ def build(*modules) -> None:
                 print("  " + line.strip().split("'")[1])  # the kernel's mangled name
             elif "C7519" in line:
                 continue  # counted below: ptxas placed a wgmma fence of its own
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "Performance Loss" in line:
                 print("    " + line.strip())
         fences = info.log.count("C7519")
         if fences:
@@ -918,7 +931,7 @@ def profile_run(label: str, run) -> None:
             fam = "K4 flash"
         elif "conv3x3_bf16" in name or "conv3x3_f32" in name:
             fam = "K5 conv3x3"
-        elif "ln_mm_bf16" in name or "ln_mm_f32" in name:
+        elif "ln_mm_wgmma" in name or "ln_mm_bf16" in name or "ln_mm_f32" in name:
             fam = "K6 ln_mm"
         elif "ln_stats_kernel" in name:
             fam = "K7 ln_stats"
@@ -1310,7 +1323,8 @@ def _short(name: str) -> str:
     arguments."""
     import re
 
-    m = re.search(r"(int[48]_(?:mm_wgmma|mm_bf16|mm_f32|mm|gemv)_kernel)(?:I(.*?)EEv)?", name)
+    m = re.search(r"((?:int[48]|ln)_(?:mm_wgmma|mm_bf16|mm_f32|mm|gemv)_kernel)(?:I(.*?)EEv)?",
+                  name)
     if m is None:
         return name
     args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16").replace("Li", "")
@@ -1721,6 +1735,23 @@ K6_SHAPES = {
     "mllama fc1 (12864,1280)x(1280,5120) +bias": (12864, 1280, 5120, True),
 }
 K6_HEADLINE = "vit fc1 (37632,768)x(768,3072) +bias"
+# (M, K, N, bias, byte offset of x, what) of K6's wgmma form's edges, and
+# shapes the rule sends to the mma.sync form
+K6_WGMMA_EDGES = (
+    (1, 768, 256, True, 0, "M = 1: TMA zero-fills 127 rows of the block"),
+    (63, 768, 512, False, 0, "M = 63: one block, two N tiles"),
+    (129, 256, 256, True, 0, "M = 129: a second row block of one row"),
+    (300, 512, 48, False, 0, "N = 48 < 256: one N tile of 48 columns"),
+    (300, 512, 200, True, 0, "N = 200: one N tile of 200 columns"),
+    (300, 1280, 1040, True, 0, "N = 1040: a last N tile of 16 columns, K = 1280"),
+    (200, 136, 512, True, 0, "K = 136: a last chunk of 8 columns"),
+    (300, 3000, 512, True, 0, "K = 3000: statistics looped over memory, 3 stages"),
+    (4096, 768, 768, False, 0, "96 units, one per CTA: runs that start mid row block"),
+    (8192, 768, 2304, True, 0, "576 units, more than CTAs: runs of 4-5 units that start "
+     "mid row block and cross into the next"),
+    (64, 768, 256, True, 8, "x 8 bytes off: the mma.sync form"),
+    (50, 100, 64, True, 0, "K = 100 (K % 8 != 0): the mma.sync form"),
+)
 K7_SHAPES = {
     "vit final_ln (48,784,768) bf16": ((48, 784, 768), "bfloat16"),
     "mllama local (8,1608,1280) bf16": ((8, 1608, 1280), "bfloat16"),
@@ -1849,22 +1880,44 @@ def conv_case(k5, gen, name, n, c, h, w, d, dtype, cout=None, strided=False, tim
     return out
 
 
-def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False):
-    """K6 against its plain version. Tolerance per output: the summation
-    bound 2·K·2⁻²⁴·Σ|xn·w|, one bf16 step of one normalised input of the
-    row times its weight (statistics that differ in the last f32 bit may
-    round an input the other way), and, in bf16, 2 steps of the product's
-    rounding and 2 of the output's (with a bias it rounds twice)."""
+def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False, offset=0,
+                   same_bits=False):
+    """K6 against its plain version (``offset``: x starts that many bytes
+    past an allocation; ``same_bits``: a second call must give the same
+    bits). The form is held to the launcher's choice, and a wgmma launch
+    prints its plan. Tolerance per output: the summation bound
+    2·K·2⁻²⁴·Σ|xn·w|, one bf16 step of one normalised input of the row times
+    its weight (statistics that differ in the last f32 bit may round an
+    input the other way), and, in bf16, 2 steps of the product's rounding
+    and 2 of the output's (with a bias it rounds twice)."""
     import torch
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    x = (torch.randn((m, k), generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+    buf = torch.empty((m * k + offset // 2,), device=dev, dtype=dtype)
+    x = buf[offset // 2:].view(m, k)
+    x.copy_((torch.randn((m, k), generator=gen, device=dev) * 1.5 + 0.3).to(dtype))
     gamma = torch.rand((k,), generator=gen, device=dev) + 0.5
     beta = torch.randn((k,), generator=gen, device=dev) * 0.2
     w = (torch.randn((k, n), generator=gen, device=dev) / k**0.5).to(dtype)
     bias = (torch.randn((n,), generator=gen, device=dev) * 0.5).to(dtype) if with_bias else None
+    form, launcher = k6.form_for(x, w, bias), k6.launcher_form(x, w, bias)
+    check(form == launcher, f"{name}: the Python rule says {form}, the launcher {launcher}")
+    plan_note = ""
+    if form == "wgmma":
+        plan = k6.plan_for(x, w)
+        runs = [plan.share(j) for j in range(plan.grid)]
+        passes = [plan.stats_passes(j) for j in range(plan.grid)]
+        mid = sum(u0 % plan.nt != 0 for u0, _ in runs)
+        plan_note = (f" plan: {plan.mb}x{plan.nt} units of 128x256 over {plan.grid} CTAs "
+                     f"({min(u1 - u0 for u0, u1 in runs)}-{max(u1 - u0 for u0, u1 in runs)} "
+                     f"units, {min(passes)}-{max(passes)} statistics passes, {mid} runs "
+                     f"starting mid row block), {plan.nchunks} chunks, {plan.stages} stages, "
+                     f"{plan.smem} B shared")
     got = k6.ln_matmul(x, gamma, beta, w, bias=bias)
+    if same_bits:  # no split-K: a second call gives the same bits
+        check(torch.equal(got, k6.ln_matmul(x, gamma, beta, w, bias=bias)),
+              f"{name}: two calls differ")
     want = k6.ln_matmul_reference(x, gamma, beta, w, bias)
     torch.cuda.synchronize()
     xf = x.float()
@@ -1883,11 +1936,14 @@ def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False):
     del xn, wabs
     out = gate(name, got, want, allowed, dtype)
     del allowed
-    line = (f"{name} {str(dtype).split('.')[-1]}: max_abs_err {out['max_abs_err']:.3e} "
-            f"err/allowed {out['bound_share']:.3f}")
+    out["form"] = form
+    line = (f"{name} {str(dtype).split('.')[-1]} [{form}"
+            f"{', bit-equal twice' if same_bits else ''}]: max_abs_err {out['max_abs_err']:.3e} "
+            f"err/allowed {out['bound_share']:.3f}{plan_note}")
     if timed:
         elem = x.element_size()
         out["ms"] = median_ms(lambda: k6.ln_matmul(x, gamma, beta, w, bias=bias))
+        out["device_ms"] = device_ms([lambda: k6.ln_matmul(x, gamma, beta, w, bias=bias)] * 20)
         out["plain_ms"] = median_ms(
             lambda: k6.ln_matmul_reference(x, gamma, beta, w, bias), runs=10)
         g16, b16 = gamma.to(dtype), beta.to(dtype)
@@ -1897,7 +1953,8 @@ def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False):
         out["bound_ms"], out["bound_by"] = bound_ms(
             2.0 * m * k * n + 8.0 * m * k,
             elem * (m * k + k * n + m * n + (n if with_bias else 0)) + 8 * k, dtype)
-        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.3f} ms "
+        line += (f" kernel {out['ms']:.4f} ms (back to back {out['device_ms']:.4f}) "
+                 f"plain {out['plain_ms']:.3f} ms "
                  f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) [context: "
                  f"F.layer_norm then x@W {out['ln_then_matmul_ms']:.4f} ms]")
     print(line, flush=True)
@@ -1991,6 +2048,50 @@ def k5_s2_checks(k5) -> dict:
     return res
 
 
+def k6_checks(k6) -> dict:
+    """K6 at the three path shapes (timed, each on the wgmma form and equal
+    bit for bit twice), one f32 shape, ragged shapes in bf16 and f32, the
+    wgmma form's edges (and shapes the rule sends to the mma.sync form),
+    each case's form held to the launcher's, each wgmma plan printed; from
+    the build, registers and spills (none in the wgmma form) and the
+    ``HGMMA`` (> 0) and ``I2F``/``I2FP`` (0) counts."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for k in (768, 1280, 3000):
+        consts = k6.wgmma_constants(k)
+        print(f"K6 wgmma form at K = {k}: tile {consts[0]}x{consts[1]}, chunk {consts[2]} "
+              f"columns, {consts[3]} stages, {consts[4]} B shared, {consts[5]} threads; "
+              f"{k6.wgmma_resident()} resident CTAs")
+        check(consts[:5] == (k6._WG_TILE_M, k6._WG_TILE_N, k6._WG_CHUNK, k6.wgmma_stages(k),
+                             k6.wgmma_smem(k, k6.wgmma_stages(k))),
+              f"the plan's constants differ from the kernel's {consts}")
+    res = {}
+    for name, (m, k, n, with_bias) in K6_SHAPES.items():
+        res[name] = ln_matmul_case(k6, gen, name, m, k, n, with_bias, bf16, timed=True,
+                                   same_bits=True)
+        check(res[name]["form"] == "wgmma", f"{name}: took the {res[name]['form']} form")
+        torch.cuda.empty_cache()
+    res["f32"] = ln_matmul_case(k6, gen, "f32 (1024,768)x(768,512) +bias", 1024, 768,
+                                512, True, f32, timed=True)
+    for m, k, n in ((37, 200, 136), (1, 8, 16), (130, 128, 200), (300, 1000, 1030)):
+        for dtype in (bf16, f32):
+            ln_matmul_case(k6, gen, f"ragged ({m},{k})x({k},{n})", m, k, n, m % 2 == 1, dtype)
+    for m, k, n, with_bias, offset, what in K6_WGMMA_EDGES:
+        out = ln_matmul_case(k6, gen, f"wgmma edge ({m},{k})x({k},{n}) x +{offset} B: {what}",
+                             m, k, n, with_bias, bf16, offset=offset)
+        want = "mma_sync" if "mma.sync" in what else "wgmma"
+        check(out["form"] == want, f"K6 edge {what}: took the {out['form']} form")
+        if "more than CTAs" in what:
+            plan = k6.ln_mm_wgmma_plan(m, k, n, k6.wgmma_resident())
+            check(plan.units > plan.grid and any(
+                plan.share(j)[0] % plan.nt for j in range(plan.grid)),
+                f"K6 edge {what}: no run starts mid row block")
+    kernel_sass("K6", k6.build_info(), wgmma="ln_mm_wgmma")
+    return res
+
+
 def route_kernel_checks(k1, k5, k6, k7) -> dict:
     """K5, K6, K7 and K1-BLHD against their plain versions."""
     import torch
@@ -1999,15 +2100,7 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
     phase("4a. K5, K6, K7 and K1-BLHD against their plain versions (kernel-route shapes)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    res = {"k5": k5_checks(k5), "k6": {}, "k7": {}}
-    for name, (m, k, n, with_bias) in K6_SHAPES.items():
-        res["k6"][name] = ln_matmul_case(k6, gen, name, m, k, n, with_bias, bf16, timed=True)
-        torch.cuda.empty_cache()
-    res["k6"]["f32"] = ln_matmul_case(k6, gen, "f32 (1024,768)x(768,512) +bias", 1024, 768,
-                                      512, True, f32, timed=True)
-    for m, k, n in ((37, 200, 136), (1, 8, 16), (130, 128, 200), (300, 1000, 1030)):
-        for dtype in (bf16, f32):
-            ln_matmul_case(k6, gen, f"ragged ({m},{k})x({k},{n})", m, k, n, m % 2 == 1, dtype)
+    res = {"k5": k5_checks(k5), "k6": k6_checks(k6), "k7": {}}
     for name, (shape, dtype) in K7_SHAPES.items():
         res["k7"][name] = ln_stats_case(k7, gen, name, shape, getattr(torch, dtype), timed=True)
     for shape in ((1, 8, 40), (2, 16, 1000), (3, 24, 12), (1, 8, 4)):
@@ -2461,6 +2554,12 @@ def main() -> int:
         build(("K3", k3))
         int4_checks(k3)
         print(f"K3 alone: {time.perf_counter() - start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--k6"]:
+        build(("K6", k6))
+        phase("4a. K6 alone: every form against its plain version")
+        k6_checks(k6)
+        print(f"K6 alone: {time.perf_counter() - start:.1f} s")
         return 0
     build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
           ("K8", SimpleNamespace(build_info=k2.sr_build_info)))

@@ -208,3 +208,120 @@ def test_mllama_tower_fuse_mlp_bf16(fused_calls):
         got, _ = port(torch.from_numpy(images), torch.ones(2, dtype=torch.long))
     assert len(fused_calls) == cfg.layers
     assert _cosines(got.float().numpy(), want).min() >= 0.9999
+
+
+# --- the wgmma form's rule and persistent schedule (pure Python) ------------
+
+PATH_SHAPES = [(37632, 768, 2304), (37632, 768, 3072), (12864, 1280, 5120)]
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_form_rule_path_shapes_take_wgmma(m, k, n):
+    assert k6.ln_mm_form(m, k, n) == "wgmma"
+    assert k6.wgmma_stages(k) == 4
+
+
+@pytest.mark.parametrize("m,k,n,aligned,dtype,want", [
+    (300, 1000, 1030, True, torch.bfloat16, "mma_sync"),  # N % 8 != 0
+    (50, 100, 64, True, torch.bfloat16, "mma_sync"),  # K % 8 != 0
+    (64, 768, 256, False, torch.bfloat16, "mma_sync"),  # a base off 16 bytes
+    (64, 8392, 256, True, torch.bfloat16, "mma_sync"),  # not even 3 stages fit
+    (64, 8384, 256, True, torch.bfloat16, "wgmma"),  # 3 stages
+    (1, 8, 16, True, torch.bfloat16, "wgmma"),
+    (1024, 768, 512, True, torch.float32, "f32"),
+])
+def test_form_rule_edges(m, k, n, aligned, dtype, want):
+    assert k6.ln_mm_form(m, k, n, aligned, dtype) == want
+
+
+def test_form_for_reads_alignment():
+    x, w = torch.zeros(4, 64, dtype=torch.bfloat16), torch.zeros(64, 32, dtype=torch.bfloat16)
+    assert k6.form_for(x, w) == "wgmma"
+    flat = torch.zeros(4 * 64 + 16, dtype=torch.bfloat16)
+    start = (-flat.data_ptr() % 16) // 2 + 4  # 8 bytes past a 16-byte boundary
+    off = flat[start:start + 4 * 64].view(4, 64)
+    assert k6.form_for(off, w) == "mma_sync"
+    assert k6.form_for(x, w, torch.zeros(32, dtype=torch.bfloat16)) == "wgmma"
+
+
+@pytest.mark.parametrize("m,k,n,ctas", [
+    (37632, 768, 2304, 132), (37632, 768, 3072, 132), (12864, 1280, 5120, 132),
+    (1, 136, 48, 132), (8192, 768, 2304, 132), (4096, 768, 768, 132), (300, 3000, 1040, 7)])
+def test_plan_covers_each_unit_once_in_contiguous_row_block_major_runs(m, k, n, ctas):
+    plan = k6.ln_mm_wgmma_plan(m, k, n, ctas)
+    assert plan.mb == -(-m // 128) and plan.nt == -(-n // 256) and plan.nchunks == -(-k // 64)
+    assert plan.grid == min(ctas, plan.units)
+    seen = []
+    sizes = []
+    for j in range(plan.grid):
+        units = plan.units_of(j)
+        sizes.append(len(units))
+        assert units, "every CTA has work"
+        assert units == sorted(units)  # row-block-major
+        flat = [rb * plan.nt + nj for rb, nj in units]
+        assert flat == list(range(flat[0], flat[-1] + 1))  # contiguous
+        if seen:
+            assert flat[0] == seen[-1] + 1  # the runs follow one another
+        seen += flat
+        # one statistics pass per row block the run meets
+        assert plan.stats_passes(j) == len({rb for rb, _ in units})
+    assert seen == list(range(plan.units))  # every unit exactly once
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_plan_runs_start_mid_row_block():
+    plan = k6.ln_mm_wgmma_plan(8192, 768, 2304, 132)
+    assert plan.units > plan.grid
+    starts = [plan.share(j)[0] for j in range(plan.grid)]
+    assert any(u0 % plan.nt for u0 in starts)
+    assert max(plan.stats_passes(j) for j in range(plan.grid)) == 2
+    # the ViT qkv shape: 2,646 units over 132 CTAs, runs of 20-21 units
+    # meeting 3-4 row blocks each
+    qkv = k6.ln_mm_wgmma_plan(37632, 768, 2304, 132)
+    passes = [qkv.stats_passes(j) for j in range(qkv.grid)]
+    assert min(passes) >= 3 and max(passes) <= 4
+
+
+def test_shared_memory_fits_every_k_the_form_accepts():
+    accepted = [k for k in range(8, 9000, 8) if k6.ln_mm_form(128, k, 256) == "wgmma"]
+    assert accepted[-1] == 8384 and len(accepted) == 8384 // 8
+    for k in accepted:
+        stages = k6.wgmma_stages(k)
+        assert stages in (3, 4)
+        assert k6.wgmma_smem(k, stages) <= 232448
+        assert stages == 3 or k6.wgmma_smem(k, 4) <= 232448
+        assert k6.ln_mm_wgmma_plan(128, k, 256, 132).smem == k6.wgmma_smem(k, stages)
+    assert k6.wgmma_stages(8392) == 0
+    with pytest.raises(ValueError):
+        k6.ln_mm_wgmma_plan(128, 8392, 256, 132)
+
+
+def test_narrowed_vit_fc1_against_pallas_bf16():
+    """A path shape narrowed to (256, 768) x (768, 512) with a bias, the
+    CPU dispatch against the JAX kernel in interpret mode (the bf16
+    tolerance of ``test_plain_matches_pallas_bf16``)."""
+    m, k, n = 256, 768, 512
+    x, gamma, beta, w, bias = _operands(14, m, k, n)
+    jx, jw, jb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, bias))
+    want = np.asarray(jax_ln_matmul(jx, jnp.asarray(gamma), jnp.asarray(beta), jw, bias=jb,
+                                    interpret=True).astype(jnp.float32))
+    tx, tw, tb = (torch.from_numpy(a).bfloat16() for a in (x, w, bias))
+    assert k6.form_for(tx, tw, tb) == "wgmma"
+    got = k6.ln_matmul(tx, torch.from_numpy(gamma), torch.from_numpy(beta), tw, bias=tb)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    xf = tx.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + 1e-6) * torch.from_numpy(gamma)
+          + torch.from_numpy(beta)).bfloat16().float()
+    wabs = tw.float().abs().numpy()
+    flip = np.outer(_step(xn.numpy()).max(-1), wabs.max(0))
+    # the product rounds once and, with the bias, the sum again
+    pre = np.asarray(jax_ln_matmul(jx, jnp.asarray(gamma), jnp.asarray(beta), jw,
+                                   interpret=True).astype(jnp.float32))
+    allowed = (2 * k * 2.0**-24 * (xn.abs().numpy() @ wabs) + flip
+               + 2 * _step(pre) + 2 * _step(want))
+    err = np.abs(got - want)
+    assert np.all(err <= allowed)
+    assert err.mean() <= 0.05 * _step(want).mean()
