@@ -69,7 +69,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    3000; runs that start mid row block; more units than CTAs), each plan
    printed; ``ptxas`` registers and spills (none in the wgmma form) and
    the ``HGMMA`` (> 0) and ``I2F``/``I2FP`` (0) counts from ``cuobjdump
-   -sass``;
+   -sass``. K7: the path shapes equal bit for bit twice, each timed as the
+   device time per call back to back over copies larger than the L2 (the
+   figure held against the bound), back to back on one x, and as a median
+   of single launches, and ``torch.var_mean`` the same ways; edges (rows not
+   a multiple of a block, one block, the Qwen vision shape, an x one
+   element off alignment, D = 12, rows of 8 to 64 KB), each twice; registers
+   and spills (none) from ``ptxas``, or from ``cuobjdump -res-usage`` when
+   the library was built earlier;
 4b. the ViT page on the kernel routes: the same detector and ViT weights
    (seed 0) with ``DetectorConfig(pallas_convs=96, pallas_mode="stage")``,
    ``VisionConfig(fuse_ln=True)``, ``MMTPU_LN_STATS=1`` and
@@ -184,6 +191,11 @@ runs phase 1, K3's build and phase 11 only, and prints no result line.
     python3 chip_smoke.py --k6
 
 runs phase 1, K6's build and K6's part of phase 4a only, and prints no
+result line.
+
+    python3 chip_smoke.py --k7
+
+runs phase 1, K7's build and K7's part of phase 4a only, and prints no
 result line.
 """
 
@@ -1323,8 +1335,8 @@ def _short(name: str) -> str:
     arguments."""
     import re
 
-    m = re.search(r"((?:int[48]|ln)_(?:mm_wgmma|mm_bf16|mm_f32|mm|gemv)_kernel)(?:I(.*?)EEv)?",
-                  name)
+    m = re.search(
+        r"((?:int[48]|ln)_(?:mm_wgmma|mm_bf16|mm_f32|mm|gemv|stats)_kernel)(?:I(.*?)EEv)?", name)
     if m is None:
         return name
     args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16").replace("Li", "")
@@ -1763,6 +1775,16 @@ K7_HEADLINE = "mllama local (8,1608,1280) bf16"
 # 1e-5 of itself (a sum taken in bf16, or a two-pass variance, moves them by
 # 1e-3 and more)
 K7_RTOL = 1e-5
+# (shape, x's offset in elements, what) of K7's edges, each in bf16 and f32
+K7_EDGES = (
+    ((5, 1001, 768), 0, "rows not a multiple of a block's 8"),
+    ((1, 8, 768), 0, "one block"),
+    ((1, 4960, 1280), 0, "the Qwen vision tower's LayerNorm"),
+    ((4, 100, 768), 1, "x off 16-byte alignment: element loads"),
+    ((2, 40, 12), 0, "D = 12: 24 bytes a bf16 row, element loads"),
+    ((1, 8, 4096), 0, "rows of 8 and 16 KB"),
+    ((1, 8, 16384), 0, "rows of 32 and 64 KB"),
+)
 ROUTE_SWITCHES = {"MMTPU_LN_STATS": "1", "MMTPU_ENC_ATTN_BLHD": "1"}
 
 
@@ -1961,12 +1983,52 @@ def ln_matmul_case(k6, gen, name, m, k, n, with_bias, dtype, timed=False, offset
     return out
 
 
-def ln_stats_case(k7, gen, name, shape, dtype, timed=False):
-    """K7 against its plain version (tolerance: ``K7_RTOL``)."""
+def k7_times(k7, x) -> dict:
+    """K7's times at one input, and ``torch.var_mean``'s timed the same ways:
+    ``ms``, the device time per call of back-to-back launches over copies of
+    x that together exceed the 50 MB L2 (at least 128 MB, so each launch
+    streams its input from HBM; the figure held against the bound);
+    ``warm_ms``, back to back on x alone (an input that fits the L2 stays
+    there, as the tower's LayerNorm input just written by the residual add
+    partly does); ``median_ms``, the median of single launches from an idle
+    card (the wrapper's host time included)."""
     import torch
 
-    x = (torch.randn(shape, generator=gen, device="cuda") * 1.3 + 0.2).to(dtype)
+    copies = [x] + [x.clone() for _ in range(-(-128 * 2**20 // (x.numel() * x.element_size())) - 1)]
+    reps = max(1, 48 // len(copies))
+
+    def var_mean(t):
+        return torch.var_mean(t, dim=-1, keepdim=True, correction=0)
+
+    out = {
+        "ms": device_ms([lambda c=c: k7.ln_stats(c, 1e-6) for c in copies] * reps),
+        "warm_ms": device_ms([lambda: k7.ln_stats(x, 1e-6)] * 48),
+        "median_ms": median_ms(lambda: k7.ln_stats(x, 1e-6)),
+        "library_ms": device_ms([lambda c=c: var_mean(c) for c in copies] * reps),
+        "library_warm_ms": device_ms([lambda: var_mean(x)] * 48),
+        "library_median_ms": median_ms(lambda: var_mean(x)),
+        "copies": len(copies),
+    }
+    del copies
+    return out
+
+
+def ln_stats_case(k7, gen, name, shape, dtype, timed=False, offset=0, same_bits=False):
+    """K7 against its plain version (tolerance: ``K7_RTOL``). ``offset``: x
+    starts that many elements past an allocation; ``same_bits``: a second
+    call must give the same bits. ``timed``: its times (``k7_times``), the
+    plain version's median and the bound."""
+    import torch
+
+    numel = math.prod(shape)
+    buf = torch.empty((numel + offset,), device="cuda", dtype=dtype)
+    x = buf[offset:].view(shape)
+    x.copy_(torch.randn(shape, generator=gen, device="cuda") * 1.3 + 0.2)
     mean, rstd = k7.ln_stats(x, 1e-6)
+    if same_bits:  # no atomics, no order set by scheduling
+        again = k7.ln_stats(x, 1e-6)
+        check(torch.equal(mean, again[0]) and torch.equal(rstd, again[1]),
+              f"{name}: two calls differ")
     want_m, want_r = k7.ln_stats_reference(x, 1e-6)
     torch.cuda.synchronize()
     rms = x.float().pow(2).mean(-1, keepdim=True).sqrt()
@@ -1974,21 +2036,79 @@ def ln_stats_case(k7, gen, name, shape, dtype, timed=False):
     out_r = gate(name + " rstd", rstd, want_r, K7_RTOL * want_r, torch.float32)
     out = {"max_abs_err": max(out_m["max_abs_err"], out_r["max_abs_err"]),
            "mean_max_abs_err": out_m["max_abs_err"], "rstd_max_abs_err": out_r["max_abs_err"]}
-    line = (f"{name}: mean max_abs_err {out_m['max_abs_err']:.3e} rstd max_abs_err "
-            f"{out_r['max_abs_err']:.3e}")
+    line = (f"{name}{' [bit-equal twice]' if same_bits else ''}: mean max_abs_err "
+            f"{out_m['max_abs_err']:.3e} rstd max_abs_err {out_r['max_abs_err']:.3e}")
     if timed:
         b, l, d = shape
-        out["ms"] = median_ms(lambda: k7.ln_stats(x, 1e-6))
+        out.update(k7_times(k7, x))
         out["plain_ms"] = median_ms(lambda: k7.ln_stats_reference(x, 1e-6))
-        out["library_ms"] = median_ms(
-            lambda: torch.var_mean(x, dim=-1, keepdim=True, correction=0))
         out["bound_ms"], out["bound_by"] = bound_ms(
             3.0 * b * l * d, x.element_size() * b * l * d + 8 * b * l, torch.float32)
-        line += (f" kernel {out['ms']:.4f} ms plain {out['plain_ms']:.4f} ms "
-                 f"torch.var_mean {out['library_ms']:.4f} ms bound {out['bound_ms']:.4f} ms "
-                 f"({out['bound_by']})")
+        line += (f" | back to back over {out['copies']} copies (> L2) {out['ms']:.4f} ms, "
+                 f"warm {out['warm_ms']:.4f}, single-launch median {out['median_ms']:.4f}; "
+                 f"torch.var_mean {out['library_ms']:.4f} / {out['library_warm_ms']:.4f} / "
+                 f"{out['library_median_ms']:.4f}; plain {out['plain_ms']:.4f} ms; bound "
+                 f"{out['bound_ms']:.4f} ms ({out['bound_by']}), "
+                 f"{100 * out['bound_ms'] / out['ms']:.0f}% of it")
     print(line, flush=True)
     return out
+
+
+def register_usage(info) -> list:
+    """(kernel, registers, spill note, spills) of every kernel of one library
+    (``info``: its ``BuildInfo``): from ``ptxas``'s report where this process
+    built the library, else from ``cuobjdump -res-usage`` of the library
+    itself (a spill there shows as a stack frame or local memory); fails
+    when neither is there."""
+    import re
+    import shutil
+
+    out = []
+    for block in info.log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        note = (f"spill stores/loads {spill.group(1)}/{spill.group(2)} bytes (ptxas)" if spill
+                else "spills not reported")
+        out.append((_short(block.split("'", 1)[0]), regs.group(1) if regs else "?", note,
+                    spill is None or spill.groups() != ("0", "0")))
+    if info.log:
+        return out
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.access(tool, os.X_OK), f"{info.path.name}: no ptxas report and no cuobjdump")
+    proc = subprocess.run([tool, "-res-usage", str(info.path)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"cuobjdump -res-usage {info.path.name}: {proc.returncode}")
+    for name, regs, stack, local in re.findall(
+            r"Function ([^\s:]+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", proc.stdout):
+        out.append((_short(name), regs, f"stack frame {stack}, local {local} bytes (cuobjdump)",
+                    (stack, local) != ("0", "0")))
+    check(bool(out), f"cuobjdump -res-usage {info.path.name}: no kernel read")
+    return out
+
+
+def k7_checks(k7) -> dict:
+    """K7 at the three path shapes (timed, each equal bit for bit twice),
+    ragged shapes, and the edges of ``K7_EDGES`` in bf16 and f32 (each twice);
+    each kernel's registers and spills (none allowed)."""
+    import torch
+
+    for name, regs, note, spills in register_usage(k7.build_info()):
+        print(f"  {name}: {regs} registers, {note}")
+        check(not spills, f"{name}: {note}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    res = {}
+    for name, (shape, dtype) in K7_SHAPES.items():
+        res[name] = ln_stats_case(k7, gen, name, shape, getattr(torch, dtype), timed=True,
+                                  same_bits=True)
+        torch.cuda.empty_cache()
+    for shape in ((1, 8, 40), (2, 16, 1000), (3, 24, 12), (1, 8, 4)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ln_stats_case(k7, gen, f"ragged {shape} {str(dtype).split('.')[-1]}", shape, dtype)
+    for shape, offset, what in K7_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            ln_stats_case(k7, gen, f"edge {shape} {str(dtype).split('.')[-1]}"
+                                   f"{f' x +{offset} elements' if offset else ''}: {what}",
+                          shape, dtype, offset=offset, same_bits=True)
+    return res
 
 
 def k5_checks(k5) -> dict:
@@ -2100,12 +2220,7 @@ def route_kernel_checks(k1, k5, k6, k7) -> dict:
     phase("4a. K5, K6, K7 and K1-BLHD against their plain versions (kernel-route shapes)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    res = {"k5": k5_checks(k5), "k6": k6_checks(k6), "k7": {}}
-    for name, (shape, dtype) in K7_SHAPES.items():
-        res["k7"][name] = ln_stats_case(k7, gen, name, shape, getattr(torch, dtype), timed=True)
-    for shape in ((1, 8, 40), (2, 16, 1000), (3, 24, 12), (1, 8, 4)):
-        for dtype in (bf16, f32):
-            ln_stats_case(k7, gen, f"ragged {shape} {str(dtype).split('.')[-1]}", shape, dtype)
+    res = {"k5": k5_checks(k5), "k6": k6_checks(k6), "k7": k7_checks(k7)}
 
     # K1 over (B, L, H, D) head slices of the fused (B·L, 3·H·D) qkv product
     def blhd_views(b, l, h, d, dtype):
@@ -2561,6 +2676,12 @@ def main() -> int:
         k6_checks(k6)
         print(f"K6 alone: {time.perf_counter() - start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--k7"]:
+        build(("K7", k7))
+        phase("4a. K7 alone: against its plain version, its times and its edges")
+        k7_checks(k7)
+        print(f"K7 alone: {time.perf_counter() - start:.1f} s")
+        return 0
     build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
           ("K8", SimpleNamespace(build_info=k2.sr_build_info)))
     counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)
@@ -2700,6 +2821,11 @@ def main() -> int:
     by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
     for name, res in (("encoder_attention_blf", vit), ("encoder_attention", masked[torch.bfloat16])):
         by_name[name]["flash_attention_v1_ms_context"] = res["flash_attention_v1_ms_context"]
+    by_name["ln_stats"]["shapes"] = {
+        s: {key: route["k7"][s][key] for key in (
+            "ms", "warm_ms", "median_ms", "library_ms", "library_warm_ms",
+            "library_median_ms", "plain_ms", "bound_ms", "bound_by")}
+        for s in K7_SHAPES}
     by_name["stochastic_round_quantize"]["torch_rand_ms_context"] = k8_head["rand_ms"]
     by_name["stochastic_round_quantize"]["mismatched_int8"] = sum(
         r["mismatched"] for r in last["k8"].values())

@@ -12,11 +12,32 @@
 //
 // What bounds it on this card: it reads each input byte once and does 3
 // flops per element, far below the H100's ~295 flops per HBM byte, so HBM
-// bandwidth bounds it. The design is a pure streaming reduction: one warp a
-// row, 16-byte loads (8 bf16 or 4 f32 per lane) in flight across the row,
-// f32 sums reduced with warp shuffles, 8 rows (warps) a block so that tens of
-// thousands of rows spread over every SM. The TPU kernel's row-block size and
-// VMEM budget (pick_row_block) have no counterpart: a warp holds no row.
+// bandwidth bounds it. At the path shapes (12-25 us of reads) a launch's
+// fixed cost weighs as much as the rate: back to back, one warp a row
+// already streams at ~91% of HBM rate, and an empty launch of 1,608 of its
+// blocks takes ~2.8 us. So the design keeps loads fine-grained and cuts the
+// fixed cost:
+//
+// - every launch is programmatic (programmatic stream serialization): the
+//   grid may be placed while the previous kernel in the stream drains, and
+//   each CTA waits for it (griddepcontrol.wait) before it reads or writes;
+//   the previous grid lets it go as its blocks exit. An empty launch back
+//   to back takes ~1.7 us;
+// - one warp a row, 8 rows a block: where the row is a whole number of
+//   16-byte words on a 16-byte-aligned base (every path shape; the
+//   launcher decides), lane l loads words l, l + 32, ... one at a time and
+//   sums them in f32; other rows are read an element at a time. A shuffle
+//   reduction follows, and lane 0 writes the row's mean and rstd.
+//
+// The order of every sum is fixed: no atomics, and two calls give equal
+// bits (equal to this kernel's earlier, stream-ordered launch). Issuing a lane's
+// loads together (all of a row's, or in groups of 4, 8 or 16) gained ~1 us
+// at the ViT shape and nothing, or lost, at the Mllama one; a ring of 1-D
+// bulk copies through shared memory, one persistent CTA per SM, measured
+// slower at every path shape: a completion per ~24-40 KB stage adds a ramp
+// and a drain that ~250 KB per SM does not amortise
+// (scripts/torch_k7_probe.py keeps each as a variant). The TPU kernel's
+// row-block size and VMEM budget (pick_row_block) have no counterpart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,7 +46,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps, one row each
+constexpr int THREADS = 256, ROWS = THREADS / 32;  // 8 warps, one row each
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -56,13 +77,21 @@ __device__ __forceinline__ void add8(float& s, float& s2, uint4 u, const float*)
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// nothing is read or written before the previous kernel in the stream has
+// finished (the launch is programmatic: this grid may be placed before)
+__device__ __forceinline__ void grid_dependency() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// vec: the row is a whole number of 16-byte words on a 16-byte boundary
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
                     float* __restrict__ rstd, long long rows, int D, float eps,
                     bool vec) {
+  grid_dependency();
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  const long long r = (long long)blockIdx.x * ROWS + (threadIdx.x >> 5);
   if (r >= rows) return;
   const T* row = x + r * D;
   float s = 0.f, s2 = 0.f;
@@ -83,31 +112,42 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// a programmatic launch of `grid` THREADS-thread blocks on `stream`
+template <typename T>
+int launch(const void* x, float* mean, float* rstd, long long rows, int D, float eps,
+           cudaStream_t stream) {
+  const long long grid = (rows + ROWS - 1) / ROWS;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = ((long long)D * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, ln_stats_kernel<T>, static_cast<const T*>(x),
+                                           mean, rstd, rows, D, eps, vec);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x is (rows, D) contiguous; mean and rstd
-// have rows f32 values. vec = 1 allows 16-byte loads (the caller checked
-// that D * itemsize is a multiple of 16 and the base alignment). Returns the
-// cudaError_t of the launch (0 = launched).
-int ln_stats_launch(int dtype, const void* x, void* mean, void* rstd, long long rows,
-                    int D, float eps, int vec, void* stream) {
+// have rows f32 values. Returns the cudaError_t of the launch (0 = launched).
+int ln_stats_launch(int dtype, const void* x, void* mean, void* rstd, long long rows, int D,
+                    float eps, void* stream) {
   if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* rs = static_cast<float*>(rstd);
-  if (dtype == 1)
-    ln_stats_kernel<__nv_bfloat16><<<(unsigned)blocks, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), m, rs, rows, D, eps, vec != 0);
-  else if (dtype == 0)
-    ln_stats_kernel<float><<<(unsigned)blocks, THREADS, 0, s>>>(
-        static_cast<const float*>(x), m, rs, rows, D, eps, vec != 0);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 1) return launch<__nv_bfloat16>(x, m, rs, rows, D, eps, s);
+  if (dtype == 0) return launch<float>(x, m, rs, rows, D, eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
