@@ -108,7 +108,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``cuobjdump -sass`` its ``I2F``/``I2FP`` (none) and ``HGMMA`` (> 0)
    counts; beside each timed median (one call from an idle card, the host's
    time per call included), the device time per call of 20 back-to-back
-   calls;
+   calls; then the shapes the mmE5 storage forms add (the int8 tower's
+   (12864, 1280)×(1280, 1280 | 5120) and (12864, 5120)×(5120, 1280); the
+   text stack at ``text_chunk=16``, M = 1024, and its cross k,v at M =
+   25616), each on the wgmma form, EQUAL over two calls, timed beside the
+   bound and cuBLAS bf16 ``x @ W``;
 8. the full-width mmE5 page: the same detector, then mmE5-Mllama-11B
    ``int8-mixed`` (bf16 vision tower, int8 text stack) at full width and
    depth over 48 crops at 560 px in chunks of 8, random weights from seed 0
@@ -116,15 +120,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unit norms and launch counts per page (K1 with the prefix 240, K2 1680,
    K1 packed 1); the detect/vision/text split, peak memory, parameter
    bytes, and a ``torch.profiler`` breakdown of one page;
+8b. phase 8's model and pages with ``text_chunk=16`` (the tower at 8 crops
+   a call, the text stack at 16 over the concatenated states): ms per page
+   beside phase 8's, launches per page (K2 840, K1 with the prefix 240, K1
+   packed 1), each region against the coupled path on the same crops
+   (cosine ≥ 0.999; the minimum and the largest difference printed);
+8c. phase 8's model on 4-tile crops: 8 regions (48 cut to 8 for time)
+   cropped at 1120 px and fed as their (2, 2) canvas, 2 crops a call, one
+   warm-up and one timed page; launches (K2 1120, K1 with the prefix 0: the
+   tower's attention is masked, on ``sdpa``'s plain path as in JAX, K1
+   packed 1), unit norms, peak memory, and ``build_fused_page_fn(
+   embed_tiles=4, embed_chunk=2)`` against the split form (cosine ≥ 0.999);
+8d. the engine's host API on phase 8's model at ``batch_size=2``:
+   ``get_image_embeddings`` on a 560×560 array, a 1120×560 array, a
+   2200×1700 synthetic page (1, 2 and 4 tiles) and a missing path (None),
+   launches (K2 280 per batch of 2, every other kernel 0: each image is a
+   tile stack with a tile mask, on the tower's masked path),
+   4096-wide unit-norm finite vectors, the 560×560 one against
+   ``encode_image`` of its one preprocessed tile (cosine ≥ 0.999), and
+   ``get_text_embeddings`` on one string and two (unit norms); ms per image
+   and per text;
 8a. the mmE5-11B vision tower of phase 8 (its weights reused, not drawn
    again) with ``fuse_ln="mlp"`` and ``MMTPU_LN_STATS=1``, one chunk of 8
    crops at 560: ms per chunk, launch counts per chunk (K6 32, K7 49, K1
    with the prefix 40), and the tower output's cosine against phase 8's
    default route on the same chunk (≥ 0.999 per crop);
 9. the card against the CPU for mmE5: the 11B widths at reduced depth,
-   ``int8-mixed``, built once in f32 on the CPU from a seed, carried to the
-   card in bf16 through the weight bridge; two of the page's crops,
-   cosine ≥ 0.999;
+   for each of ``int8-mixed``, ``int8``, ``int4`` and ``int4-mixed``,
+   built in f32 on the CPU from a seed, carried to the card in bf16
+   through the weight bridge; two of the page's crops, cosine ≥ 0.999;
+14. the full-width mmE5-11B page on ``mme5_11b_int4()``, ``int4-mixed``
+   and ``mme5_11b_int8()``, one model at a time (each freed before the
+   next), as phase 8 runs it: 1 warm-up and 2 timed pages, launch counts
+   per page (int4: K3 3120, int4-mixed: K3 1680, int8: K2 3120; K1 with
+   the prefix 240 and K1 packed 1 on each), ms per page, the detect /
+   vision / text split, peak memory, parameter bytes, a ``torch.profiler``
+   breakdown of one int4 page;
+15. a float checkpoint quantized at load: a float tree at the 11B widths
+   and reduced depth drawn on the CPU from a seed, loaded into an int4 and
+   an int8 model with the CPU and with the card as the target; the int8 and
+   uint8 values and the scales EQUAL between the two builds, and two crops
+   embedded on the card against the CPU build (cosine ≥ 0.999);
 10. K4 against its plain version: the Qwen vision shape ``(1, 4960, 16,
     80)`` and the causal GQA text shape ``(1, 2560, 40/8, 128)`` in bf16,
     timed beside SDPA and the bound, and edge cases (L = 1, 127, 129,
@@ -146,7 +182,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     EQUAL bit for bit at decode gate,up, ``lm_head`` and prefill gate,up;
     the M > 4 wgmma form's edges in bf16 and f32 (M = 5 and 129, N = 48 and
     1040, G = 64, 256 and one group of 512, more tiles than CTAs) and a
-    ``packed`` 8 bytes off that takes the ``mma.sync`` form; the form each
+    ``packed`` 8 bytes off that takes the ``mma.sync`` form; the mmE5 int4
+    shapes (the tower's three at M = 12864, the text stack's at M = 512,
+    cross k,v at 12808), each on the wgmma form, EQUAL over two calls, timed
+    beside the bound and cuBLAS bf16 ``x @ W``; the form each
     case took, the Python rule held to the launcher's, and all four
     prefill shapes on the wgmma form; from the machine code
     (``cuobjdump -sass``, "not available" without the tool) each kernel's
@@ -167,9 +206,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     kernels, bf16 on the card, same weights and page; last-position logit
     cosine ≥ 0.999.
 
-Every page phase (4, 4b, 4c, 8, 8a, 12) sets the launch counts of all 14
-kernel wrappers to 0 just before its timed run and holds them to exact
-values just after.
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 14) sets the launch
+counts of all 14 kernel wrappers to 0 just before its timed run and holds
+them to exact values just after.
 
 It prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -182,11 +221,13 @@ minute on the card), and prints no result line.
 
     python3 chip_smoke.py --k2
 
-runs phase 1, K2's build and phase 7 only, and prints no result line.
+runs phase 1, K2's build and phase 7 only (the mmE5 storage shapes
+included), and prints no result line.
 
     python3 chip_smoke.py --k3
 
-runs phase 1, K3's build and phase 11 only, and prints no result line.
+runs phase 1, K3's build and phase 11 only (the mmE5 int4 shapes
+included), and prints no result line.
 
     python3 chip_smoke.py --k6
 
@@ -245,6 +286,12 @@ NUM_REGIONS = 48
 TIMED_PAGES = 3
 MME5_CHUNK = 8
 MME5_TIMED_PAGES = 2
+MME5_TEXT_CHUNK = 16  # phase 8b: the text stack at 16 crops a pass
+# phase 8c: 4-tile crops. The tower attends over 4 x 1608 keys on the masked
+# plain path (~5-8 GB of scores per crop and layer), so 2 crops a call, and 8
+# regions instead of 48 for time only
+MME5_TILES4_REGIONS, MME5_TILES4_CHUNK = 8, 2
+MME5_API_BATCH = 2  # phase 8d: each image is a 4-tile stack; 16 would not fit
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -773,6 +820,29 @@ K2_SHAPES = {
     "cross k,v (12808,4096)x(4096,1024)": ((12808, 4096, 1024), 16),
 }
 K2_HEADLINE = "gate,up (512,4096)x(4096,14336)"
+# (M, K, N) the mmE5-11B storage forms add: the int8 tower at 8 crops x 1608
+# tokens (q, k, v, o, fc1, fc2 in each of its 40 layers), and the text stack
+# at text_chunk=16 (16 crops x 64 tokens; cross k,v over 16 x 1601 vision
+# tokens)
+K2_MME5_SHAPES = {
+    "tower q,k,v,o (12864,1280)x(1280,1280)": (12864, 1280, 1280),
+    "tower fc1 (12864,1280)x(1280,5120)": (12864, 1280, 5120),
+    "tower fc2 (12864,5120)x(5120,1280)": (12864, 5120, 1280),
+    "text_chunk=16 q,o (1024,4096)x(4096,4096)": (1024, 4096, 4096),
+    "text_chunk=16 k,v (1024,4096)x(4096,1024)": (1024, 4096, 1024),
+    "text_chunk=16 gate,up (1024,4096)x(4096,14336)": (1024, 4096, 14336),
+    "text_chunk=16 down (1024,14336)x(14336,4096)": (1024, 14336, 4096),
+    "text_chunk=16 cross k,v (25616,4096)x(4096,1024)": (25616, 4096, 1024),
+}
+# each tower layer's projections: q, k, v, o at the first shape, fc1, fc2
+TOWER_COUNTS = {"q,k,v,o": 4, "fc1": 1, "fc2": 1}
+
+
+def tower_chunk_ms(results) -> float:
+    """One 8-crop tower chunk's projections (40 layers) from the medians at
+    the tower shapes in ``results``."""
+    return 40 * sum(results[name]["ms"] * count for part, count in TOWER_COUNTS.items()
+                    for name in results if name.startswith(f"tower {part} "))
 
 
 # (M, K, N, byte offset of x, what) of the wgmma form's edges, and one
@@ -824,7 +894,7 @@ def int8_checks(k2) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
 
-    def run(name, m, k, n, dtype, timed, offset=0, same_bits=False, cut=False):
+    def run(name, m, k, n, dtype, timed, offset=0, same_bits=False, cut=False, library=True):
         buf = torch.randn((m * k + offset // 2,), generator=gen, device=dev).to(dtype)
         x = buf[offset // 2:].view(m, k)
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
@@ -871,7 +941,8 @@ def int8_checks(k2) -> dict:
             out["plain_ms"] = median_ms(lambda: k2.int8_matmul_reference(x, q, scale), runs=10)
             out["cublas_ms"] = median_ms(lambda: x @ w)
             del w
-            out["library_ms"] = int8_library(x, q, scale) if dtype == torch.bfloat16 else None
+            out["library_ms"] = (int8_library(x, q, scale)
+                                 if dtype == torch.bfloat16 and library else None)
             out["bound_ms"], out["bound_by"] = bound_ms(
                 2.0 * m * k * n,
                 m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(),
@@ -903,7 +974,14 @@ def int8_checks(k2) -> dict:
               f"wgmma edge {what}: took the {out['form']} form")
         check(("256-row" in what) == (out["tile_m"] == 256),
               f"wgmma edge {what}: tiles of {out['tile_m']} rows")
+    for name, (m, k, n) in K2_MME5_SHAPES.items():
+        results[name] = run(name, m, k, n, torch.bfloat16, timed=True, same_bits=True,
+                            library=False)
+        check(results[name]["form"] == "wgmma", f"{name}: took the {results[name]['form']} form")
     kernel_sass("K2", k2.build_info(), wgmma="int8_mm_wgmma")
+    print(f"K2 per int8 tower chunk (240 launches at M = 12864) from these medians: "
+          f"{tower_chunk_ms(results):.2f} ms")
+
     def per_chunk(key):
         return sum(results[s][key] * count for s, (_, count) in K2_SHAPES.items())
 
@@ -967,24 +1045,47 @@ def profile_run(label: str, run) -> None:
         print(f"    {ms:9.1f} ms {count:6d}x {key[:100]}")
 
 
-def mme5_page(counters, detector):
-    """The mmE5-11B int8-mixed page at full width; returns its launch
-    counts, the last page's crops and embeddings, the config and the
-    embedder."""
+def mme5_launches(config, chunks: int, text_passes: int, prefix: bool = True) -> dict:
+    """The launches of one mmE5 page of ``chunks`` vision chunks and
+    ``text_passes`` text passes, derived from the modules: each text pass
+    runs 7 projections in each of the text layers (q, k, v, o and gate, up,
+    down in a Llama layer; q, k, v, o on the cross layers' two inputs and
+    gate, up, down), each vision chunk 6 (q, k, v, o, fc1, fc2) in each of
+    the tower's local and global layers and, on the key-prefix route, K1
+    once per tower layer; the detect half runs K1 packed once. The
+    projector stays float."""
+    from multimodal_embeddings_tpu_torch.models.mme5 import split_quantize
+
+    vision_q, text_q = split_quantize(config.quantize)
+    v, t = config.vision, config.text
+    want = {"encoder_attention_blf_packed": 1}
+    if prefix:
+        want["encoder_attention"] = (v.layers + v.global_layers) * chunks
+    for q, n in ((text_q, 7 * t.layers * text_passes),
+                 (vision_q, 6 * (v.layers + v.global_layers) * chunks)):
+        if q:
+            name = "int4_matmul" if q == "int4" else "int8_matmul"
+            want[name] = want.get(name, 0) + n
+    return want
+
+
+def mme5_page(counters, detector, config, title: str, profile: bool = True):
+    """One mmE5-11B storage's page at full width (48 crops at 560 px in
+    chunks of 8, random weights from seed 0 drawn on the card); returns its
+    launches per page, the last page's crops and embeddings, the embedder,
+    its pages and the mean ms per page."""
     import torch
 
     from multimodal_embeddings_tpu_torch.config import EmbedderConfig
     from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
     from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
-    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
     from multimodal_embeddings_tpu_torch.models.quantized import param_bytes
     from multimodal_embeddings_tpu_torch.pipeline.fused import build_split_page_fn
 
-    phase("8. full-width mmE5-11B int8-mixed page program")
+    phase(title)
     t0 = time.perf_counter()
-    config = MllamaConfig.mme5_11b_int8_mixed()
     embedder = MultimodalEmbedder(
-        EmbedderConfig(family="mme5", dtype="bfloat16", quantize="int8-mixed"),
+        EmbedderConfig(family="mme5", dtype="bfloat16", quantize=config.quantize),
         model_config=config, device="cuda", seed=0,
     )
     fn = build_split_page_fn(
@@ -994,7 +1095,8 @@ def mme5_page(counters, detector):
     torch.cuda.synchronize()
     nbytes = param_bytes(embedder.model)
     print(f"set-up (random init on the card): {time.perf_counter() - t0:.1f} s; "
-          f"embedder parameters {nbytes / 1e9:.3f} GB ({nbytes} bytes)")
+          f"quantize={config.quantize!r}; embedder parameters {nbytes / 1e9:.3f} GB "
+          f"({nbytes} bytes)")
 
     t0 = time.perf_counter()
     fn(pages[0])
@@ -1013,21 +1115,16 @@ def mme5_page(counters, detector):
     launches = counts(counters)
     peak = torch.cuda.max_memory_allocated()
     chunks = NUM_REGIONS // MME5_CHUNK
-    v, t = config.vision, config.text
-    want = only(counters, {
-        "encoder_attention": (v.layers + v.global_layers) * chunks * MME5_TIMED_PAGES,
-        "encoder_attention_blf_packed": MME5_TIMED_PAGES,
-        "int8_matmul": 7 * t.layers * chunks * MME5_TIMED_PAGES,
-    })
+    per_page = mme5_launches(config, chunks, chunks)
+    want = only(counters, {k: c * MME5_TIMED_PAGES for k, c in per_page.items()})
     check(launches == want, f"launches {launches} != {want}")
     for res in results:
-        check_page(res, t.hidden)
+        check_page(res, config.text.hidden)
     print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
           + ", ".join(f"{x:.1f}" for x in page_ms) + ")")
     print(f"valid regions per page: {[int(r.valid.sum()) for r in results]}")
-    print(f"launches over {MME5_TIMED_PAGES} pages: K1 prefix {launches['encoder_attention']}, "
-          f"K2 {launches['int8_matmul']}, K1 packed {launches['encoder_attention_blf_packed']}, "
-          f"K1 blf {launches['encoder_attention_blf']}")
+    print(f"launches per page: " + ", ".join(
+        f"{k} {c // MME5_TIMED_PAGES}" for k, c in launches.items() if c))
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     # the three stages of the same path, timed apart
@@ -1059,43 +1156,297 @@ def mme5_page(counters, detector):
     print(f"detect+crop {statistics.mean(det_ms):.1f} ms/page, vision tower "
           f"{statistics.mean(vis_ms):.1f} ms/page, text stack {statistics.mean(txt_ms):.1f} "
           f"ms/page")
-    profile_run("page", lambda: fn(pages[-1]))
-    return launches, crops, embs, config, embedder
+    if profile:
+        profile_run("page", lambda: fn(pages[-1]))
+    launches = {k: c // MME5_TIMED_PAGES for k, c in launches.items()}
+    return launches, crops, embs, embedder, pages, statistics.mean(page_ms)
 
 
-def mme5_card_vs_cpu(crops, config) -> None:
+def mme5_text_chunk_page(counters, detector, embedder, pages, coupled_ms) -> dict:
+    """Phase 8's model and pages with the text stack decoupled: the vision
+    tower at 8 crops a call, the text stack at ``MME5_TEXT_CHUNK``."""
     import torch
 
-    from multimodal_embeddings_tpu_torch.config import EmbedderConfig
-    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
-    from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
-    from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
+    from multimodal_embeddings_tpu_torch.pipeline.fused import build_split_page_fn
 
-    phase("9. mmE5: card (bf16) against the CPU (f32, plain kernels)")
-    reduced = dataclasses.replace(
+    phase(f"8b. phase 8's mmE5 page with text_chunk={MME5_TEXT_CHUNK}")
+    fn = build_split_page_fn(detector, embedder, PAGE_HW, num_regions=NUM_REGIONS,
+                             embed_chunk=MME5_CHUNK, text_chunk=MME5_TEXT_CHUNK)
+    coupled = build_split_page_fn(detector, embedder, PAGE_HW, num_regions=NUM_REGIONS,
+                                  embed_chunk=MME5_CHUNK)
+    fn(pages[0])
+    torch.cuda.synchronize()
+    zero(counters)
+    page_ms, results = [], []
+    for page in pages[1:]:
+        t0 = time.perf_counter()
+        results.append(fn(page))
+        torch.cuda.synchronize()
+        page_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts(counters)
+    per_page = mme5_launches(embedder.model_config, NUM_REGIONS // MME5_CHUNK,
+                             NUM_REGIONS // MME5_TEXT_CHUNK)
+    want = only(counters, {k: c * MME5_TIMED_PAGES for k, c in per_page.items()})
+    check(launches == want, f"launches {launches} != {want}")
+    for res in results:
+        check_page(res, embedder.model_config.text.hidden)
+    *_, crops = fn.detect(pages[-1])
+    got, ref = fn.embed(crops), coupled.embed(crops)
+    cos = cosines(got, ref)
+    print(f"ms/page {statistics.mean(page_ms):.1f} (pages: "
+          + ", ".join(f"{x:.1f}" for x in page_ms) + f"); phase 8's coupled page "
+          f"{coupled_ms:.1f} in this run")
+    print(f"launches per page: " + ", ".join(
+        f"{k} {c // MME5_TIMED_PAGES}" for k, c in launches.items() if c))
+    print(f"each region against the coupled path on the same crops: cosine min "
+          f"{cos.min().item():.6f}, largest difference "
+          f"{(got - ref).abs().max().item():.3e}")
+    check(bool((cos >= COSINE_MIN).all()), f"text_chunk cosine {cos.min()} < {COSINE_MIN}")
+    return {k: c // MME5_TIMED_PAGES for k, c in launches.items()}
+
+
+def mme5_tiles4_page(counters, detector, embedder) -> dict:
+    """Phase 8's model on 4-tile crops: ``MME5_TILES4_REGIONS`` regions
+    cropped at 1120 px, each fed as its (2, 2) canvas, ``MME5_TILES4_CHUNK``
+    crops a call."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.pipeline.fused import (
+        build_fused_page_fn,
+        build_split_page_fn,
+    )
+
+    n, chunk = MME5_TILES4_REGIONS, MME5_TILES4_CHUNK
+    phase(f"8c. phase 8's mmE5 model on 4-tile crops: {n} regions at "
+          f"{2 * embedder.image_size} px, "
+          f"embed_chunk={chunk}")
+    fn = build_split_page_fn(detector, embedder, PAGE_HW, num_regions=n, embed_chunk=chunk,
+                             embed_tiles=4)
+    pages = make_pages(2)
+    t0 = time.perf_counter()
+    fn(pages[0])
+    torch.cuda.synchronize()
+    print(f"warm-up page: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    t0 = time.perf_counter()
+    res = fn(pages[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want = only(counters, mme5_launches(embedder.model_config, n // chunk, n // chunk,
+                                        prefix=False))
+    check(launches == want, f"launches {launches} != {want}")
+    emb = res.embeddings
+    hidden = embedder.model_config.text.hidden
+    check(tuple(emb.shape) == (n, hidden), f"embeddings {tuple(emb.shape)}")
+    check(bool(torch.isfinite(emb).all()), "non-finite embeddings")
+    norms = emb.norm(dim=-1)
+    check(bool(((norms - 1).abs() < 1e-3).all()), f"embedding norms {norms}")
+    fused = build_fused_page_fn(detector, embedder, PAGE_HW, num_regions=n, embed_chunk=chunk,
+                                embed_tiles=4)(pages[1]).embeddings
+    cos = cosines(fused, emb)
+    print(f"ms/page {ms:.1f} ({n} regions); launches per page: " + ", ".join(
+        f"{k} {c}" for k, c in launches.items() if c))
+    print(f"peak device memory: {peak / 2**30:.2f} GiB")
+    print(f"build_fused_page_fn(embed_tiles=4, embed_chunk={chunk}) against the split form, "
+          f"same page: cosine min {cos.min().item():.6f}")
+    check(bool((cos >= COSINE_MIN).all()), f"fused vs split cosine {cos.min()}")
+    return launches
+
+
+def mme5_engine_api(counters, embedder) -> dict:
+    """Phase 8's model through the host API: ``get_image_embeddings`` at
+    batch size ``MME5_API_BATCH`` on images of 1, 2 and 4 tiles and a path
+    that does not exist, and ``get_text_embeddings``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.mllama_processor import preprocess_image
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+    phase(f"8d. the engine's host API on phase 8's model (batch_size={MME5_API_BATCH})")
+    rng = np.random.default_rng(0)
+    size = embedder.image_size
+    square = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+    tall = rng.integers(0, 256, size=(2 * size, size, 3), dtype=np.uint8)
+    page = make_page(*PAGE_HW, seed=0)
+    tiles = [preprocess_image(im, embedder.max_tiles, embedder.image_size).num_tiles
+             for im in (square, tall, page)]
+    check(tiles == [1, 2, 4], f"tiles per image {tiles}")
+    with tempfile.TemporaryDirectory() as tmp:
+        images = [square, tall, page, os.path.join(tmp, "missing.png")]
+        embedder.get_image_embeddings(images[:1], batch_size=MME5_API_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        t0 = time.perf_counter()
+        embs = embedder.get_image_embeddings(images, batch_size=MME5_API_BATCH)
+        torch.cuda.synchronize()
+        image_ms = (time.perf_counter() - t0) * 1e3 / 3
+        launches = counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    # the text stack once per batch of images; the tower's attention masked
+    want = mme5_launches(embedder.model_config, 0, -(-3 // MME5_API_BATCH), prefix=False)
+    del want["encoder_attention_blf_packed"]  # no detect half
+    check(launches == only(counters, want), f"launches {launches} != {want}")
+    check(embs[3] is None, "the missing path has an embedding")
+    vecs = np.array(embs[:3])
+    hidden = embedder.model_config.text.hidden
+    check(vecs.shape == (3, hidden), f"embeddings {vecs.shape}")
+    check(bool(np.isfinite(vecs).all()), "non-finite embeddings")
+    norms = np.linalg.norm(vecs, axis=-1)
+    check(bool((np.abs(norms - 1) < 1e-3).all()), f"embedding norms {norms}")
+    one = torch.from_numpy(preprocess_image(square, embedder.max_tiles,
+                                            embedder.image_size).tiles[:1]).cuda()
+    single = embedder.encode_image(one).cpu()  # one tile, K1 with the key prefix
+    cos = cosines(torch.from_numpy(vecs[:1]), single)
+    t0 = time.perf_counter()
+    text_one = embedder.get_text_embeddings("a scanned newspaper page")
+    texts = embedder.get_text_embeddings(["the front page", "a photograph with a caption"])
+    torch.cuda.synchronize()
+    text_ms = (time.perf_counter() - t0) * 1e3 / 3
+    tnorms = np.linalg.norm(np.array([text_one] + texts), axis=-1)
+    check(len(text_one) == hidden and len(texts) == 2, "text embedding shapes")
+    check(bool((np.abs(tnorms - 1) < 1e-3).all()), f"text embedding norms {tnorms}")
+    print(f"get_image_embeddings: {image_ms:.1f} ms per image (3 images of 1, 2 and 4 tiles "
+          f"and a missing path, batches of {MME5_API_BATCH}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches: " + ", ".join(
+              f"{k} {c}" for k, c in launches.items() if c))
+    print(f"the {size}x{size} image against encode_image of its one preprocessed tile: cosine "
+          f"{cos.item():.6f}; get_text_embeddings {text_ms:.1f} ms per text")
+    check(cos.item() >= COSINE_MIN, f"one-tile cosine {cos.item()} < {COSINE_MIN}")
+    return launches
+
+
+def mme5_storage_pages(counters, detector) -> dict:
+    """Phase 14: the full-width page on each further storage, one model at
+    a time; returns the launches per page by storage."""
+    import gc
+
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
+
+    out = {}
+    for label, config in (("int4", MllamaConfig.mme5_11b_int4()),
+                          ("int4-mixed", dataclasses.replace(MllamaConfig.mme5_11b(),
+                                                             quantize="int4-mixed")),
+                          ("int8", MllamaConfig.mme5_11b_int8())):
+        launches, *_, embedder, _, _ = mme5_page(
+            counters, detector, config, f"14. full-width mmE5-11B {label} page program",
+            profile=label == "int4")
+        out[label] = launches
+        del embedder
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def reduced_mme5(config):
+    """The 11B widths at 2 local + 1 global tower layers and 2 text layers
+    (one Llama, one cross-attention)."""
+    return dataclasses.replace(
         config,
         vision=dataclasses.replace(config.vision, layers=2, global_layers=1,
                                    intermediate_layers=(0, 1)),
         text=dataclasses.replace(config.text, layers=2, cross_attn_layers=(1,)),
     )
-    t0 = time.perf_counter()
-    cpu = MultimodalEmbedder(
-        EmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
-        model_config=reduced, device="cpu", seed=0,
-    )
-    gpu = MultimodalEmbedder(
-        EmbedderConfig(family="mme5", dtype="bfloat16", quantize="int8-mixed"),
-        model_config=reduced, device="cuda", params=export_jax_params(cpu.model),
-    )
-    print(f"set-up (CPU f32 build, bridge to the card in bf16): {time.perf_counter() - t0:.1f} s")
-    mean, std = torch.tensor(IMAGE_MEAN), torch.tensor(IMAGE_STD)
+
+
+def normalised(crops):
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
+
+    mean = torch.tensor(IMAGE_MEAN, device=crops.device, dtype=crops.dtype)
+    std = torch.tensor(IMAGE_STD, device=crops.device, dtype=crops.dtype)
+    return (crops - mean) / std
+
+
+def mme5_card_vs_cpu(crops, config) -> None:
+    """Phase 9: each storage at the 11B widths and reduced depth, built in
+    f32 on the CPU from a seed and carried to the card in bf16 through the
+    bridge; two crops, card against CPU."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.config import EmbedderConfig
+    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+    from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
+
+    phase("9. mmE5: card (bf16) against the CPU (f32, plain kernels), per storage")
     two = crops[:2]
-    got = gpu.encode_image((two - mean.to(two)) / std.to(two))
-    x = two.float().cpu()
-    ref = cpu.encode_image((x - mean) / std)
-    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, dim=-1)
-    print(f"cosine card vs cpu: {[round(c, 6) for c in cos.tolist()]}")
-    check(bool((cos >= COSINE_MIN).all()), f"cosine {cos.tolist()} < {COSINE_MIN}")
+    for quantize in ("int8-mixed", True, "int4", "int4-mixed"):
+        reduced = reduced_mme5(dataclasses.replace(config, quantize=quantize))
+        t0 = time.perf_counter()
+        cpu = MultimodalEmbedder(
+            EmbedderConfig(family="mme5", dtype="float32", quantize=quantize),
+            model_config=reduced, device="cpu", seed=0,
+        )
+        gpu = MultimodalEmbedder(
+            EmbedderConfig(family="mme5", dtype="bfloat16", quantize=quantize),
+            model_config=reduced, device="cuda", params=export_jax_params(cpu.model),
+        )
+        got = gpu.encode_image(normalised(two))
+        ref = cpu.encode_image(normalised(two.float().cpu()))
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, dim=-1)
+        print(f"quantize={quantize!r}: set-up (CPU f32 build, bridge to the card in bf16) "
+              f"{time.perf_counter() - t0:.1f} s; cosine card vs cpu: "
+              f"{[round(c, 6) for c in cos.tolist()]}")
+        check(bool((cos >= COSINE_MIN).all()), f"{quantize!r}: cosine {cos.tolist()} "
+              f"< {COSINE_MIN}")
+        del cpu, gpu
+
+
+def mme5_float_checkpoint(crops, config) -> None:
+    """Phase 15: a float tree at the 11B widths and reduced depth, drawn on
+    the CPU from a seed, loaded into an int4 and an int8 model with the CPU
+    and with the card as the target (quantized at load on each)."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.config import EmbedderConfig
+    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+    from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
+
+    phase("15. a float checkpoint quantized at load: card against CPU")
+    float_config = reduced_mme5(dataclasses.replace(config, quantize=False))
+    t0 = time.perf_counter()
+    source = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32"),
+                                model_config=float_config, device="cpu", seed=0)
+    flat = export_jax_params(source.model)
+    del source
+    print(f"float tree: {len(flat)} leaves, {sum(v.nbytes for v in flat.values()) / 1e9:.2f} "
+          f"GB f32 ({time.perf_counter() - t0:.1f} s)")
+    two = crops[:2]
+    for quantize in ("int4", "int8"):
+        cfg = dataclasses.replace(float_config, quantize=quantize)
+        t0 = time.perf_counter()
+        cpu = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32",
+                                                quantize=quantize),
+                                 model_config=cfg, device="cpu", params=flat)
+        t1 = time.perf_counter()
+        gpu = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="bfloat16",
+                                                quantize=quantize),
+                                 model_config=cfg, device="cuda", params=flat)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gpu_params = dict(gpu.model.named_parameters())
+        stored = [(name, p) for name, p in cpu.model.named_parameters()
+                  if not p.is_floating_point() or name.endswith("kernel_scale")]
+        check(any(not p.is_floating_point() for _, p in stored), f"{quantize}: nothing quantized")
+        unequal = [name for name, p in stored if not torch.equal(p, gpu_params[name].cpu())]
+        check(not unequal, f"{quantize}: card and CPU quantized differently at {unequal[:5]}")
+        got = gpu.encode_image(normalised(two))
+        ref = cpu.encode_image(normalised(two.float().cpu()))
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, dim=-1)
+        print(f"{quantize}: {len(stored)} quantized leaves (values and scales) EQUAL between "
+              f"the card's and the CPU's build (CPU build {t1 - t0:.1f} s, card build "
+              f"{t2 - t1:.1f} s); cosine card vs cpu {[round(c, 6) for c in cos.tolist()]}")
+        check(bool((cos >= COSINE_MIN).all()), f"{quantize}: cosine {cos.tolist()}")
+        del cpu, gpu, gpu_params
 
 
 # K4 against its plain version: both round p to bf16 against the same
@@ -1292,6 +1643,19 @@ K3_SHAPES = {
     "down": (27648, 5120, 1),
 }
 K3_PREFILL_M = 1535
+# (M, K, N) the mmE5-11B int4 forms add, all with groups of 128: the int4
+# tower at 8 crops x 1608 tokens, and the text stack at 8 crops x 64 tokens
+# (cross k,v over 8 x 1601 vision tokens)
+K3_MME5_SHAPES = {
+    "tower q,k,v,o (12864,1280)x(1280,1280)": (12864, 1280, 1280),
+    "tower fc1 (12864,1280)x(1280,5120)": (12864, 1280, 5120),
+    "tower fc2 (12864,5120)x(5120,1280)": (12864, 5120, 1280),
+    "text q,o (512,4096)x(4096,4096)": (512, 4096, 4096),
+    "text k,v (512,4096)x(4096,1024)": (512, 4096, 1024),
+    "text gate,up (512,4096)x(4096,14336)": (512, 4096, 14336),
+    "text down (512,14336)x(14336,4096)": (512, 14336, 4096),
+    "text cross k,v (12808,4096)x(4096,1024)": (12808, 4096, 1024),
+}
 K3_HEADLINE = "decode gate,up (1,5120)x(5120,27648)"
 # (M, K, N, n_groups, byte offset of packed, what) of the GEMV form's edges
 K3_GEMV_EDGES = (
@@ -1513,6 +1877,14 @@ def int4_checks(k3) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             run(f"GEMV edge ({m},{k})x({k},{n}) {groups} group(s) packed +{offset} B: {what}",
                 m, k, n, groups, dtype, timed=False, offset=offset, cut="cut" in what)
+    mme5 = {}
+    for label, (m, k, n) in K3_MME5_SHAPES.items():
+        mme5[label] = run(f"mmE5 {label}", m, k, n, k // 128, torch.bfloat16, timed=True,
+                          same_bits=True)
+        check(mme5[label]["form"] == "wgmma", f"mmE5 {label}: took the {mme5[label]['form']} form")
+    results["mme5"] = mme5
+    print(f"K3 per int4 tower chunk (240 launches at M = 12864) from these medians: "
+          f"{tower_chunk_ms(mme5):.2f} ms")
     step = sum(results[f"decode {lab} (1,{k})x({k},{n})"]["ms"] * cnt
                for lab, (k, n, cnt) in K3_SHAPES.items()) * 64
     step += results[name]["ms"]
@@ -2650,6 +3022,7 @@ def main() -> int:
     from multimodal_embeddings_tpu_torch.kernels import ln_stats as k7
     from multimodal_embeddings_tpu_torch.kernels import quantization as k2
     from multimodal_embeddings_tpu_torch.kernels import quantization_int4 as k3
+    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
 
     start = time.perf_counter()
     smi = card()
@@ -2701,17 +3074,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     masked = masked_checks(k1, k4)
     int8 = int8_checks(k2)
-    mme5_launches, mme5_crops, _, mme5_config, mme5_embedder = mme5_page(counters, detector)
+    mme5_config = MllamaConfig.mme5_11b_int8_mixed()
+    mme5_launches, mme5_crops, _, mme5_embedder, mme5_pages, mme5_ms = mme5_page(
+        counters, detector, mme5_config, "8. full-width mmE5-11B int8-mixed page program")
     tower_launches = mme5_tower(counters, mme5_embedder, mme5_crops)
+    text_chunk_launches = mme5_text_chunk_page(counters, detector, mme5_embedder, mme5_pages,
+                                               mme5_ms)
+    del mme5_pages
+    tiles4_launches = mme5_tiles4_page(counters, detector, mme5_embedder)
+    api_launches = mme5_engine_api(counters, mme5_embedder)
     del mme5_embedder
     gc.collect()
     torch.cuda.empty_cache()
     mme5_card_vs_cpu(mme5_crops, mme5_config)
+    gc.collect()
+    storage_launches = mme5_storage_pages(counters, detector)
+    mme5_float_checkpoint(mme5_crops, mme5_config)
     del detector, crops, embs, mme5_crops
     gc.collect()
     torch.cuda.empty_cache()
     flash = flash_checks(k4)
     int4 = int4_checks(k3)
+    int4_mme5 = int4.pop("mme5")
     gc.collect()
     torch.cuda.empty_cache()
     qwen_launches, ids, pixels, qwen_config = qwen_page(counters)
@@ -2723,11 +3107,16 @@ def main() -> int:
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
     ref = "multimodal_embeddings_tpu/kernels/encoder_attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches over each path's timed run: 3 ViT pages on each route, 2 mmE5
-    # pages, one mmE5 tower chunk, 2 Qwen pages
+    # launches over each path's timed run: 3 ViT pages on each route, 2 Qwen
+    # pages; per page of each mmE5 path (per chunk of the fuse_ln tower, per
+    # host-API call of 3 images)
     paths = {"vit_page": vit_launches, "vit_kernel_route_page": route_launches,
              "vit_bhld_route_page": bhld_launches, "mme5_page": mme5_launches,
-             "mme5_tower_fuse_mlp": tower_launches, "qwen_page": qwen_launches}
+             "mme5_tower_fuse_mlp": tower_launches,
+             "mme5_text_chunk_page": text_chunk_launches, "mme5_tiles4_page": tiles4_launches,
+             "mme5_engine_api": api_launches,
+             **{f"mme5_{label}_page": v for label, v in storage_launches.items()},
+             "qwen_page": qwen_launches}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a
@@ -2747,7 +3136,8 @@ def main() -> int:
 
     vit, psa = checks[("vit", torch.bfloat16)], checks["psa"]
     k2_head = headline({s: int8[s] for s in K2_SHAPES}, K2_HEADLINE)
-    k3_head = headline(int4, K3_HEADLINE)
+    k3_head = headline({**int4, **{f"mmE5 {k}": v for k, v in int4_mme5.items()}},
+                       K3_HEADLINE)
     k4_head = headline(flash, "vision")
     k5_head = headline({s: route["k5"][s] for s in K5_SHAPES}, K5_HEADLINE)
     k6_head = headline({s: route["k6"][s] for s in K6_SHAPES}, K6_HEADLINE)
@@ -2812,12 +3202,15 @@ def main() -> int:
     by_name["int8_matmul"]["shapes"] = {
         s: {key: int8[s][key] for key in ("form", "tile_m", "ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by", "cublas_ms", "library_ms")}
-        for s in K2_SHAPES}
+        for s in (*K2_SHAPES, *K2_MME5_SHAPES)}
     by_name["int4_matmul"]["cublas_bf16_ms_context"] = k3_head["cublas_ms"]
     # the M > 4 (wgmma) form at the headline prefill shape, beside the decode headline
     pre = int4[f"prefill gate,up ({K3_PREFILL_M},5120)x(5120,27648)"]
     by_name["int4_matmul"]["prefill_gate_up"] = {
         key: pre[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
+    by_name["int4_matmul"]["mme5_shapes"] = {
+        s: {key: r[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
+        for s, r in int4_mme5.items()}
     by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
     for name, res in (("encoder_attention_blf", vit), ("encoder_attention", masked[torch.bfloat16])):
         by_name[name]["flash_attention_v1_ms_context"] = res["flash_attention_v1_ms_context"]

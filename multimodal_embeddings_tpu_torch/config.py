@@ -60,6 +60,7 @@ class EmbedderConfig:
     weights_path: Optional[str] = None
     prompt: str = "<|image|><|begin_of_text|> Represent the given image."
     # weight-only quantized storage for the mme5 family
-    # (models/quantized.py): False | True/"int8" | "int8-mixed" (bf16
-    # vision, int8 text); the JAX package's "int4" forms are not ported yet
+    # (models/quantized.py, models/mme5.py::split_quantize): False |
+    # True/"int8" | "int4" | "int8-mixed" | "int4-mixed" (the mixed forms:
+    # bf16 vision tower, int8 or int4 text stack)
     quantize: Any = False

@@ -81,9 +81,13 @@ class QTensor(NamedTuple):
 
 
 def compute_scale(w: torch.Tensor, contract_axes: Sequence[int]) -> torch.Tensor:
-    """Symmetric per-channel scale: max|w| over the contraction axes / 127."""
-    amax = w.float().abs().amax(dim=tuple(contract_axes), keepdim=True)
-    return amax.clamp_min(1e-8) / 127.0
+    """Symmetric per-channel scale: max|w| over the contraction axes / 127,
+    an IEEE division on any device. (Divided by a tensor: on CUDA, torch
+    turns division by a Python number into multiplication by its
+    reciprocal, which rounds differently; the JAX package's eager
+    ``quantize_tensor`` divides.)"""
+    amax = w.float().abs().amax(dim=tuple(contract_axes), keepdim=True).clamp_min(1e-8)
+    return amax / torch.full_like(amax, 127.0)
 
 
 def quantize_tensor(w: torch.Tensor, contract_axes: Sequence[int] = (0,)) -> QTensor:

@@ -86,15 +86,16 @@ def int4_group_size(k: int, group_size: int = 128) -> int:
 def quantize_tensor_int4(w: torch.Tensor, group_size: int = 128) -> Q4Tensor:
     """Symmetric group-wise int4 quantization of a 2-D ``(K, N)`` weight:
     ``q = clip(round(w / scale), -8, 7)``, ``scale = max|w|_group / 7``
-    (floored at 1e-8 / 7), round half to even."""
+    (floored at 1e-8 / 7), round half to even; both divisions are IEEE
+    divisions on any device (see ``quantization.compute_scale``)."""
     if w.dim() != 2:
         raise ValueError(f"expected a 2-D weight, got shape {tuple(w.shape)}")
     k, n = w.shape
     g = int4_group_size(k, group_size)
     n_groups = k // g
     wg = w.float().reshape(n_groups, g, n)
-    amax = wg.abs().amax(dim=1, keepdim=True)
-    scale = amax.clamp_min(1e-8) / 7.0
+    amax = wg.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
+    scale = amax / torch.full_like(amax, 7.0)  # an IEEE division on CUDA too
     q = torch.round(wg / scale).clamp(-8, 7).to(torch.int32) + 8
     packed = (q[:, : g // 2] | (q[:, g // 2 :] << 4)).to(torch.uint8).reshape(k // 2, n)
     return Q4Tensor(packed=packed, scale=scale.reshape(n_groups, n))

@@ -9,10 +9,12 @@ tanh-gated cross-attention blocks, pooled at the last attended token and
 L2-normalised.
 
 The config dataclasses mirror the JAX ones field for field. ``quantize``
-selects the weight storage: False (float), True/``"int8"`` (every
-projection int8), ``"int8-mixed"`` (float vision tower, int8 text stack —
-the serving default). The ``int4`` forms are not ported yet and raise.
-Module and parameter names follow the JAX scopes, so
+selects the weight storage (``split_quantize``): False (float), True or
+``"int8"`` (every projection int8, K2), ``"int4"`` (every projection packed
+int4 with group-128 scales, K3), ``"int8-mixed"`` (float vision tower, int8
+text stack — the serving default) and ``"int4-mixed"`` (float vision
+tower, int4 text stack). The multi-modal projector stays float in every
+form, as in JAX. Module and parameter names follow the JAX scopes, so
 ``models/weights.py`` bridges a JAX tree by path.
 """
 
@@ -104,10 +106,21 @@ class MllamaConfig:
         return cls()
 
     @classmethod
+    def mme5_11b_int8(cls) -> "MllamaConfig":
+        """The 11B layout with every projection int8 (tower and text)."""
+        return cls(quantize=True)
+
+    @classmethod
     def mme5_11b_int8_mixed(cls) -> "MllamaConfig":
         """11B with a bf16 vision tower and an int8 text stack (11.57 GB of
         parameters by ``param_bytes``)."""
         return cls(quantize="int8-mixed")
+
+    @classmethod
+    def mme5_11b_int4(cls) -> "MllamaConfig":
+        """The 11B layout with every projection packed int4, group-128
+        scales (tower and text)."""
+        return cls(quantize="int4")
 
     @classmethod
     def mme5_2b(cls) -> "MllamaConfig":
@@ -122,12 +135,14 @@ class MllamaConfig:
 
 
 def split_quantize(quantize) -> Tuple[Any, Any]:
-    """``quantize`` → (vision, text) storage: each False or True (int8)."""
+    """``quantize`` → (vision, text) storage, as ``MmE5Embedder.setup`` of
+    the JAX package maps it: the mixed forms keep the tower float, every
+    other value applies to both stacks."""
     if quantize == "int8-mixed":
         return False, True
-    if quantize in (False, None, True, "int8"):
-        return bool(quantize), bool(quantize)
-    raise NotImplementedError(f"quantize={quantize!r} is not ported (int8 forms only)")
+    if quantize == "int4-mixed":
+        return False, "int4"
+    return quantize, quantize
 
 
 class TilePositionalEmbedding(nn.Module):

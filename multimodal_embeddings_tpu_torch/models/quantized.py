@@ -22,21 +22,33 @@ Port of ``multimodal_embeddings_tpu/models/quantized.py``:
   [0, 255], floats N(0, 0.02) rounded to bf16 when a tensor holds more than
   1e6 values, 1-D leaves 0.02) — the 11B and 32B trees never exist on the
   host;
+* ``quantize_dense_tree``: a float parameter tree (the weight bridge's
+  flat dict) converted into a quantized module's storage, each float
+  ``kernel`` at an ``Int8Dense`` or ``Int4Dense`` site quantized in f32 on
+  the device given, one leaf at a time, with round half to even as in JAX:
+  a float checkpoint loads into a quantized model without a float twin on
+  the device;
 * ``param_bytes``.
-
-``quantize_dense_tree`` (quantizing a float tree) is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 from torch import nn
 
-from multimodal_embeddings_tpu_torch.kernels.quantization import QTensor, int8_apply
+from multimodal_embeddings_tpu_torch.kernels.quantization import (
+    QTensor,
+    int8_apply,
+    quantize_tensor,
+)
 from multimodal_embeddings_tpu_torch.kernels.quantization_int4 import (
     Q4Tensor,
     int4_apply,
     int4_group_size,
+    quantize_tensor_int4,
 )
 
 
@@ -91,6 +103,46 @@ class Int4Dense(nn.Module):
 def quant_dense_cls(quantize):
     """``True``/``"int8"`` → ``Int8Dense``; ``"int4"`` → ``Int4Dense``."""
     return Int4Dense if quantize == "int4" else Int8Dense
+
+
+def quantize_dense_tree(
+    src: Dict[str, np.ndarray], target: nn.Module, prefix: str = "", device=None,
+) -> Dict[str, np.ndarray]:
+    """Convert a float parameter tree into ``target``'s quantized storage.
+
+    ``src`` is the weight bridge's flat dict (``"params/<path>/kernel"`` →
+    numpy) of the float model; ``target`` the quantized module, its scope
+    in ``src`` under ``prefix``. Wherever ``target`` holds an ``Int8Dense``
+    or ``Int4Dense`` and ``src`` a float ``kernel``, the kernel is
+    reshaped to ``(in, out)`` and quantized in f32 (per output channel for
+    int8, in the target's scale groups for int4), on ``device`` (default
+    the target's, the CPU for a ``meta`` module), one leaf at a time; every
+    other leaf is carried over."""
+    if device is None:
+        device = next(target.parameters()).device
+        if device.type == "meta":
+            device = torch.device("cpu")
+    out = dict(src)
+    for name, site in target.named_modules():
+        if not isinstance(site, (Int8Dense, Int4Dense)):
+            continue
+        key = "/".join(filter(None, ["params", prefix, name.replace(".", "/"), "kernel"]))
+        if key not in src:
+            continue
+        del out[key]
+        w = torch.tensor(np.asarray(src[key], np.float32), device=device)
+        if isinstance(site, Int8Dense):
+            qt = quantize_tensor(w.reshape(site.kernel_q.shape), contract_axes=(0,))
+            leaves = {"kernel_q": qt.q, "kernel_scale": qt.scale}
+        else:
+            in_f, out_f = 2 * site.kernel_q4.shape[0], site.kernel_q4.shape[1]
+            qt = quantize_tensor_int4(
+                w.reshape(in_f, out_f), group_size=in_f // site.kernel_scale.shape[0]
+            )
+            leaves = {"kernel_q4": qt.packed, "kernel_scale": qt.scale}
+        for leaf, value in leaves.items():
+            out[key[: -len("kernel")] + leaf] = value.cpu().numpy()
+    return out
 
 
 def storage_dtype(name: str, param: torch.Tensor, dtype: torch.dtype) -> torch.dtype:

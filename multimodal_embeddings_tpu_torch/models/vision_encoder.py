@@ -1,23 +1,28 @@
-"""ViT image tower of the SigLIP/CLIP-style dual encoder, in PyTorch.
+"""The SigLIP/CLIP-style dual encoder, in PyTorch.
 
 Port of ``multimodal_embeddings_tpu/models/vision_encoder.py``: the config
 dataclasses (mirrored field for field, so a config means the same model in
-both packages) and ``ViTower`` (``DualEncoder.encode_image``). The text
-tower is not ported yet.
+both packages), ``ViTower`` (the image tower), ``TextTower`` and
+``DualEncoder`` (both towers and the learnable logit scale, the siglip
+engine's model). The text tower's padding mask sends its attention down
+``sdpa``'s plain path, as in JAX, so it runs no kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_embeddings_tpu_torch.models.mme5 import Embed
 from multimodal_embeddings_tpu_torch.models.transformer import (
     Dense,
     EncoderBlock,
     FastLayerNorm,
+    last_token_pool,
 )
 
 
@@ -89,5 +94,60 @@ class ViTower(nn.Module):
         for i in range(self.config.layers):
             x = getattr(self, f"block{i}")(x)
         x = self.final_ln(x)
-        out = self.proj(x.mean(dim=1)).float()
-        return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return _l2(self.proj(x.mean(dim=1)))
+
+
+def _l2(out: torch.Tensor) -> torch.Tensor:
+    out = out.float()
+    return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+class TextTower(nn.Module):
+    """Token embedding + learned positions (an f32 residual stream, as the
+    JAX tower's f32 positions promote it) → pre-LN blocks with the key
+    padding mask → final LN → the last attended token (f32, not
+    normalised) → projection → L2 normalisation (f32)."""
+
+    def __init__(self, config: TextConfig, embed_dim: int):
+        super().__init__()
+        self.config = config
+        c = config.width
+        self.tok_embed = Embed(config.vocab_size, c, torch.float32)
+        self.pos_embed = nn.Parameter(torch.empty(1, config.max_len, c))
+        for i in range(config.layers):
+            self.add_module(f"block{i}", EncoderBlock(c, config.heads, config.mlp_ratio))
+        self.final_ln = FastLayerNorm(c)
+        self.proj = Dense(c, embed_dim)
+
+    def forward(self, token_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """token_ids, attention_mask: (B, L) → (B, embed_dim) f32,
+        L2-normalised."""
+        x = self.tok_embed(token_ids.long()) + self.pos_embed[:, : token_ids.shape[1]]
+        mask = attention_mask[:, None, None, :].bool()
+        for i in range(self.config.layers):
+            x = getattr(self, f"block{i}")(x, mask=mask)
+        x = self.final_ln(x)
+        pooled = last_token_pool(x.float(), attention_mask, normalize=False)
+        return _l2(self.proj(pooled))
+
+
+class DualEncoder(nn.Module):
+    """The image and text towers in one embedding space, and the learnable
+    logit scale (stored as its log, ``exp`` at use)."""
+
+    def __init__(self, config: DualEncoderConfig):
+        super().__init__()
+        self.config = config
+        self.vision = ViTower(config.vision, config.embed_dim)
+        self.text = TextTower(config.text, config.embed_dim)
+        self.logit_scale = nn.Parameter(torch.full((1,), math.log(1 / 0.07)))
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.vision(images)
+
+    def encode_text(self, token_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.text(token_ids, attention_mask)
+
+    def forward(self, images, token_ids, attention_mask):
+        return (self.encode_image(images), self.encode_text(token_ids, attention_mask),
+                torch.exp(self.logit_scale))

@@ -18,7 +18,11 @@ scope path:
   Qwen vision tower's fused qkv, ``(H, D)`` for a decoder q/k/v), the int8
   ``kernel_q``/``kernel_scale`` and the packed int4 uint8
   ``kernel_q4``/``kernel_scale`` leaves of a quantized tree as they are (a
-  parameter the bridge has no rule for is read under its own path).
+  parameter the bridge has no rule for is read under its own path);
+* a float ``kernel`` where the port module holds an ``Int8Dense`` or
+  ``Int4Dense``: quantized on the module's device at load
+  (``models/quantized.py::quantize_dense_tree``), as the JAX engine
+  converts a float checkpoint for a quantized model.
 
 Every port parameter must be filled and every JAX key under the prefix
 used, with matching shapes, or the load raises. ``export_jax_params`` is the
@@ -45,6 +49,7 @@ from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig, MmE5Embedd
 from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig, QwenVLModel
 from multimodal_embeddings_tpu_torch.models.quantized import (
     materialize,
+    quantize_dense_tree,
     synthetic_int8_init,
 )
 from multimodal_embeddings_tpu_torch.models.transformer import Dense, FastLayerNorm
@@ -167,9 +172,10 @@ def _walk(module: nn.Module, path: str, visit) -> None:
 
 def load_jax_params(module: nn.Module, flat: Flat, prefix: str = "") -> nn.Module:
     """Fill ``module`` from JAX ``flatten_params`` output whose scope for
-    this module is ``prefix`` (``"vision"`` for the dual encoder's image
-    tower, ``""`` for the detector). Returns ``module``."""
-    read = _Reader(flat, prefix)
+    this module is ``prefix`` (``""`` for the detector and the engines'
+    models). Float kernels at quantized sites are quantized first, on the
+    module's device. Returns ``module``."""
+    read = _Reader(quantize_dense_tree(flat, module, prefix), prefix)
 
     def visit(obj, path):
         if isinstance(obj, nn.Parameter):
@@ -267,7 +273,6 @@ def init_random(module: nn.Module, seed: int = 0) -> nn.Module:
 
 def load_params(
     module: nn.Module, seed: int, params: Optional[Flat], weights_path: Optional[str],
-    prefix: str = "",
 ) -> nn.Module:
     """The parameter source of the engines: a JAX flat dict, else a JAX
     ``.npz`` checkpoint, else seeded random values."""
@@ -275,7 +280,7 @@ def load_params(
         params = load_npz(weights_path)
     if params is None:
         return init_random(module, seed)
-    return load_jax_params(module.float(), params, prefix)
+    return load_jax_params(module.float(), params)
 
 
 def resolve_device(device) -> torch.device:

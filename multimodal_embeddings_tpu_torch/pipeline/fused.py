@@ -11,13 +11,19 @@ device:
    class-aware cross-view NMS over the strongest candidates, and the top-K
    regions by score;
 4. the K regions cropped from the full page and embedded: by the ViT tower
-   (siglip), or CLIP-normalised and embedded single-tile by the mmE5 model
-   with the prompt (mme5).
+   (siglip), or CLIP-normalised and embedded by the mmE5 model with the
+   prompt (mme5): single-tile crops by default, or with ``embed_tiles=4``
+   crops at twice the tile size split into the (2, 2) tile canvas
+   (``tile_crops_2x2``).
+
+``build_split_page_fn(text_chunk=N)`` decouples the mmE5 model's two
+halves: the vision tower runs ``embed_chunk`` crops at a time, the states
+are concatenated on the device, and the text stack runs ``N`` crops at a
+time over them.
 
 PyTorch runs eagerly, so the JAX package's program-shaping arguments
 (``closure_weights``, ``embed_closure``, ``auto_layouts``) and its XLA cost
-analysis have no counterpart. The letterboxed views, the mme5 family's
-decoupled ``text_chunk`` and 4-tile ``embed_tiles`` paths and the multi-page
+analysis have no counterpart. The letterboxed views and the multi-page
 batch functions are not ported yet.
 """
 
@@ -30,7 +36,11 @@ import torch
 
 from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
 from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
-from multimodal_embeddings_tpu_torch.models.mllama_processor import IMAGE_MEAN, IMAGE_STD
+from multimodal_embeddings_tpu_torch.models.mllama_processor import (
+    IMAGE_MEAN,
+    IMAGE_STD,
+    aspect_ratio_to_id,
+)
 from multimodal_embeddings_tpu_torch.models.yolo_decode import (
     decode_predictions,
     top_k,
@@ -155,26 +165,88 @@ def build_fused_detect_fn(
     return detect_and_crop
 
 
+def tile_crops_2x2(crops: torch.Tensor, tile: int) -> torch.Tensor:
+    """(K, 2·tile, 2·tile, C) → (K, 4, tile, tile, C) in the Mllama
+    processor's row-major tile order (``mllama_processor.preprocess_image``:
+    canvas.reshape(th, tile, tw, tile, 3).transpose(0, 2, 1, 3, 4))."""
+    k, h, w, c = crops.shape
+    assert h == 2 * tile and w == 2 * tile, (h, w, tile)
+    t = crops.reshape(k, 2, tile, 2, tile, c)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(k, 4, tile, tile, c)
+
+
+def _region_embed_fn(embedder, num_regions, embed_chunk, embed_tiles, text_chunk=0):
+    """``embed(crops) → (num_regions, D)`` of the page's crops (``[0, 1]``
+    pixels), ``embed_chunk`` crops a call (0: all in one). The mme5 family
+    CLIP-normalises the crops first and, at ``embed_tiles=4``, feeds each
+    crop's (2, 2) tile canvas with its aspect-ratio id and a tile mask of
+    ones; ``text_chunk`` runs the vision tower at ``embed_chunk`` crops and
+    the text stack at ``text_chunk`` crops over the concatenated states."""
+    family = embedder.config.family
+    if embed_tiles not in (1, 4):
+        raise ValueError(f"embed_tiles must be 1 or 4, got {embed_tiles}")
+    if embed_tiles == 4 and family != "mme5":
+        raise ValueError("embed_tiles=4 requires the tiled mme5 family")
+    if text_chunk and family != "mme5":
+        raise ValueError("text_chunk decouples the Mllama vision/text stacks: mme5 only")
+    embed_chunk = embed_chunk or num_regions
+    for name, chunk in (("embed_chunk", embed_chunk), ("text_chunk", text_chunk)):
+        if chunk and num_regions % chunk:
+            raise ValueError(f"{name} {chunk} must divide {num_regions}")
+    embed_one = embedder.encode_image
+    if family == "mme5":
+        dev = embedder.device
+        mean, std = torch.tensor(IMAGE_MEAN, device=dev), torch.tensor(IMAGE_STD, device=dev)
+        ar_id = aspect_ratio_to_id((2, 2), embedder.model_config.vision.max_tiles) \
+            if embed_tiles == 4 else None
+
+        def normalise(crops):
+            crops = (crops - mean.to(crops.dtype)) / std.to(crops.dtype)
+            return crops if embed_tiles == 1 else tile_crops_2x2(crops, embedder.image_size)
+
+        def tile_args(n):
+            """(aspect-ratio ids, tile mask) of n (2, 2) canvases; none for
+            single tiles (the tower's key-prefix route)."""
+            if embed_tiles == 1:
+                return ()
+            return (torch.full((n,), ar_id, dtype=torch.long, device=dev),
+                    torch.ones(n, 4, dtype=torch.long, device=dev))
+
+        def embed_one(crops):
+            return embedder.encode_tiles(normalise(crops), *tile_args(crops.shape[0]))
+
+    def chunks(x, size):
+        return [x[i : i + size] for i in range(0, num_regions, size)]
+
+    def embed(crops: torch.Tensor) -> torch.Tensor:
+        if not text_chunk:
+            return torch.cat([embed_one(c) for c in chunks(crops, embed_chunk)])
+        states = torch.cat([embedder.vision_states(normalise(c), *tile_args(c.shape[0]))
+                            for c in chunks(crops, embed_chunk)])
+        # vision_mask None: every tile of a page crop is real
+        return torch.cat([embedder.embed_vision_states(s) for s in chunks(states, text_chunk)])
+
+    return embed
+
+
 def build_fused_page_fn(
     detector: LayoutDetector,
     embedder: MultimodalEmbedder,
     page_hw: Tuple[int, int],
     num_regions: int = 48,
+    embed_chunk: int = 0,
     letterbox: bool = False,
     edge_filter: bool = True,
+    embed_tiles: int = 1,
 ):
     """``fn(page_uint8) → PageResult``: detect, crop, and embed all
-    ``num_regions`` crops in one call."""
-    detect_and_crop = build_fused_detect_fn(
-        detector, page_hw, num_regions, embedder.image_size,
-        letterbox=letterbox, edge_filter=edge_filter,
-    )
-
-    def fn(page: torch.Tensor) -> PageResult:
-        boxes, scores, classes, valid, crops = detect_and_crop(page)
-        return PageResult(boxes, scores, classes, valid, embedder.encode_image(crops))
-
-    return fn
+    ``num_regions`` crops, ``embed_chunk`` at a time (0: all in one call;
+    otherwise it must divide ``num_regions``). ``embed_tiles=4`` (mme5
+    only) crops each region at twice the tile size and feeds the tower its
+    (2, 2) tile canvas. The eager port runs one program either way, so this
+    is ``build_split_page_fn`` with its chunk."""
+    return build_split_page_fn(detector, embedder, page_hw, num_regions, embed_chunk,
+                               letterbox, edge_filter, embed_tiles)
 
 
 def build_split_page_fn(
@@ -185,32 +257,22 @@ def build_split_page_fn(
     embed_chunk: int = 8,
     letterbox: bool = False,
     edge_filter: bool = True,
+    embed_tiles: int = 1,
+    text_chunk: int = 0,
 ):
     """``fn(page_uint8) → PageResult``: one detect+crop call, then the
-    crops embedded ``embed_chunk`` at a time (the serving split; the
-    headline runs ``embed_chunk = num_regions``, the mme5 page 8). The two
-    halves are exposed as ``fn.detect(page)`` and ``fn.embed(crops)``; the
-    mme5 family normalises crops with the CLIP mean and std first."""
-    if num_regions % embed_chunk:
-        raise ValueError(f"embed_chunk {embed_chunk} must divide {num_regions}")
+    crops embedded ``embed_chunk`` at a time (0: all at once; the headline
+    runs ``embed_chunk = num_regions``, the mme5 page 8). The two halves are
+    exposed as ``fn.detect(page)`` and ``fn.embed(crops)``; the mme5 family
+    normalises crops with the CLIP mean and std first.
+    ``embed_tiles=4`` as in ``build_fused_page_fn``; ``text_chunk=N`` (mme5
+    only, N dividing ``num_regions``) runs the text stack N crops at a time
+    over the vision states of all the page's crops."""
+    embed = _region_embed_fn(embedder, num_regions, embed_chunk, embed_tiles, text_chunk)
     detect_fn = build_fused_detect_fn(
-        detector, page_hw, num_regions, embedder.image_size,
+        detector, page_hw, num_regions, embedder.image_size * (2 if embed_tiles == 4 else 1),
         letterbox=letterbox, edge_filter=edge_filter,
     )
-    normalise = embedder.config.family == "mme5"
-    mean = torch.tensor(IMAGE_MEAN, device=embedder.device)
-    std = torch.tensor(IMAGE_STD, device=embedder.device)
-
-    def embed_chunk_fn(crops: torch.Tensor) -> torch.Tensor:
-        if normalise:
-            crops = (crops - mean.to(crops.dtype)) / std.to(crops.dtype)
-        return embedder.encode_image(crops)
-
-    def embed(crops: torch.Tensor) -> torch.Tensor:
-        return torch.cat([
-            embed_chunk_fn(crops[i : i + embed_chunk])
-            for i in range(0, num_regions, embed_chunk)
-        ])
 
     def fn(page: torch.Tensor) -> PageResult:
         boxes, scores, classes, valid, crops = detect_fn(page)

@@ -28,6 +28,21 @@ torch.set_num_threads(2)
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run on one intra-op thread here. With two, in a
+    process where XLA has run a Pallas kernel in interpret mode, the first
+    ``torch.exp`` after a matmul computed the second thread's half of its
+    output with a relative error of up to 1.5e-4 (about 3 in 16 fresh
+    processes; every later call and every single-threaded run exact), which
+    put ``test_blf_plain_matches_pallas[64-False]``, the first test of this
+    file, 4.4e-5 off. The fault is in that first call, not in the port."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(seed, shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 

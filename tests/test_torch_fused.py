@@ -183,7 +183,7 @@ def mme5(both):
         model_config=MllamaConfig.tiny(), device="cpu", params=flatten_params(jemb.variables),
     )
     tfn = tfused.build_split_page_fn(both.tdet, temb, PAGE_HW, num_regions=K, embed_chunk=4)
-    return SimpleNamespace(jres=jres, jcrops=jcrops, tfn=tfn,
+    return SimpleNamespace(jres=jres, jcrops=jcrops, tfn=tfn, jdet=jdet, jemb=jemb, temb=temb,
                            tres=tfn(torch.from_numpy(both.page)))
 
 
@@ -207,3 +207,104 @@ def test_mme5_sorted_top_k_scores(mme5):
     """The detect half is the siglip page's: same scores (see above)."""
     np.testing.assert_allclose(np.sort(mme5.tres.scores.numpy()), np.sort(mme5.jres[1]),
                                rtol=0, atol=2e-7)
+
+
+def _jax_page(mme5, page, build, **kwargs):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        fn = build(mme5.jdet, mme5.jemb, PAGE_HW, num_regions=K, **kwargs)
+        return [np.array(x) for x in fn(jnp.asarray(page))]
+
+
+def _jax_detect(mme5, page, emb_size):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        jdetect = jfused.build_fused_detect_fn(mme5.jdet, PAGE_HW, num_regions=K,
+                                               emb_size=emb_size)
+        return [np.array(x) for x in jdetect(jnp.asarray(page))]
+
+
+@pytest.mark.parametrize("embed_chunk", [0, 4])
+def test_mme5_fused_page_fn_matches_jax(both, mme5, embed_chunk, monkeypatch):
+    """The fused page program's mme5 branch against JAX's on the same page
+    and detector: the port's detect half is replaced by JAX's (whose boxes
+    equal the JAX fused program's), so both embed the same crops; 1e-5
+    absolute on unit vectors, as ``test_mme5_embeddings_of_jax_crops``.
+    The crops are CLIP-normalised before the tower on both sides."""
+    jres = _jax_page(mme5, both.page, jfused.build_fused_page_fn, embed_chunk=embed_chunk)
+    jdet = _jax_detect(mme5, both.page, 28)
+    np.testing.assert_array_equal(jdet[0], jres[0])
+    monkeypatch.setattr(tfused, "build_fused_detect_fn",
+                        lambda *a, **k: lambda page: tuple(torch.from_numpy(x) for x in jdet))
+    chunk = {"embed_chunk": embed_chunk} if embed_chunk else {}
+    fn = tfused.build_fused_page_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K, **chunk)
+    res = fn(torch.from_numpy(both.page))
+    np.testing.assert_allclose(res.embeddings.numpy(), jres[4], atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def tiles4(both, mme5):
+    """JAX's 56-px crops (two 28-px tiles a side) and both JAX page
+    programs' embeddings of them at ``embed_tiles=4``."""
+    jdet = _jax_detect(mme5, both.page, 56)
+    split = _jax_page(mme5, both.page, jfused.build_split_page_fn, embed_chunk=4,
+                      embed_tiles=4)
+    fused = _jax_page(mme5, both.page, jfused.build_fused_page_fn, embed_chunk=0,
+                      embed_tiles=4)
+    for res in (split, fused):
+        np.testing.assert_array_equal(jdet[0], res[0])
+    return SimpleNamespace(crops=jdet[4], split=split[4], fused=fused[4])
+
+
+@pytest.mark.parametrize("build", ["split", "fused"])
+def test_mme5_embed_tiles_4_matches_jax(both, mme5, tiles4, build):
+    """Each crop split row-major into the (2, 2) canvas with its aspect-ratio
+    id and a mask of four real tiles (the tower's masked plain path on both
+    sides): 1e-5 absolute on unit vectors."""
+    assert tiles4.crops.shape == (K, 56, 56, 3)
+    kwargs = {"embed_chunk": 4} if build == "split" else {}
+    fn = getattr(tfused, f"build_{build}_page_fn")(both.tdet, mme5.temb, PAGE_HW,
+                                                    num_regions=K, embed_tiles=4, **kwargs)
+    assert fn.detect(torch.from_numpy(both.page))[4].shape == (K, 56, 56, 3)
+    got = fn.embed(torch.from_numpy(tiles4.crops)).numpy()
+    np.testing.assert_allclose(got, getattr(tiles4, build), atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-6)
+
+
+def test_tile_crops_2x2_equals_jax():
+    crops = np.random.default_rng(3).normal(size=(3, 8, 8, 3)).astype(np.float32)
+    want = np.asarray(jfused.tile_crops_2x2(jnp.asarray(crops), 4))
+    np.testing.assert_array_equal(tfused.tile_crops_2x2(torch.from_numpy(crops), 4).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("embed_tiles", [1, 4])
+def test_mme5_text_chunk_matches_jax_and_coupled(both, mme5, tiles4, embed_tiles):
+    """The vision tower at 2 crops a call, the text stack at 4 over the
+    concatenated states: against JAX's decoupled page (1e-5 absolute on unit
+    vectors) and against the port's coupled path on the same crops (1e-6:
+    the same operations, only the batch of the text stack differs)."""
+    crops = mme5.jcrops if embed_tiles == 1 else tiles4.crops
+    jres = _jax_page(mme5, both.page, jfused.build_split_page_fn, embed_chunk=2,
+                     embed_tiles=embed_tiles, text_chunk=4)
+    fn = tfused.build_split_page_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K,
+                                    embed_chunk=2, embed_tiles=embed_tiles, text_chunk=4)
+    got = fn.embed(torch.from_numpy(crops))
+    np.testing.assert_allclose(got.numpy(), jres[4], atol=1e-5)
+    coupled = tfused.build_split_page_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K,
+                                         embed_chunk=2, embed_tiles=embed_tiles)
+    np.testing.assert_allclose(got.numpy(), coupled.embed(torch.from_numpy(crops)).numpy(),
+                               atol=1e-6)
+
+
+def test_page_fn_arguments_are_checked(both, mme5):
+    """As in JAX: the tiled and decoupled forms are mme5 only, and each
+    chunk must divide the region count."""
+    for kwargs in ({"embed_tiles": 4}, {"text_chunk": 4}):
+        with pytest.raises(ValueError):
+            tfused.build_split_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K, **kwargs)
+    with pytest.raises(ValueError):
+        tfused.build_fused_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K, embed_tiles=4)
+    for kwargs in ({"text_chunk": 3}, {"embed_chunk": 3}, {"embed_tiles": 2}):
+        with pytest.raises(ValueError):
+            tfused.build_split_page_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K, **kwargs)

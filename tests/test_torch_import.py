@@ -71,7 +71,7 @@ def test_module_list_covers_the_slice():
         "kernels.quantization", "models.quantized", "models.mme5",
         "models.mllama_processor", "models.tokenizer", "kernels.flash_attention",
         "kernels.quantization_int4", "models.qwen_vl", "analysis.doc_parser", "cli.parse",
-        "kernels.conv", "kernels.ln_matmul", "kernels.ln_stats",
+        "kernels.conv", "kernels.ln_matmul", "kernels.ln_stats", "io.images",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 

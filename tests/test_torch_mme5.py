@@ -3,9 +3,12 @@ f32 on the CPU, same weights through the bridge.
 
 JAX runs these modules on the CPU as its own tests do: the vision tower's
 key prefix becomes a boolean mask on the XLA path, and int8 projections
-dequantize; the port takes K1's and K2's plain versions. Tolerances are
-absolute, f32: the frameworks sum in different orders (the int8 forms also
-multiply the scale in after the sum instead of before)."""
+dequantize; the port takes K1's and K2's plain versions. The int4 forms run
+JAX's int4 projections through its Pallas kernel in interpret mode
+(``int4_apply`` patched, as ``test_torch_qwen_vl.py`` does), which rounds x
+to bf16 as K3's plain version does. Tolerances are absolute, f32: the
+frameworks sum in different orders (the quantized forms also multiply the
+scale in after the sum instead of before)."""
 
 import dataclasses
 
@@ -17,8 +20,10 @@ from flax.linen import unbox
 
 import jax.numpy as jnp
 
+from multimodal_embeddings_tpu.kernels import quantization_int4 as jq4
 from multimodal_embeddings_tpu.models import mllama_processor as jproc
 from multimodal_embeddings_tpu.models import mme5 as jm
+from multimodal_embeddings_tpu.models import quantized as jquant
 from multimodal_embeddings_tpu.models import tokenizer as jtok
 from multimodal_embeddings_tpu.models import transformer as jtr
 from multimodal_embeddings_tpu.models.weights import flatten_params, unflatten_params
@@ -44,6 +49,8 @@ def _randomize(flat, seed):
     for key, val in flat.items():
         if key.endswith("kernel_q"):
             val = rng.integers(-127, 128, size=val.shape).astype(np.int8)
+        elif key.endswith("kernel_q4"):
+            val = rng.integers(0, 256, size=val.shape).astype(np.uint8)
         elif key.endswith("kernel_scale"):
             val = (rng.uniform(0.5, 1.5, size=val.shape) * 0.02 / 127).astype(np.float32)
         elif key.endswith(GATES):
@@ -57,6 +64,18 @@ def _randomize(flat, seed):
 def _jax_flat(module, *args, seed=0, **kwargs):
     flat = flatten_params(unbox(module.init(jax.random.PRNGKey(seed), *args, **kwargs)))
     return _randomize(flat, seed)
+
+
+def _interpret_int4_apply(x, qt, use_kernel=None):
+    lead = x.shape[:-1]
+    y = jq4.int4_matmul(x.reshape(-1, x.shape[-1]), qt.packed, qt.scale, interpret=True)
+    return y.reshape(*lead, qt.packed.shape[-1])
+
+
+@pytest.fixture
+def jax_int4_kernel(monkeypatch):
+    """JAX's int4 projections on its Pallas kernel in interpret mode."""
+    monkeypatch.setattr(jquant, "int4_apply", _interpret_int4_apply)
 
 
 def _tokens(shape, seed=1):
@@ -89,7 +108,8 @@ def test_copies_equal_the_originals():
 
 
 @pytest.mark.parametrize(
-    "name", ["tiny", "mme5_11b", "mme5_11b_int8_mixed", "mme5_2b"]
+    "name", ["tiny", "mme5_11b", "mme5_11b_int8", "mme5_11b_int8_mixed", "mme5_11b_int4",
+             "mme5_2b"]
 )
 def test_configs_mirror_jax(name):
     got, want = getattr(tm.MllamaConfig, name)(), getattr(jm.MllamaConfig, name)()
@@ -98,9 +118,22 @@ def test_configs_mirror_jax(name):
     assert got.vision.num_aspect_ratio_ids == want.vision.num_aspect_ratio_ids
 
 
-def test_int4_is_refused():
-    with pytest.raises(NotImplementedError):
-        tm.split_quantize("int4-mixed")
+@pytest.mark.parametrize("quantize", [False, None, True, "int8", "int4", "int8-mixed",
+                                      "int4-mixed"])
+def test_split_quantize_mirrors_jax_setup(quantize):
+    """The (vision, text) storage of each ``quantize`` value, against the
+    JAX embedder's ``setup`` (read from its bound submodules)."""
+    cfg = dataclasses.replace(jm.MllamaConfig.tiny(), quantize=quantize)
+    bound = jm.MmE5Embedder(cfg).bind({"params": {}})
+    want = (bound.vision_model.quantize, bound.text_model.quantize)
+    assert tm.split_quantize(quantize) == want
+    port = tm.MmE5Embedder(cfg)
+    vision_q, text_q = want
+    kinds = {False: "Dense", None: "Dense", True: "Int8Dense", "int8": "Int8Dense",
+             "int4": "Int4Dense"}
+    assert type(port.vision_model.local0.mlp.fc1).__name__ == kinds[vision_q]
+    assert type(port.text_model.layer0.mlp.gate).__name__ == kinds[text_q]
+    assert type(port.vision_model.multi_modal_projector).__name__ == "Dense"
 
 
 def test_rms_norm():
@@ -220,8 +253,27 @@ def test_vision_encoder(tiles):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-def test_text_model(quantize):
+@pytest.mark.parametrize("quantize", [True, "int4"])
+def test_vision_encoder_quantized(quantize, jax_int4_kernel):
+    """The one-tile page crop (K1 with the key prefix) through an int8 and
+    an int4 tower, their projections (with the fc biases) on K2's and K3's
+    plain versions."""
+    rng = np.random.default_rng(12)
+    images = rng.normal(size=(2, 1, 28, 28, 3)).astype(np.float32)
+    ar_ids = np.array([1, 1], np.int32)
+    jmod = jm.MllamaVisionEncoder(TINY.vision, out_dim=64, quantize=quantize)
+    args = (jnp.asarray(images), jnp.asarray(ar_ids), jnp.ones((2, 1), jnp.int32))
+    flat = _jax_flat(jmod, *args)
+    want, _ = jmod.apply(unflatten_params(flat), *args, all_tiles_real=True)
+    port = load_jax_params(tm.MllamaVisionEncoder(TINY.vision, 64, torch.float32, quantize),
+                           flat)
+    with torch.no_grad():
+        got, _ = port(torch.from_numpy(images), torch.from_numpy(ar_ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("quantize", [False, True, "int4"])
+def test_text_model(quantize, jax_int4_kernel):
     rng = np.random.default_rng(9)
     ids = rng.integers(0, 256, size=(2, 10)).astype(np.int32)
     mask = np.ones((2, 10), np.int32)
@@ -234,7 +286,7 @@ def test_text_model(quantize):
     _compare(jmod, tm.MllamaTextModel(TINY.text, torch.float32, quantize), args)
 
 
-@pytest.fixture(scope="module", params=[False, "int8-mixed"])
+@pytest.fixture(scope="module", params=[False, True, "int8-mixed", "int4", "int4-mixed"])
 def embedders(request):
     """The tiny mmE5 model in both packages on one bridged tree, and two
     crops embedded with the engine's prompt."""
@@ -244,8 +296,10 @@ def embedders(request):
     ids, mask = np.repeat(ids, 2, 0), np.repeat(mask, 2, 0)
     crops = np.random.default_rng(11).normal(size=(2, 28, 28, 3)).astype(np.float32)
     flat = _jax_flat(jmodel, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(crops))
-    want = jmodel.apply(unflatten_params(flat), jnp.asarray(ids), jnp.asarray(mask),
-                        jnp.asarray(crops))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquant, "int4_apply", _interpret_int4_apply)
+        want = jmodel.apply(unflatten_params(flat), jnp.asarray(ids), jnp.asarray(mask),
+                            jnp.asarray(crops))
     port = MultimodalEmbedder(
         EmbedderConfig(family="mme5", dtype="float32", quantize=request.param),
         model_config=tm.MllamaConfig.tiny(), device="cpu", params=flat,
@@ -265,9 +319,9 @@ def test_embedder_matches_jax(embedders):
 def test_embedder_storage(embedders):
     port, *_ = embedders
     vision_q, text_q = tm.split_quantize(port.model_config.quantize)
-    assert port.model.text_model.layer0.attn.q.__class__.__name__ == (
-        "Int8Dense" if text_q else "Dense")
-    assert port.model.vision_model.local0.attn.q.__class__.__name__ == "Dense"
+    kinds = {False: "Dense", True: "Int8Dense", "int4": "Int4Dense"}
+    assert port.model.text_model.layer0.attn.q.__class__.__name__ == kinds[text_q]
+    assert port.model.vision_model.local0.attn.q.__class__.__name__ == kinds[vision_q]
     assert port.prompt_ids.shape == (1, 32)
 
 
@@ -280,7 +334,11 @@ def test_engine_bf16_runs_on_the_cpu(embedders):
         model_config=tm.MllamaConfig.tiny(), device="cpu", params=flat,
     )
     assert bf.model.vision_model.global0.gate_attn.dtype == torch.float32
-    assert bf.model.vision_model.local0.attn.q.weight.dtype == torch.bfloat16
+    q = bf.model.vision_model.local0.attn.q
+    if isinstance(q, ttr.Dense):
+        assert q.weight.dtype == torch.bfloat16
+    else:
+        assert q.kernel_scale.dtype == torch.float32
     got = bf.encode_image(torch.from_numpy(crops)).numpy()
     cos = (got * want).sum(-1)
     assert np.all(cos >= 0.99), cos

@@ -95,6 +95,62 @@ def test_vit_tower():
     np.testing.assert_allclose(norms, 1.0, rtol=1e-6)
 
 
+TEXT = dict(vocab_size=300, max_len=16, width=64, layers=2, heads=2)
+
+
+def _text_inputs():
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 300, size=(3, 16)).astype(np.int32)
+    mask = np.ones((3, 16), np.int32)
+    mask[1, 9:] = 0
+    mask[2, 1:] = 0
+    return ids, mask
+
+
+def test_text_tower():
+    """The padding mask (one row of 9 tokens, one of 1), last-token pool,
+    projection and L2 norm: 1e-5 absolute on unit vectors."""
+    ids, mask = _text_inputs()
+    jmod = jve.TextTower(jve.TextConfig(**TEXT), embed_dim=32)
+    flat = flatten_params(unbox(jmod.init(jax.random.PRNGKey(0), jnp.asarray(ids),
+                                          jnp.asarray(mask))))
+    rng = np.random.default_rng(6)
+    for key, val in flat.items():
+        if key.endswith(("/bias", "/scale")):
+            flat[key] = (val + rng.normal(scale=0.1, size=val.shape)).astype(np.float32)
+    want = jmod.apply(unflatten_params(flat), jnp.asarray(ids), jnp.asarray(mask))
+    port = load_jax_params(tve.TextTower(tve.TextConfig(**TEXT), 32), flat)
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got.numpy(), axis=-1), 1.0, rtol=1e-6)
+
+
+def test_dual_encoder():
+    """Both towers and exp(logit_scale) of one bridged tree (every leaf of
+    the JAX tree is used, or the bridge raises)."""
+    cfg = jve.DualEncoderConfig(vision=jve.VisionConfig(**VIT), text=jve.TextConfig(**TEXT),
+                                embed_dim=32)
+    images = np.random.default_rng(4).uniform(size=(2, 256, 256, 3)).astype(np.float32)
+    ids, mask = _text_inputs()
+    dual = jve.DualEncoder(cfg)
+    args = (jnp.asarray(images), jnp.asarray(ids[:2]), jnp.asarray(mask[:2]))
+    flat = flatten_params(unbox(dual.init(jax.random.PRNGKey(0), *args)))
+    flat["params/logit_scale"] = np.array([2.5], np.float32)
+    want = dual.apply(unflatten_params(flat), *args)
+    port = load_jax_params(tve.DualEncoder(tve.DualEncoderConfig(
+        vision=tve.VisionConfig(**VIT), text=tve.TextConfig(**TEXT), embed_dim=32)), flat)
+    with torch.no_grad():
+        got = port(*(torch.from_numpy(a) for a in (images, ids[:2], mask[:2])))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            port.encode_text(torch.from_numpy(ids), torch.from_numpy(mask)).numpy(),
+            np.asarray(dual.apply(unflatten_params(flat), jnp.asarray(ids), jnp.asarray(mask),
+                                  method=dual.encode_text)), atol=1e-5)
+
+
 def test_embedder_takes_the_dual_encoders_vision_scope():
     cfg = jve.DualEncoderConfig(vision=jve.VisionConfig(**VIT), embed_dim=32)
     images = np.random.default_rng(4).uniform(size=(2, 256, 256, 3)).astype(np.float32)
