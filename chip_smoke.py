@@ -182,7 +182,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     EQUAL bit for bit at decode gate,up, ``lm_head`` and prefill gate,up;
     the M > 4 wgmma form's edges in bf16 and f32 (M = 5 and 129, N = 48 and
     1040, G = 64, 256 and one group of 512, more tiles than CTAs) and a
-    ``packed`` 8 bytes off that takes the ``mma.sync`` form; the mmE5 int4
+    ``packed`` 8 bytes off that takes the ``mma.sync`` form; the decode
+    shapes at M = 8 (phase 12b's rows: q,o, k,v, gate,up, down, ``lm_head``),
+    each on the wgmma form, EQUAL over two calls, timed back to back over
+    weight copies larger than L2 beside the bound and cuBLAS bf16
+    ``x @ W``, and their sum per decode step; the mmE5 int4
     shapes (the tower's three at M = 12864, the text stack's at M = 512,
     cross k,v at 12808), each on the wgmma form, EQUAL over two calls, timed
     beside the bound and cuBLAS bf16 ``x @ W``; the form each
@@ -201,12 +205,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     prefill and per step, K1 and K2 none); finite logits; the early-exit
     loop with EOS forced at step 64 equal to the fixed loop; profiles of
     the prefill and of 8 decode steps;
+12b. continuous batching at full width on phase 12's model, its norm
+    scales set to 1 and its biases to 0 (the seeded 0.02 makes every page
+    emit one token; at 1 and 0 the tokens are decisive): 16 pages of
+    its size (pixels from seed 12, one bucket), 128 new tokens each, stops
+    cycling over 16, 32, ..., 128, through ``continuous_generate`` with 8
+    rows and chunks of 64, in both chunk forms (early exit, fixed), and as
+    the reference in waves of 8 through ``build_generate_fns(prefill_chunk=1,
+    early_stop=True)`` under the same stops: every page's tokens EQUAL to
+    the waves', bit for bit, in both forms, with the pages' tokens pairwise
+    different and at least 2 distinct tokens per page over the run; exact
+    launch counts (K4 4 per page, K3 449 per prefill and per decode step,
+    the waves' steps the sum over waves of the largest stop, nothing else);
+    a step with the rows at 8 depths EQUAL, row by row, to steps with every
+    row at one depth; peak memory
+    under the parameters plus the decoder's caches (twice them for the
+    waves) plus 3 GiB; pages/hour, decode steps, chunks, ``splice_s`` and ms
+    per step at B = 8 of each; then ``DocumentParser.parse_continuous`` on
+    9 page files at 16 new tokens (one refill): 9 results in input order,
+    tokens EQUAL to ``continuous_generate``'s on the same inputs, K3 449 per
+    prefill and per decode step of that run;
 13. the card against the CPU for Qwen: the 32B widths at 2 vision (one
     full-attention) and 2 text layers, f32 on the CPU with the plain
     kernels, bf16 on the card, same weights and page; last-position logit
     cosine ≥ 0.999.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 14) sets the launch
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -228,6 +252,11 @@ included), and prints no result line.
 
 runs phase 1, K3's build and phase 11 only (the mmE5 int4 shapes
 included), and prints no result line.
+
+    python3 chip_smoke.py --qwen
+
+runs phase 1, K3's and K4's builds and phases 11, 12 and 12b only, and
+prints no result line.
 
     python3 chip_smoke.py --k6
 
@@ -1643,6 +1672,9 @@ K3_SHAPES = {
     "down": (27648, 5120, 1),
 }
 K3_PREFILL_M = 1535
+# phase 12b's decoder rows: the continuous decode step runs every projection
+# and the lm_head at M = 8, which takes K3's wgmma form (the GEMV takes M <= 4)
+K3_DECODE_ROWS = 8
 # (M, K, N) the mmE5-11B int4 forms add, all with groups of 128: the int4
 # tower at 8 crops x 1608 tokens, and the text stack at 8 crops x 64 tokens
 # (cross k,v over 8 x 1601 vision tokens)
@@ -1814,7 +1846,7 @@ def int4_checks(k3) -> dict:
                 f"mean_abs_err {out['mean_abs_err']:.3e}{note} err/allowed {ratio:.3f}")
         if timed:
             w = k3.dequantize_int4(k3.Q4Tensor(packed, scale), dtype)
-            if m == 1:
+            if m <= K3_DECODE_ROWS:
                 # device time of back-to-back launches over weight copies
                 # totalling more than the 50 MB L2, as the decode step
                 # streams 449 weights cold
@@ -1831,7 +1863,7 @@ def int4_checks(k3) -> dict:
                 out["ms"] = median_ms(lambda: k3.int4_matmul(x, packed, scale))
             out["plain_ms"] = median_ms(lambda: k3.int4_matmul_reference(x, packed, scale),
                                         runs=5, warmup=1)
-            out["cublas_ms"] = (device_ms([lambda: x @ w] * 32) if m == 1
+            out["cublas_ms"] = (device_ms([lambda: x @ w] * 32) if m <= K3_DECODE_ROWS
                                 else median_ms(lambda: x @ w))
             del w
             out["bound_ms"], out["bound_by"] = bound_ms(
@@ -1859,6 +1891,15 @@ def int4_checks(k3) -> dict:
     name = "decode lm_head (1,5120)x(5120,152064)"
     results[name] = run(name, 1, 5120, 152064, 40, torch.bfloat16, timed=True,
                         same_bits=True)
+    # the continuous decoder's step at B = 8 rows (phase 12b)
+    rows = K3_DECODE_ROWS
+    m8 = {}
+    for label, (k, n, _) in (*K3_SHAPES.items(), ("lm_head", (5120, 152064, 1))):
+        m8[label] = run(f"decode B={rows} {label} ({rows},{k})x({k},{n})", rows, k, n, k // 128,
+                        torch.bfloat16, timed=True, same_bits=True)
+        check(m8[label]["form"] == "wgmma", f"decode B={rows} {label}: took the "
+              f"{m8[label]['form']} form")
+    results["decode_m8"] = m8
     results["f32"] = run("f32 k,v (1535,5120)x(5120,1024)", K3_PREFILL_M, 5120, 1024, 40,
                          torch.float32, timed=True)
     for m, k, n, groups in ((37, 200, 136, 1), (1, 8, 16, 1), (130, 72, 200, 1),
@@ -1895,6 +1936,12 @@ def int4_checks(k3) -> dict:
     print(f"K3 per decode step (449 launches) from these medians: {step:.2f} ms "
           f"(bound {bound:.2f} ms); per prefill (448 launches at M={K3_PREFILL_M}, "
           f"lm_head apart): {pre:.1f} ms")
+    step8, bound8, cublas8 = (
+        sum(m8[lab][key] * cnt for lab, (_, _, cnt) in K3_SHAPES.items()) * 64
+        + m8["lm_head"][key] for key in ("ms", "bound_ms", "cublas_ms"))
+    print(f"K3 per decode step at B = {rows} (449 launches, the wgmma form) from these "
+          f"device times: {step8:.2f} ms (bound {bound8:.2f} ms; cuBLAS bf16 x@W on the "
+          f"dequantised weights {cublas8:.2f} ms)")
     return results
 
 
@@ -1930,7 +1977,7 @@ def qwen_inputs(parser, tmpdir: str):
 def qwen_page(kernels: dict):
     """The Qwen2.5-VL-32B int4 page parse at full width and depth; returns
     the launch counts of the timed pages, the first timed page's prompt and
-    pixels, and the config."""
+    pixels, the config, and the model and parser (phase 12b reuses them)."""
     import tempfile
 
     import torch
@@ -2047,8 +2094,240 @@ def qwen_page(kernels: dict):
     profile_run("prefill", lambda: cache.append(prefill(tok, px)))
     _, steps = build_generate_fns(model, prompt_len, 8, early_stop=False)
     profile_run("8 decode steps", lambda: steps(*cache.pop()))
-    del model, parser
-    return launches, ids, pixels, config
+    return launches, ids, pixels, config, model, parser
+
+
+# phase 12b: P pages of phase 12's size through B rows in chunks of C steps,
+# every page 128 new tokens with its stop cycling over 16, 32, ..., 128;
+# parse_continuous on 9 page files at 16 new tokens (8 rows: one refill)
+QWEN_CONT_PAGES = 16
+QWEN_CONT_BATCH = 8
+QWEN_CONT_CHUNK = 64
+QWEN_CONT_STOPS = tuple(range(16, QWEN_NEW_TOKENS + 1, 16))
+QWEN_CONT_PARSE_PAGES = 9
+QWEN_CONT_PARSE_TOKENS = 16
+# peak memory: the parameters, the decoder's caches (B rows; the waves hold a
+# wave's per-page caches and their concatenation, 2 x that), plus 3 GiB for a
+# one-page prefill (phase 12 reads ~1.9 GiB) and the decode step
+QWEN_CONT_HEADROOM = 3 * 2**30
+
+
+def qwen_continuous(counters: dict, model, parser, ids, pixels, config) -> dict:
+    """Continuous batching at full width on phase 12's model, its norm
+    scales set to 1 and its biases to 0 so that the tokens are decisive:
+    both chunk forms of ``continuous_generate`` against waves of B pages
+    through ``build_generate_fns(prefill_chunk=1, early_stop=True)`` under
+    the same stops, tokens EQUAL page by page; exact launch counts; peak
+    memory; then ``DocumentParser.parse_continuous`` on page files. Returns
+    the launch counts of each run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import preprocess_page
+    from multimodal_embeddings_tpu_torch.models.quantized import param_bytes
+    from multimodal_embeddings_tpu_torch.models.qwen_serve import continuous_generate
+    from multimodal_embeddings_tpu_torch.models.qwen_vl import build_generate_fns
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+    phase(f"12b. continuous batching at full width: {QWEN_CONT_PAGES} pages through "
+          f"{QWEN_CONT_BATCH} rows, chunks of {QWEN_CONT_CHUNK}")
+    t_phase = time.perf_counter()
+    n, rows, max_new = QWEN_CONT_PAGES, QWEN_CONT_BATCH, QWEN_NEW_TOKENS
+    dev = next(model.parameters()).device
+    text = config.text
+    prompt_len = ids.shape[1]
+    per_pass = 7 * text.layers + 1  # K3 launches per prefill and per decode step
+    k4_per_page = len(config.vision.fullatt_block_indexes)
+    cache_len = min(text.max_len, -(-(prompt_len + max_new) // 128) * 128)
+    cache_bytes = text.layers * 2 * rows * cache_len * text.kv_heads * text.head_dim * 2
+    params = param_bytes(model)
+    # the seeded 1-D leaves (0.02) make every page emit one token until its
+    # stop, which would hide a splice into the wrong row: norm scales 1 and
+    # biases 0 make each page's tokens its own
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0 if name.endswith("scale") else 0.0)
+    rng = np.random.default_rng(12)
+    pages = []
+    for _ in range(n):
+        # the prompt's last 16 tokens are drawn per page too, below the
+        # special ids: with the pixels, they make each page's tokens its own
+        page_ids = ids[0].copy()
+        page_ids[-16:] = rng.integers(6, min(text.vocab_size, 4096), size=16)
+        pages.append((page_ids, rng.standard_normal(pixels.shape[1:], dtype=np.float32)))
+    stops = [QWEN_CONT_STOPS[i % len(QWEN_CONT_STOPS)] for i in range(n)]
+    print(f"pages: {n} x {pixels.shape[1]}x{pixels.shape[2]} pixels and the prompt's last 16 "
+          f"tokens from seed 12, prompt "
+          f"{prompt_len} tokens, {max_new} new tokens, stops {stops}; the decoder's caches "
+          f"{cache_bytes / 2**30:.2f} GiB ({cache_len} slots x {rows} rows)")
+
+    def begin():
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        return time.perf_counter()
+
+    runs, launches = {}, {}
+    for label, early in (("continuous, early-exit chunks", True),
+                         ("continuous, fixed chunks", False)):
+        stats = {}
+        t0 = begin()
+        outs = continuous_generate(model, pages, batch=rows, max_new_tokens=max_new,
+                                   chunk=QWEN_CONT_CHUNK, stops=stops, stats=stats,
+                                   early_exit=early)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        want = only(counters, {"flash_attention": k4_per_page * n,
+                               "int4_matmul": per_pass * (n + stats["decode_steps"])})
+        check(got == want, f"{label}: launches {got} != {want}")
+        limit = params + cache_bytes + QWEN_CONT_HEADROOM
+        check(peak < limit, f"{label}: peak {peak / 2**30:.2f} GiB >= {limit / 2**30:.2f}")
+        check(len(outs) == n and all(o.shape == (max_new,) for o in outs),
+              f"{label}: outputs")
+        runs[label] = dict(outs=outs, wall=wall, steps=stats["decode_steps"],
+                           chunks=stats["chunks"], splice_s=stats["splice_s"], peak=peak)
+        launches[label] = got
+
+    # the reference: waves of B pages, each page prefilled alone
+    prefill, decode = build_generate_fns(model, prompt_len, max_new, early_stop=True,
+                                         prefill_chunk=1)
+    wave_outs, prefill_s, decode_s = [], 0.0, 0.0
+    t0 = begin()
+    for w in range(0, n, rows):
+        tok = torch.from_numpy(np.stack([p[0] for p in pages[w : w + rows]])).long().to(dev)
+        px = torch.from_numpy(np.stack([p[1] for p in pages[w : w + rows]])).to(dev)
+        force = torch.tensor(stops[w : w + rows], dtype=torch.int32, device=dev)
+        t1 = time.perf_counter()
+        last, caches, delta = prefill(tok, px)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = decode(last, caches, delta, force)
+        wave_outs.extend(out.cpu().numpy())
+        decode_s += time.perf_counter() - t2
+        prefill_s += t2 - t1
+        del last
+        if w + rows < n:  # the last wave's caches serve the logit check below
+            del caches
+    wall = time.perf_counter() - t0
+    got = counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    # each wave decodes until its largest stop (or max_new)
+    wave_steps = sum(min(max(stops[w : w + rows]), max_new) for w in range(0, n, rows))
+    want = only(counters, {"flash_attention": k4_per_page * n,
+                           "int4_matmul": per_pass * (n + wave_steps)})
+    check(got == want, f"waves: launches {got} != {want}")
+    limit = params + 2 * cache_bytes + QWEN_CONT_HEADROOM
+    check(peak < limit, f"waves: peak {peak / 2**30:.2f} GiB >= {limit / 2**30:.2f}")
+    launches["waves"] = got
+    for label, run in runs.items():
+        for i, (a, b) in enumerate(zip(run["outs"], wave_outs)):
+            check(np.array_equal(a, b), f"{label}: page {i} (stop {stops[i]}) differs from "
+                  f"the waves' tokens: first at {int(np.argmax(a != b))}")
+    # the tokens are decisive: pages differ pairwise before their stops, and
+    # the run emits at least 2 distinct tokens per page
+    emitted = np.unique(np.concatenate(wave_outs))
+    distinct = len(emitted[emitted != config.eos_id])
+    heads = {tuple(o[: min(stops)].tolist()) for o in wave_outs}
+    check(len(heads) == n, f"only {len(heads)} of {n} pages differ in their first "
+          f"{min(stops)} tokens")
+    check(distinct >= 2 * n, f"{distinct} distinct tokens besides EOS (< {2 * n})")
+    print(f"tokens: every page of both continuous forms EQUAL to the waves', bit for bit "
+          f"(page 0 first 8: {wave_outs[0][:8].tolist()}; EOS from each page's stop on; "
+          f"the {n} pages pairwise different in their first {min(stops)} tokens; {distinct} "
+          f"distinct tokens besides EOS)")
+    # a row's logits do not depend on the other rows' depths: one step with
+    # the rows at 8 different depths ((B,) position) against steps with every
+    # row at one depth (0-d position), each from the last wave's caches, row
+    # by row, bit for bit
+    gap = (cache_len - 1 - prompt_len) // (rows - 1)
+    depths = prompt_len + gap * torch.arange(rows, dtype=torch.int32, device=dev)
+    tok = (torch.arange(rows, device=dev)[:, None] * 997 + 11) % text.vocab_size
+    with torch.inference_mode():
+        state = [(k.clone(), v.clone()) for k, v in caches]
+        per_row, _ = model.decode_step(tok, state, depths, delta)
+        for r in range(rows):
+            state = [(k.clone(), v.clone()) for k, v in caches]
+            one, _ = model.decode_step(tok, state, depths[r], delta)
+            check(torch.equal(per_row[r], one[r]), f"row {r} at depth {int(depths[r])}: the "
+                  "per-row step's logits differ from the one-depth step's")
+        del state
+    del caches
+    print(f"logits: a step with the {rows} rows at depths {prompt_len} + {gap}r EQUAL, row "
+          "by row, to steps with every row at that row's depth")
+
+    ideal = -(-sum(min(s, max_new) for s in stops) // rows)
+    for label, run in runs.items():
+        step_ms = (run["wall"] - run["splice_s"]) * 1e3 / run["steps"]
+        run["step_ms"] = step_ms
+        print(f"{label}: {n * 3600 / run['wall']:.1f} pages/hour ({run['wall']:.2f} s), "
+              f"decode steps {run['steps']} (rows' ideal {ideal}), chunks {run['chunks']}, "
+              f"splice_s {run['splice_s']:.2f} (the {n} prefills and splices), "
+              f"{step_ms:.2f} ms per decode step at B = {rows} (wall less splices), "
+              f"peak {run['peak'] / 2**30:.2f} GiB")
+    print(f"waves of {rows} (early exit, prefill_chunk=1): {n * 3600 / wall:.1f} pages/hour "
+          f"({wall:.2f} s), decode steps {wave_steps}, chunks -, splice_s - (prefills "
+          f"{prefill_s:.2f} s), {decode_s * 1e3 / wave_steps:.2f} ms per decode step at "
+          f"B = {rows}, peak {peak / 2**30:.2f} GiB")
+    print("launches: " + "; ".join(f"{label}: K3 {got['int4_matmul']}, K4 "
+                                     f"{got['flash_attention']}" for label, got in
+                                     launches.items()))
+    result = {label: {"pages_per_hour": n * 3600 / run["wall"], "wall_s": run["wall"],
+                      "decode_steps": run["steps"], "chunks": run["chunks"],
+                      "splice_s": run["splice_s"], "step_ms": run["step_ms"]}
+              for label, run in runs.items()}
+    result["waves"] = {"pages_per_hour": n * 3600 / wall, "wall_s": wall,
+                       "decode_steps": wave_steps, "step_ms": decode_s * 1e3 / wave_steps}
+
+    # the user surface: parse_continuous on page files, one refill
+    with tempfile.TemporaryDirectory() as tmpdir:
+        paths = []
+        for i in range(QWEN_CONT_PARSE_PAGES):
+            paths.append(f"{tmpdir}/cont{i}.png")
+            Image.fromarray(make_page(*QWEN_PAGE_HW, seed=100 + i)).save(paths[-1])
+        seen = []
+        parser.decode_tokens = lambda toks: seen.append(np.array(toks)) or ""
+        t0 = begin()
+        res = parser.parse_continuous(paths, max_new_tokens=QWEN_CONT_PARSE_TOKENS,
+                                      batch=rows, chunk=QWEN_CONT_CHUNK)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+        del parser.decode_tokens
+        got = counts(counters)
+        size = parser._input_size(Image.open(paths[0]))
+        check(len(res) == QWEN_CONT_PARSE_PAGES and len(seen) == QWEN_CONT_PARSE_PAGES
+              and all(r == ("", size[1], size[0]) for r in res), f"parse_continuous: {res}")
+        ids16 = parser._prompt_ids(*size, QWEN_CONT_PARSE_TOKENS)
+        ref_pages = [(ids16[0], preprocess_page(Image.open(p).convert("RGB"), *size)[0])
+                     for p in paths]
+        stats = {}
+        ref = continuous_generate(model, ref_pages, batch=rows,
+                                  max_new_tokens=QWEN_CONT_PARSE_TOKENS,
+                                  chunk=QWEN_CONT_CHUNK, stats=stats)
+    for i, (a, b) in enumerate(zip(seen, ref)):
+        check(np.array_equal(a, b), f"parse_continuous page {i}: tokens differ from "
+              "continuous_generate's on the same inputs")
+    # parse_continuous runs continuous_generate's schedule on these pages
+    want = only(counters, {
+        "flash_attention": k4_per_page * QWEN_CONT_PARSE_PAGES,
+        "int4_matmul": per_pass * (QWEN_CONT_PARSE_PAGES + stats["decode_steps"])})
+    check(got == want, f"parse_continuous: launches {got} != {want}")
+    print(f"parse_continuous: {QWEN_CONT_PARSE_PAGES} page files at {QWEN_CONT_PARSE_TOKENS} "
+          f"new tokens, {rows} rows: {QWEN_CONT_PARSE_PAGES} results in input order, "
+          f"{size[0]}x{size[1]}, tokens EQUAL to continuous_generate's; {parse_s:.2f} s, "
+          f"K3 {got['int4_matmul']} ({QWEN_CONT_PARSE_PAGES} prefills and "
+          f"{stats['decode_steps']} decode steps), K4 {got['flash_attention']}")
+    print(f"phase 12b: {time.perf_counter() - t_phase:.1f} s")
+    return launches, result
 
 
 def qwen_card_vs_cpu(ids, pixels, config) -> None:
@@ -3043,6 +3322,14 @@ def main() -> int:
         int4_checks(k3)
         print(f"K3 alone: {time.perf_counter() - start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--qwen"]:
+        build(("K3", k3), ("K4", k4))
+        int4_checks(k3)
+        counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)
+        _, ids, pixels, config, model, parser = qwen_page(counters)
+        qwen_continuous(counters, model, parser, ids, pixels, config)
+        print(f"Qwen alone: {time.perf_counter() - start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--k6"]:
         build(("K6", k6))
         phase("4a. K6 alone: every form against its plain version")
@@ -3096,9 +3383,14 @@ def main() -> int:
     flash = flash_checks(k4)
     int4 = int4_checks(k3)
     int4_mme5 = int4.pop("mme5")
+    int4_m8 = int4.pop("decode_m8")
     gc.collect()
     torch.cuda.empty_cache()
-    qwen_launches, ids, pixels, qwen_config = qwen_page(counters)
+    qwen_launches, ids, pixels, qwen_config, qwen_model, parser = qwen_page(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cont_launches, _ = qwen_continuous(counters, qwen_model, parser, ids, pixels, qwen_config)
+    del qwen_model, parser
     gc.collect()
     torch.cuda.empty_cache()
     qwen_card_vs_cpu(ids, pixels, qwen_config)
@@ -3116,7 +3408,10 @@ def main() -> int:
              "mme5_text_chunk_page": text_chunk_launches, "mme5_tiles4_page": tiles4_launches,
              "mme5_engine_api": api_launches,
              **{f"mme5_{label}_page": v for label, v in storage_launches.items()},
-             "qwen_page": qwen_launches}
+             "qwen_page": qwen_launches,
+             "qwen_continuous_early_exit": cont_launches["continuous, early-exit chunks"],
+             "qwen_continuous_fixed": cont_launches["continuous, fixed chunks"],
+             "qwen_waves_b8": cont_launches["waves"]}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a
@@ -3136,7 +3431,8 @@ def main() -> int:
 
     vit, psa = checks[("vit", torch.bfloat16)], checks["psa"]
     k2_head = headline({s: int8[s] for s in K2_SHAPES}, K2_HEADLINE)
-    k3_head = headline({**int4, **{f"mmE5 {k}": v for k, v in int4_mme5.items()}},
+    k3_head = headline({**int4, **{f"mmE5 {k}": v for k, v in int4_mme5.items()},
+                        **{f"decode B={K3_DECODE_ROWS} {k}": v for k, v in int4_m8.items()}},
                        K3_HEADLINE)
     k4_head = headline(flash, "vision")
     k5_head = headline({s: route["k5"][s] for s in K5_SHAPES}, K5_HEADLINE)
@@ -3208,6 +3504,9 @@ def main() -> int:
     pre = int4[f"prefill gate,up ({K3_PREFILL_M},5120)x(5120,27648)"]
     by_name["int4_matmul"]["prefill_gate_up"] = {
         key: pre[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
+    by_name["int4_matmul"][f"decode_b{K3_DECODE_ROWS}_shapes"] = {
+        s: {key: r[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
+        for s, r in int4_m8.items()}
     by_name["int4_matmul"]["mme5_shapes"] = {
         s: {key: r[key] for key in ("form", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_ms")}
         for s, r in int4_mme5.items()}

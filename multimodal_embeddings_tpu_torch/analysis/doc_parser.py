@@ -8,23 +8,27 @@ prompts, ``BBoxElement``, ``extract_bbox_elements``, ``draw_bbox``,
 ``DocumentParser`` builds the chat prompt with the image-pad placeholders,
 runs ``models/qwen_vl.py::greedy_generate`` on its device and decodes the
 byte tokens; pages whose model-input grids match run as one batch in
-``parse_batch``.
+``parse_batch``, or through the continuously refilled decoder of
+``models/qwen_serve.py`` in ``parse_continuous``.
 
 PIL is imported only inside the functions that open, resize or draw an
 image, so the module imports without it. The pipeline-parallel ring
-(``pp_mesh``/``pp_stages``), the data-parallel mesh (``dp_mesh``) and
-continuous batching (``parse_continuous``) are not ported yet and raise.
+(``pp_mesh``/``pp_stages``) and the data-parallel mesh (``dp_mesh``) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
+from collections.abc import Sequence
 from html.parser import HTMLParser
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from multimodal_embeddings_tpu_torch.models.qwen_serve import continuous_generate
 from multimodal_embeddings_tpu_torch.models.qwen_vl import greedy_generate
 from multimodal_embeddings_tpu_torch.models.tokenizer import BYTE_OFFSET, EOS_ID
 from multimodal_embeddings_tpu_torch.models.weights import resolve_device
@@ -211,6 +215,52 @@ def _open_rgb(path: str):
     return Image.open(path).convert("RGB")
 
 
+@dataclasses.dataclass(frozen=True)
+class _PageSize:
+    width: int
+    height: int
+
+
+def _header_size(path: str) -> _PageSize:
+    """A page's size from its header: the pixels are not decoded."""
+    from PIL import Image
+
+    with Image.open(path) as image:
+        return _PageSize(*image.size)
+
+
+def _or_none(fn: Callable, skip_errors: bool):
+    """``fn()``; under ``skip_errors`` None when it raises (an unreadable
+    page yields no output and the rest go on)."""
+    if not skip_errors:
+        return fn()
+    result = [None]
+    with contextlib.suppress(Exception):
+        result[0] = fn()
+    return result[0]
+
+
+class _LazyPages(Sequence):
+    """One bucket's pages for ``continuous_generate``: page i is opened,
+    decoded and preprocessed only when it is read, which the decoder does
+    once, when a row takes the page; under ``skip_errors`` a page that
+    cannot be opened or decoded reads as None."""
+
+    def __init__(self, paths: List[str], ids: np.ndarray, input_w: int, input_h: int,
+                 skip_errors: bool):
+        self.paths, self.ids, self.size = paths, ids, (input_w, input_h)
+        self.skip_errors = skip_errors
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, i: int):
+        def load():
+            return self.ids, preprocess_page(_open_rgb(self.paths[i]), *self.size)[0]
+
+        return _or_none(load, self.skip_errors)
+
+
 class DocumentParser:
     """End-to-end page → HTML parser driving a ``QwenVLModel`` on
     ``device`` (the card unless asked for the CPU; asking for the card
@@ -305,8 +355,44 @@ class DocumentParser:
                 results[i] = (self.decode_tokens(row), input_h, input_w)
         return results  # type: ignore[return-value]
 
-    def parse_continuous(self, *args, **kwargs):
-        raise NotImplementedError("continuous batching (qwen_serve) is not ported")
+    def parse_continuous(
+        self,
+        image_paths: List[str],
+        max_new_tokens: int = 256,
+        batch: int = 8,
+        chunk: int = 64,
+        skip_errors: bool = False,
+    ) -> List[Optional[Tuple[str, int, int]]]:
+        """Continuous-batching bulk parse (``models/qwen_serve.py``): a fixed
+        ``batch``-row decoder with per-row cache depths serves the page
+        queue, retiring each row at its own EOS and splicing the next page
+        in at chunk boundaries. Pages bucket by model-input grid, as in
+        ``parse_batch``; results come in input order, with the tokens of
+        per-page ``parse``.
+
+        Each page's size is read from its header for the bucketing; its
+        pixels are decoded and preprocessed only when a row takes it, so
+        the host holds one preprocessed page at a time, not the queue.
+        ``skip_errors=True`` gives None for a page that cannot be opened or
+        decoded, and the other pages stay in the decoder. The parser
+        refuses the pipeline- and data-parallel meshes when it is built, so
+        this loop always runs on one device."""
+        buckets: dict = {}
+        results: List[Optional[Tuple[str, int, int]]] = [None] * len(image_paths)
+        for i, path in enumerate(image_paths):
+            size = _or_none(lambda: self._input_size(_header_size(path)), skip_errors)
+            if size is not None:
+                buckets.setdefault(size, []).append(i)
+        for (input_w, input_h), items in buckets.items():
+            ids1 = self._prompt_ids(input_w, input_h, max_new_tokens)
+            pages = _LazyPages([image_paths[i] for i in items], ids1[0], input_w, input_h,
+                               skip_errors)
+            outs = continuous_generate(self.model, pages, batch=min(batch, len(pages)),
+                                       max_new_tokens=max_new_tokens, chunk=chunk)
+            for row, i in zip(outs, items):
+                if row is not None:
+                    results[i] = (self.decode_tokens(row), input_h, input_w)
+        return results
 
     def parse(self, image_path: str, max_new_tokens: int = 256) -> Tuple[str, int, int]:
         """Returns (html, input_height, input_width) like the notebook's

@@ -12,8 +12,18 @@ bf16 on the card and in f32 on the CPU.
     python -m multimodal_embeddings_tpu_torch.cli.parse --input_folder pages \\
         --output_folder out --size tiny --device cpu --max_new_tokens 8
 
-``--pipeline_parallel`` and ``--data_parallel`` above 1 and ``--continuous``
-are not ported and exit with a message.
+``--continuous`` parses the whole queue in one call through the continuously
+refilled decoder (``DocumentParser.parse_continuous``): ``--batch_size``
+rows, refilled at ``--chunk``-step boundaries. With ``--skip_errors`` a page
+that cannot be opened or decoded yields no output and the others stay in
+that decoder.
+
+    python -m multimodal_embeddings_tpu_torch.cli.parse --input_folder pages \\
+        --output_folder out --size tiny --device cpu --max_new_tokens 8 \\
+        --continuous --batch_size 2 --chunk 4
+
+``--pipeline_parallel`` and ``--data_parallel`` above 1 are not ported and
+exit with a message.
 """
 
 from __future__ import annotations
@@ -62,8 +72,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data_parallel", type=int, default=1, help="not ported")
     parser.add_argument("--batch_size", type=int, default=1,
                         help="pages per generate call (DocumentParser.parse_batch)")
-    parser.add_argument("--continuous", action="store_true", help="not ported")
-    parser.add_argument("--chunk", type=int, default=64)
+    parser.add_argument(
+        "--continuous",
+        action="store_true",
+        help="continuous batching (models/qwen_serve.py): keep "
+        "--batch_size decoder rows busy with per-row EOS exit + page "
+        "refill at --chunk-step boundaries — wall tracks the MEAN page "
+        "length instead of each wave's max (parse_batch); tokens "
+        "identical to per-page parse",
+    )
+    parser.add_argument(
+        "--chunk",
+        type=int,
+        default=64,
+        help="decode steps per refill boundary in --continuous mode",
+    )
     parser.add_argument("--draw_bbox", action="store_true")
     parser.add_argument("--skip_errors", action="store_true",
                         help="log-and-continue on per-page failures")
@@ -124,9 +147,14 @@ def main(argv=None) -> int:
         extract_bbox_elements,
     )
 
-    if args.pipeline_parallel > 1 or args.data_parallel > 1 or args.continuous:
-        raise SystemExit("--pipeline_parallel, --data_parallel and --continuous are not "
-                         "ported to the PyTorch package")
+    if args.continuous and (args.pipeline_parallel > 1 or args.data_parallel > 1):
+        raise SystemExit(
+            "--continuous schedules one device's rows; compose scale-out "
+            "by sharding the page list across chips instead"
+        )
+    if args.pipeline_parallel > 1 or args.data_parallel > 1:
+        raise SystemExit("--pipeline_parallel and --data_parallel are not ported to the "
+                         "PyTorch package")
     paths = get_image_paths(args.input_folder)
     if not paths:
         logger.error("no images in %s", args.input_folder)
@@ -138,7 +166,9 @@ def main(argv=None) -> int:
     )
     n_done = 0
     index = []
-    batch = max(1, args.batch_size)
+    # continuous mode schedules the WHOLE queue in one call — refill
+    # happens across what would otherwise be wave boundaries
+    batch = len(paths) if args.continuous else max(1, args.batch_size)
     for start in range(0, len(paths), batch):
         chunk = paths[start : start + batch]
         parsed = _parse_chunk(parser_obj, chunk, batch, args)
@@ -173,10 +203,16 @@ def main(argv=None) -> int:
 
 def _parse_chunk(parser_obj, chunk, batch, args):
     """One chunk of pages; with ``--skip_errors`` a failing batch is retried
-    page by page and a failing page yields None."""
+    page by page and a failing page yields None. Under ``--continuous`` the
+    chunk is the whole queue, and a page that cannot be opened or decoded
+    yields None inside the continuous decoder (no per-page retry)."""
     def one(path):
         return parser_obj.parse(path, max_new_tokens=args.max_new_tokens)
 
+    if args.continuous:
+        return parser_obj.parse_continuous(
+            chunk, max_new_tokens=args.max_new_tokens, batch=max(1, args.batch_size),
+            chunk=args.chunk, skip_errors=args.skip_errors)
     run = (lambda: parser_obj.parse_batch(chunk, max_new_tokens=args.max_new_tokens)
            ) if batch > 1 else (lambda: [one(chunk[0])])
     if not args.skip_errors:

@@ -29,8 +29,13 @@ the JAX scopes, so ``models/weights.py`` bridges a JAX tree by path.
 Generation differs from JAX only in form: PyTorch runs the loop eagerly on
 the host, one device flag read per step for the early exit, and the decode
 step writes the KV cache in place (the JAX arrays are immutable; in place
-saves a cache copy per layer per step). The per-row ``(B,)`` cache position
-of continuous batching (``models/qwen_serve.py``) is not ported yet.
+saves a cache copy per layer per step). ``decode_step`` takes the cache
+position as JAX's does: a Python int, a 0-d tensor (every row at one depth;
+the generate loops pass ``prompt_len + t`` so, with no host read), or a
+``(B,)`` tensor of per-row depths (continuous batching,
+``models/qwen_serve.py``). Each form becomes per-row depths: each row writes
+its k/v at its own slot by a device-side scatter and sees the slots ``<=
+position[row]``.
 """
 
 from __future__ import annotations
@@ -338,11 +343,12 @@ class QwenBlock(nn.Module):
         self.mlp_norm = RMSNorm(d, dtype=dtype)
         self.mlp = SwiGLU(d, c.mlp_hidden, quantize, dtype)
 
-    def forward(self, x, cos, sin, mask=None, cache=None, position: Optional[int] = None):
-        """Prefill (``position`` None): causal attention over x, returns
-        (x, (k, v) in the cache dtype). Decode (``position`` an int, x one
-        token): writes k/v at cache slot ``position`` in place and attends
-        over the slots ``≤ position``; returns (x, cache)."""
+    def forward(self, x, cos, sin, mask=None, cache=None, index=None):
+        """Prefill (``index`` None): causal attention over x, returns
+        (x, (k, v) in the cache dtype). Decode (x one token per row): writes
+        each row's k/v in place at its (row, slot) pair of ``index`` and
+        attends over the keys ``mask`` shows; returns (x, cache).
+        ``QwenVLModel.decode_step`` makes both once per step."""
         c = self.config
         b, l, _ = x.shape
         h = self.attn_norm(x)
@@ -351,16 +357,15 @@ class QwenBlock(nn.Module):
         v = self.v(h).view(b, l, c.kv_heads, c.head_dim)
         q = apply_rope_batched(q, cos, sin)
         k = apply_rope_batched(k, cos, sin)
-        if position is None:
+        if index is None:
             new_cache = (k.to(self.kv_dtype), v.to(self.kv_dtype))
             attn = sdpa(q, k, v, mask=mask, causal=True)
         else:
             k_cache, v_cache = cache
-            k_cache[:, position : position + l] = k.to(k_cache.dtype)
-            v_cache[:, position : position + l] = v.to(v_cache.dtype)
+            k_cache[index] = k[:, 0].to(k_cache.dtype)
+            v_cache[index] = v[:, 0].to(v_cache.dtype)
             new_cache = (k_cache, v_cache)
-            valid = torch.arange(k_cache.shape[1], device=x.device)[None, None, None, :] <= position
-            attn = sdpa(q, k_cache, v_cache, mask=valid)
+            attn = sdpa(q, k_cache, v_cache, mask=mask)
         x = x + self.o(attn.reshape(b, l, c.heads * c.head_dim))
         x = x + self.mlp(self.mlp_norm(x))
         return x, new_cache
@@ -437,20 +442,30 @@ class QwenVLModel(nn.Module):
             x = x[:, -1:]
         return self.lm_head(self.final_norm(x)), caches, delta
 
-    def decode_step(self, token_ids: torch.Tensor, caches, position: int,
+    def decode_step(self, token_ids: torch.Tensor, caches, position,
                     mrope_delta: Optional[torch.Tensor] = None):
-        """One cached step: token_ids (B, 1) at cache slot ``position`` (all
-        rows at one depth); the rotary angle uses ``position + mrope_delta``.
-        The caches are updated in place and returned."""
+        """One cached step: token_ids (B, 1) at cache slot ``position`` — a
+        Python int or a 0-d tensor (all rows at one depth), or a (B,) int
+        tensor (per-row depths, continuous batching); the rotary angle uses
+        ``position + mrope_delta``. Every form is broadcast to (B,) depths:
+        row r writes its k/v at (r, depth[r]) by a device-side scatter and
+        sees the slots ``<= depth[r]``. The caches are updated in place and
+        returned."""
         x = self.tok_embed(token_ids)
         b = token_ids.shape[0]
-        pos = torch.full((b,), position, dtype=torch.int32, device=x.device)
+        if torch.is_tensor(position):
+            pos = torch.broadcast_to(position.to(device=x.device, dtype=torch.int32), (b,))
+        else:
+            pos = torch.full((b,), position, dtype=torch.int32, device=x.device)
+        slots = torch.arange(caches[0][0].shape[1], device=x.device)
+        mask = slots[None, None, None, :] <= pos[:, None, None, None]
+        index = (torch.arange(b, device=x.device), pos.long())
         if mrope_delta is not None:
             pos = pos + mrope_delta
         cos, sin = self.mrope(pos[None, :, None].expand(3, b, 1))
         new_caches = []
         for block, cache in zip(self.blocks, caches):
-            x, cache = block(x, cos, sin, cache=cache, position=position)
+            x, cache = block(x, cos, sin, mask=mask, cache=cache, index=index)
             new_caches.append(cache)
         return self.lm_head(self.final_norm(x)), new_caches
 
@@ -506,22 +521,29 @@ def build_generate_fns(
             tok = torch.where(force_steps <= 0, torch.full_like(tok, eos), tok)
         return tok
 
-    def advance(token, caches, done, delta, t, force_steps):
-        logits, caches = model.decode_step(token[:, None], caches, prompt_len + t, delta)
+    def advance(token, caches, done, delta, t, positions, force_steps):
+        # step t feeds cache slot prompt_len + t as a 0-d device tensor, a
+        # view into ``positions``: no host-to-device copy per step
+        logits, caches = model.decode_step(token[:, None], caches, positions[t], delta)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
         if force_steps is not None:
             nxt = torch.where(t + 1 >= force_steps, torch.full_like(nxt, eos), nxt)
         nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
         return nxt, caches, done | (nxt == eos)
 
+    def cache_slots(device):
+        return torch.arange(prompt_len, prompt_len + max_new_tokens, dtype=torch.int32,
+                            device=device)
+
     @torch.inference_mode()
     def decode(last_logits, caches, delta, force_steps=None):
         token = first_token(last_logits, force_steps)
         done = token == eos
+        positions = cache_slots(token.device)
         out = []
         for t in range(max_new_tokens):
             out.append(token)
-            token, caches, done = advance(token, caches, done, delta, t, force_steps)
+            token, caches, done = advance(token, caches, done, delta, t, positions, force_steps)
         return torch.stack(out, dim=1)
 
     @torch.inference_mode()
@@ -530,10 +552,11 @@ def build_generate_fns(
         b = token.shape[0]
         out = torch.full((b, max_new_tokens), eos, dtype=torch.int32, device=token.device)
         done = token == eos
+        positions = cache_slots(token.device)
         t = 0
         while t < max_new_tokens and not bool(done.all()):
             out[:, t] = token
-            token, caches, done = advance(token, caches, done, delta, t, force_steps)
+            token, caches, done = advance(token, caches, done, delta, t, positions, force_steps)
             t += 1
         return out
 

@@ -142,8 +142,9 @@ def test_parser_options_not_ported_raise():
         td.DocumentParser(None, ByteTokenizer(), pp_stages=2, pp_mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         td.DocumentParser(None, ByteTokenizer(), dp_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        td.DocumentParser(None, ByteTokenizer(), device="cpu").parse_continuous(["a.png"])
+    # continuous batching is ported (tests/test_torch_qwen_serve.py): an
+    # empty queue gives no results
+    assert td.DocumentParser(None, ByteTokenizer(), device="cpu").parse_continuous([]) == []
 
 
 @pytest.mark.parametrize("extra", [[], ["--batch_size", "2", "--dynamic_resolution",
@@ -178,7 +179,8 @@ def test_cli_artifacts_equal_jax_cli(tmp_path, monkeypatch, extra):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flags in (["--pipeline_parallel", "2"], ["--data_parallel", "2"], ["--continuous"]):
+    for flags in (["--pipeline_parallel", "2"], ["--data_parallel", "2"],
+                  ["--continuous", "--data_parallel", "2"]):
         with pytest.raises(SystemExit):
             tcli.main(["--input_folder", str(tmp_path), "--size", "tiny", "--device", "cpu",
                        *flags])

@@ -45,6 +45,7 @@ def test_twin_scripts_import_without_jax():
     scripts = sorted(str(p) for p in (REPO / "scripts").glob("torch_*.py"))
     assert any(s.endswith("torch_attn_candidates_bench.py") for s in scripts)
     assert any(s.endswith("torch_enc_attn_blhd_probe.py") for s in scripts)
+    assert any(s.endswith("torch_parse_bench.py") for s in scripts)
     code = (
         "import importlib.util, sys\n"
         f"for path in {scripts!r}:\n"
@@ -72,6 +73,7 @@ def test_module_list_covers_the_slice():
         "models.mllama_processor", "models.tokenizer", "kernels.flash_attention",
         "kernels.quantization_int4", "models.qwen_vl", "analysis.doc_parser", "cli.parse",
         "kernels.conv", "kernels.ln_matmul", "kernels.ln_stats", "io.images",
+        "models.qwen_serve", "models.bpe",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 
