@@ -228,9 +228,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. the card against the CPU for Qwen: the 32B widths at 2 vision (one
     full-attention) and 2 text layers, f32 on the CPU with the plain
     kernels, bf16 on the card, same weights and page; last-position logit
-    cosine ≥ 0.999.
+    cosine ≥ 0.999;
+16. the serving CLI at full width on its defaults (``cli.serve``:
+    DocLayout-YOLOv10-m at 1024 px over the page and its 2×2, 3×3, 4×4
+    grids, letterboxed; the top 48 regions at 448 px; ViT-B/16 bf16; a
+    whole-page embedding per page; the store): a folder of 4 synthetic
+    2200×1700 pages (bucket (2400, 1800)), one 1500×1150 (bucket (1600,
+    1200)) and a corrupt ``.png``, after a warm-up run on one page of each
+    bucket. ``main()`` pipelined: 5 pages ingested, the corrupt one logged
+    once and skipped, K1 packed 1 and K1 BLF 24 per page exactly;
+    ``--no_prefetch`` into a second store: the same launches, the same ids
+    and embeddings EQUAL bit for bit, a second run attempts only the
+    corrupt page; ms per page and pages/s of both, the served page's detect
+    / embed / whole-page-embedding split, a profile of one page, peak
+    memory; the card's bf16 ``letterbox_views_matmul`` against the CPU's
+    f32 on the served page within one uint8 step; the store filled with
+    seeded unit rows to 100,000 × 768 f32 on the card, 64 queries at k = 10
+    (ms per batch, ``masked_topk``'s device time), ids equal to the native
+    host ``cosine_topk`` but where two similarities lie within 1e-5 (the
+    count printed); an ``index="hnsw"`` collection over the first 4,000 rows
+    (cut from 10,000 for time: the native build is single-threaded), build
+    seconds and recall@10 against exact; ``--embedder_family mme5
+    --quantize`` (int8-mixed, 11B) on 2 of the pages: exact K1-prefix and K2
+    counts, unit-norm finite embeddings.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14) sets the launch
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -257,6 +279,11 @@ included), and prints no result line.
 
 runs phase 1, K3's and K4's builds and phases 11, 12 and 12b only, and
 prints no result line.
+
+    python3 chip_smoke.py --serve
+
+runs phase 1, K1's and K2's builds and phase 16 only, and prints no result
+line.
 
     python3 chip_smoke.py --k6
 
@@ -3286,6 +3313,310 @@ def bhld_route_page(counters, detector, embedder, crops, embs) -> dict:
     return launches
 
 
+# phase 16: the serving CLI at full width on its defaults. 4 synthetic pages
+# at 2200x1700 fall in the (2400, 1800) bucket and one at 1500x1150 in (1600,
+# 1200); a corrupt .png beside them must be skipped
+SERVE_PAGES = ((2200, 1700),) * 4 + ((1500, 1150),)
+SERVE_MME5_PAGES = 2
+SERVE_STORE_ROWS = 100_000
+SERVE_QUERIES, SERVE_K = 64, 10
+SERVE_TIE = 1e-5  # similarities this close may rank either way
+# the native HNSW build is single-threaded on the host and grows about as
+# the square of the rows (2,000 rows: 2.6-4.8 s on an H100 machine's host):
+# 4,000 rows of the store, cut from 10,000 to keep the phase near 90 s
+SERVE_HNSW_ROWS = 4_000
+
+
+class _IngestLog:
+    """Collects the serving CLI's "ingested N pages in S s" records."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        logging.getLogger("mmtpu.cli.serve").addHandler(self.handler)
+
+    def ingest_seconds(self) -> float:
+        rec = [r for r in self.records if r.msg.startswith("ingested")][-1]
+        return float(rec.args[1])
+
+    def close(self) -> None:
+        import logging
+
+        logging.getLogger("mmtpu.cli.serve").removeHandler(self.handler)
+
+
+def serve_args(folder: str, db: str, *extra) -> list:
+    return ["--input_folder", folder, "--db_path", db, *extra]
+
+
+def serve_launches(vit_layers: int, n_pages: int) -> dict:
+    """Per siglip page: K1 packed once (the PSA over 30 views), K1 BLF once
+    per ViT layer for the 48 crops and once per layer for the whole-page
+    embedding."""
+    return {"encoder_attention_blf_packed": n_pages,
+            "encoder_attention_blf": 2 * vit_layers * n_pages}
+
+
+def serving_cli(counters) -> dict:
+    """Phase 16; returns the launches of the pipelined siglip run and of the
+    mme5 run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.cli import serve
+    from multimodal_embeddings_tpu_torch.ops.image import letterbox_views_matmul
+    from multimodal_embeddings_tpu_torch.pipeline.fused import view_slice_bounds_for_page
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+    from multimodal_embeddings_tpu_torch.store.embedding_store import initialize_db, masked_topk
+    from multimodal_embeddings_tpu_torch.utils.native import cosine_topk_native
+
+    phase("16. the serving CLI at full width (cli.serve: siglip, letterbox, the store)")
+    out = {}
+    log = _IngestLog()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder, warm = os.path.join(tmp, "pages"), os.path.join(tmp, "warm")
+        os.makedirs(folder)
+        os.makedirs(warm)
+        t0 = time.perf_counter()
+        pages = []
+        for i, (h, w) in enumerate(SERVE_PAGES):
+            path = os.path.join(folder, f"page_{i}.png")
+            Image.fromarray(make_page(h, w, seed=20 + i)).save(path)
+            pages.append(path)
+        corrupt = os.path.join(folder, "page_corrupt.png")
+        with open(corrupt, "wb") as f:
+            f.write(b"not a png")
+        for path in (pages[0], pages[-1]):  # one page of each bucket
+            shutil.copy(path, warm)
+        buckets = sorted({serve.bucket_for(h, w, serve.DEFAULT_BUCKETS) for h, w in SERVE_PAGES})
+        print(f"pages: {len(pages)} + 1 corrupt, buckets {buckets}; "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        check(buckets == [(1600, 1200), (2400, 1800)], f"buckets {buckets}")
+
+        # warm-up: the same CLI on one page of each bucket, into its own store
+        serve.main(serve_args(warm, os.path.join(tmp, "db_warm")))
+        torch.cuda.synchronize()
+
+        # 1. pipelined, through the user's entry point
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        t0 = time.perf_counter()
+        check(serve.main(serve_args(folder, os.path.join(tmp, "db_a"))) == 0, "serve exit code")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        pipelined_s = log.ingest_seconds()
+        errors = [r for r in log.records if r.levelname == "ERROR"]
+        check(len(errors) == 1 and corrupt in errors[0].getMessage(),
+              f"the corrupt page logged once: {[r.getMessage() for r in errors]}")
+        vit_layers = 12
+        want = only(counters, serve_launches(vit_layers, len(pages)))
+        check(launches == want, f"launches {launches} != {want}")
+        out["pipelined"] = launches
+        print(f"pipelined: {len(pages)} pages ingested in {pipelined_s:.3f} s "
+              f"({1e3 * pipelined_s / len(pages):.1f} ms/page, {len(pages) / pipelined_s:.3f} "
+              f"pages/s; main() {wall:.1f} s with the models' set-up); peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        print("launches per page: " + ", ".join(
+            f"{k} {c // len(pages)}" for k, c in launches.items() if c))
+
+        # 2. sequential (--no_prefetch), through the server main() builds
+        args = serve.build_parser().parse_args(
+            serve_args(folder, os.path.join(tmp, "db_b"), "--no_prefetch"))
+        server = serve.FusedServer(args)
+        zero(counters)
+        check(server.run_once() == len(pages) + 1, "sequential run attempted every page")
+        torch.cuda.synchronize()
+        check(counts(counters) == want, f"sequential launches {counts(counters)} != {want}")
+        sequential_s = log.ingest_seconds()
+        print(f"sequential: {len(pages)} pages ingested in {sequential_s:.3f} s "
+              f"({1e3 * sequential_s / len(pages):.1f} ms/page, "
+              f"{len(pages) / sequential_s:.3f} pages/s)")
+        for path in pages:
+            check(server.progress.is_completed(path), f"{path} not marked done")
+        check(not server.progress.is_completed(corrupt), "the corrupt page marked done")
+        check(server.run_once() == 1, "a second run attempts only the corrupt page")
+        profiled = serve.FusedServer(serve.build_parser().parse_args(
+            serve_args(folder, os.path.join(tmp, "db_c"))))
+        profile_run(f"the pipelined ingest of {len(pages)} pages (run_once)", profiled.run_once)
+        del profiled
+
+        # the two stores: the same ids, embeddings equal bit for bit
+        _, pipelined_store = initialize_db(os.path.join(tmp, "db_a"), device="cuda")
+        a = pipelined_store.get(include=("embeddings", "metadatas"))
+        b = server.collection.get(include=("embeddings", "metadatas"))
+        check(sorted(a["ids"]) == sorted(b["ids"]), "pipelined and sequential ids differ")
+        ea, eb = dict(zip(a["ids"], a["embeddings"])), dict(zip(b["ids"], b["embeddings"]))
+        check(all(ea[i] == eb[i] for i in ea), "pipelined and sequential embeddings differ")
+        n_regions = sum(i.startswith("region_") for i in a["ids"])
+        vecs = np.asarray(a["embeddings"])
+        check(bool(np.isfinite(vecs).all()), "non-finite stored embeddings")
+        check(bool((np.abs(np.linalg.norm(vecs, axis=1) - 1) < 1e-3).all()), "stored norms")
+        print(f"stores equal bit for bit: {len(a['ids'])} ids ({n_regions} regions, "
+              f"{len(a['ids']) - n_regions} pages)")
+
+        # the served page's halves, timed apart, and a profile of one page
+        fn = server._fn_for_bucket((2400, 1800))
+        padded = torch.from_numpy(server._prepare(pages[1])[0]).to("cuda")
+        det_ms, emb_ms, page_embed_ms = [], [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *_, crops = fn.detect(padded)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn.embed(crops)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            server.embedder.get_image_embeddings([pages[1]], batch_size=1)
+            t3 = time.perf_counter()
+            det_ms.append((t1 - t0) * 1e3)
+            emb_ms.append((t2 - t1) * 1e3)
+            page_embed_ms.append((t3 - t2) * 1e3)
+        print(f"served (2400, 1800) page: detect+crop {statistics.mean(det_ms):.1f} ms, "
+              f"embed 48 crops {statistics.mean(emb_ms):.1f} ms, whole-page embedding "
+              f"(host API, decode included) {statistics.mean(page_embed_ms):.1f} ms")
+        profile_run("one served page (process_page)", lambda: server.process_page(pages[2]))
+
+        # 3. letterboxed views: the card's bf16 program against the CPU's f32
+        cfg = server.detector.config
+        bounds = view_slice_bounds_for_page(1800, 2400, cfg.grid_configs,
+                                            cfg.overlap_percentage)
+        with torch.inference_mode():
+            card = letterbox_views_matmul(padded.to(torch.bfloat16), bounds,
+                                          cfg.image_size)[0].to(torch.bfloat16)
+        cpu = letterbox_views_matmul(padded.cpu().float(), bounds, cfg.image_size)[0]
+        err = float((card.float().cpu() - cpu).abs().max())
+        print(f"letterboxed views ({len(bounds)} views at {cfg.image_size}): card bf16 vs "
+              f"CPU f32 max |diff| {err:.3f} (gate: one uint8 step)")
+        check(err <= 1.0, f"letterboxed views differ by {err}")
+
+        # 4. the store at 100,000 rows of 768 f32 on the card
+        coll = server.collection
+        n0 = coll.count()
+        rng = np.random.default_rng(16)
+        extra = rng.standard_normal((SERVE_STORE_ROWS - n0, 768)).astype(np.float32)
+        extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+        t0 = time.perf_counter()
+        coll.upsert(ids=[f"synthetic_{i}" for i in range(len(extra))], embeddings=extra,
+                    metadatas=[{"is_region": True, "synthetic": True}] * len(extra))
+        upsert_s = time.perf_counter() - t0
+        queries = rng.standard_normal((SERVE_QUERIES, 768)).astype(np.float32)
+        coll.query(queries[:1], n_results=SERVE_K)  # places the corpus on the card
+        corpus = coll._device_embeddings()
+        torch.cuda.synchronize()
+        check(corpus.is_cuda and tuple(corpus.shape) == (SERVE_STORE_ROWS, 768),
+              f"corpus {tuple(corpus.shape)} on {corpus.device}")
+        q_times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = coll.query(queries, n_results=SERVE_K)
+            q_times.append((time.perf_counter() - t0) * 1e3)
+        qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        qd = torch.from_numpy(qn).cuda()
+        mask = torch.ones(SERVE_STORE_ROWS, dtype=torch.bool, device="cuda")
+        topk_ms = median_ms(lambda: masked_topk(corpus, qd, mask, SERVE_K), runs=10)
+        ids = coll.get(include=())["ids"]
+        position = {i: n for n, i in enumerate(ids)}
+        host = corpus.cpu().numpy()
+        exact = host.astype(np.float64) @ qn.astype(np.float64).T  # (N, Q)
+        near, t0 = 0, time.perf_counter()
+        for qi in range(SERVE_QUERIES):
+            nat, _ = cosine_topk_native(host, qn[qi], SERVE_K)
+            got = np.asarray([position[i] for i in res["ids"][qi]])
+            for g, w in zip(got, nat):
+                if g != w:
+                    near += 1
+                    check(abs(exact[g, qi] - exact[w, qi]) <= SERVE_TIE,
+                          f"query {qi}: row {g} for {w}, similarities "
+                          f"{exact[g, qi]} vs {exact[w, qi]}")
+        native_s = time.perf_counter() - t0
+        print(f"store: {SERVE_STORE_ROWS} rows x 768 f32 on the card "
+              f"({SERVE_STORE_ROWS * 768 * 4 / 1e9:.3f} GB; upsert of {len(extra)} rows "
+              f"{upsert_s:.1f} s); {SERVE_QUERIES} queries at k={SERVE_K}: "
+              f"{statistics.median(q_times):.1f} ms per query batch (host clock, query()), "
+              f"masked_topk {topk_ms:.3f} ms (CUDA events); ids equal to the native host "
+              f"ranking ({native_s:.1f} s) but at {near} near-ties within {SERVE_TIE}")
+
+        # the HNSW collection over the store's first rows
+        _, hnsw = initialize_db(os.path.join(tmp, "db_hnsw"), index="hnsw", device="cuda")
+        rows = host[:SERVE_HNSW_ROWS]
+        t0 = time.perf_counter()
+        hnsw.upsert(ids=ids[:SERVE_HNSW_ROWS], embeddings=rows)
+        build_s = time.perf_counter() - t0
+        approx = hnsw.query(queries, n_results=SERVE_K)["ids"]
+        hits = 0
+        for qi in range(SERVE_QUERIES):
+            nat, _ = cosine_topk_native(rows, qn[qi], SERVE_K)
+            hits += len({ids[j] for j in nat} & set(approx[qi]))
+        recall = hits / (SERVE_QUERIES * SERVE_K)
+        print(f"hnsw over the first {SERVE_HNSW_ROWS} rows (M=32, ef 200): build "
+              f"{build_s:.1f} s, recall@{SERVE_K} {recall:.4f} against exact")
+        check(recall >= 0.5, f"hnsw recall@{SERVE_K} {recall}")
+        del server, coll, corpus, pipelined_store
+        gc_cuda()
+
+        # 5. mmE5 int8-mixed on two pages
+        mfolder = os.path.join(tmp, "mme5_pages")
+        os.makedirs(mfolder)
+        for path in pages[:SERVE_MME5_PAGES]:
+            shutil.copy(path, mfolder)
+        margs = serve.build_parser().parse_args(serve_args(
+            mfolder, os.path.join(tmp, "db_m"), "--embedder_family", "mme5", "--quantize"))
+        t0 = time.perf_counter()
+        mserver = serve.FusedServer(margs)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        chunk = mserver._embed_chunk()
+        zero(counters)
+        check(mserver.run_once() == SERVE_MME5_PAGES, "mme5 run attempted both pages")
+        torch.cuda.synchronize()
+        mme5_s = log.ingest_seconds()
+        mlaunches = counts(counters)
+        config = mserver.embedder.model_config
+        chunks = NUM_REGIONS // chunk
+        per_page = mme5_launches(config, chunks, chunks)
+        page_embed = mme5_launches(config, 0, 1, prefix=False)
+        del page_embed["encoder_attention_blf_packed"]
+        for k, c in page_embed.items():
+            per_page[k] = per_page.get(k, 0) + c
+        mwant = only(counters, {k: c * SERVE_MME5_PAGES for k, c in per_page.items()})
+        check(mlaunches == mwant, f"mme5 launches {mlaunches} != {mwant}")
+        out["mme5"] = mlaunches
+        m = mserver.collection.get(include=("embeddings",))
+        mvecs = np.asarray(m["embeddings"])
+        check(sum(not i.startswith("region_") for i in m["ids"]) == SERVE_MME5_PAGES,
+              "mme5 page embeddings")
+        check(bool(np.isfinite(mvecs).all()), "non-finite mme5 embeddings")
+        check(bool((np.abs(np.linalg.norm(mvecs, axis=1) - 1) < 1e-3).all()), "mme5 norms")
+        print(f"mme5 int8-mixed: set-up {setup_s:.1f} s, embed chunk {chunk}; "
+              f"{SERVE_MME5_PAGES} pages in {mme5_s:.3f} s "
+              f"({1e3 * mme5_s / SERVE_MME5_PAGES:.1f} ms/page); {len(m['ids'])} ids; "
+              "launches per page: " + ", ".join(
+                  f"{k} {c // SERVE_MME5_PAGES}" for k, c in mlaunches.items() if c))
+        del mserver
+        gc_cuda()
+    log.close()
+    return out
+
+
+def gc_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import gc
 
@@ -3335,6 +3666,11 @@ def main() -> int:
         phase("4a. K6 alone: every form against its plain version")
         k6_checks(k6)
         print(f"K6 alone: {time.perf_counter() - start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        build(("K1", k1), ("K2", k2))
+        serving_cli(kernel_counters(k1, k2, k3, k4, k5, k6, k7))
+        print(f"serving CLI alone: {time.perf_counter() - start:.1f} s")
         return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
@@ -3394,6 +3730,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     qwen_card_vs_cpu(ids, pixels, qwen_config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches_by_run = serving_cli(counters)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -3411,7 +3750,9 @@ def main() -> int:
              "qwen_page": qwen_launches,
              "qwen_continuous_early_exit": cont_launches["continuous, early-exit chunks"],
              "qwen_continuous_fixed": cont_launches["continuous, fixed chunks"],
-             "qwen_waves_b8": cont_launches["waves"]}
+             "qwen_waves_b8": cont_launches["waves"],
+             "serve_siglip_5_pages": serve_launches_by_run["pipelined"],
+             "serve_mme5_2_pages": serve_launches_by_run["mme5"]}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

@@ -4,8 +4,9 @@ H100.
 
 Module paths mirror the JAX package (``models/yolo.py`` ports
 ``multimodal_embeddings_tpu/models/yolo.py``), which stays the reference.
-This package imports ``torch`` and numpy, never ``jax`` or ``flax``; from
-the JAX package it takes only the jax-free ``config`` module. Kernels are
+This package imports ``torch`` and numpy, never ``jax``, ``flax`` or the
+JAX package: it keeps its own copies of the jax-free host code it needs
+(``config.py``, ``ops/grid.py``, ``io/``). Kernels are
 CUDA C++ for ``sm_90a`` under ``csrc/``, built by ``kernels/_build.py`` at
 first use.
 """

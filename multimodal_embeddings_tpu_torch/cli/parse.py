@@ -36,23 +36,14 @@ import os
 
 import torch
 
+from multimodal_embeddings_tpu_torch.io.images import get_image_paths
+
 logger = logging.getLogger("multimodal_embeddings_tpu_torch.cli.parse")
 
 SIZES = (
     "tiny", "tiny-int8", "3b", "3b-int8", "3b-int4", "7b", "7b-int8",
     "32b", "32b-int8", "32b-int4",
 )
-IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".webp", ".tiff", ".tif", ".bmp")
-
-
-def get_image_paths(input_folder: str):
-    """Recursive, extension-filtered, sorted discovery."""
-    image_paths = []
-    for root, _, files in os.walk(input_folder):
-        for file in files:
-            if os.path.splitext(file)[1].lower() in IMAGE_EXTENSIONS:
-                image_paths.append(os.path.join(root, file))
-    return sorted(image_paths)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,19 +1,49 @@
 """Engine configuration of the page program: ``DetectorConfig`` and
-``EmbedderConfig`` of ``multimodal_embeddings_tpu/config.py``, copied so
-that the port and its runs import nothing of the JAX package.
+``EmbedderConfig`` of ``multimodal_embeddings_tpu/config.py``, with its
+class taxonomy (``ID_TO_NAMES``, ``NAMES_TO_ID``) and the region classes the
+embedder takes (``REGION_TYPES_TO_PROCESS``), copied so that the port and
+its runs import nothing of the JAX package.
 
 Each field here is the JAX field of the same name with the same default
 (``tests/test_torch_config.py`` holds the two together). ``pallas_convs``
 and ``pallas_mode`` select the GL-CRM stages' route through the 3×3 conv
-kernel (K5, ``kernels/conv.py``). Fields that select a path the port does
-not have are left out: the space-to-depth stem (``s2d_stem``) and the
-letterboxed views (``device_letterbox``); neither runs a kernel.
+kernel (K5, ``kernels/conv.py``); ``device_letterbox`` makes the
+detector's multigrid host API letterbox the views on the device
+(``models/detector.py``). The one field that selects a path the port does
+not have is left out: the space-to-depth stem (``s2d_stem``), which runs no
+kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Tuple
+
+# Class taxonomy (reference: 1_doclayout_bboxes.py:67-78)
+ID_TO_NAMES = {
+    0: "title",
+    1: "plain_text",
+    2: "abandon",
+    3: "figure",
+    4: "figure_caption",
+    5: "table",
+    6: "table_caption",
+    7: "table_footnote",
+    8: "isolate_formula",
+    9: "formula_caption",
+}
+NAMES_TO_ID = {v: k for k, v in ID_TO_NAMES.items()}
+
+# Region classes forwarded to the embedder
+# (reference: deprecated_package/config.py:67-74)
+REGION_TYPES_TO_PROCESS = (
+    "title",
+    "plain_text",
+    "figure",
+    "figure_caption",
+    "table",
+    "table_caption",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +71,10 @@ class DetectorConfig:
     # it (cv1, cv2 and the gates as channel products), "block" only each
     # bottleneck's two 3x3s (cv1/cv2 stay library convs).
     pallas_mode: str = "stage"
+    # The multigrid host API (models/detector.py::detect_page_multigrid):
+    # letterbox all views on the device (matmul resize) instead of one host
+    # resize per view
+    device_letterbox: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,1 @@
-"""Host-side image helpers of the port."""
+"""Host-side IO of the port: image discovery and decode, JSON schemas, progress tracking, the prefetcher and logging."""

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` next
-to the sources, then loaded with ``ctypes``. The hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one is reused. The
-build directory is listed in ``.gitignore``; ``MMTPU_TORCH_BUILD_DIR``
-moves it.
+to the sources, then loaded with ``ctypes`` (``build_library`` also builds
+the native host code of ``utils/native.py`` with ``g++``). The hash covers
+the sources and the flags, so an edited source rebuilds and an unchanged one
+is reused. The build directory is listed in ``.gitignore``;
+``MMTPU_TORCH_BUILD_DIR`` moves it.
 """
 
 from __future__ import annotations
@@ -58,11 +59,12 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built; raises with nvcc's output on failure."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def build_library(name: str, sources, flags, compiler) -> BuildInfo:
+    """Compile ``sources`` into ``_build/lib<name>-<hash>.so`` unless a
+    library of the same sources and flags is already built; ``compiler()``
+    names the compiler. Raises with the compiler's output on failure."""
+    digest = hashlib.sha1(b"".join(Path(s).read_bytes() for s in sources)
+                          + " ".join(flags).encode())
     out_dir = build_dir()
     lib = out_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
@@ -72,18 +74,25 @@ def build(name: str) -> BuildInfo:
     # a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [compiler(), *flags, "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"build failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib)
     return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` with nvcc unless a library of the same
+    source and flags is already built; raises with nvcc's output on
+    failure."""
+    return build_library(name, [CSRC_DIR / f"{name}.cu"], NVCC_FLAGS, find_nvcc)
 
 
 def load(name: str):

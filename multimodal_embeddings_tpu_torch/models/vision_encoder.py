@@ -56,6 +56,14 @@ class DualEncoderConfig:
     embed_dim: int = 768
 
     @classmethod
+    def tiny(cls) -> "DualEncoderConfig":
+        return cls(
+            vision=VisionConfig(image_size=64, patch_size=16, width=64, layers=2, heads=2),
+            text=TextConfig(vocab_size=512, max_len=16, width=64, layers=2, heads=2),
+            embed_dim=64,
+        )
+
+    @classmethod
     def base(cls) -> "DualEncoderConfig":
         return cls(
             vision=VisionConfig(image_size=448, patch_size=16, width=768, layers=12, heads=12),

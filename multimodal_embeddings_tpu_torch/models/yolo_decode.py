@@ -3,11 +3,13 @@ per-view padded NMS, all on the device with static shapes.
 
 Port of ``multimodal_embeddings_tpu/models/yolo_decode.py``. Top-k keeps
 ``jax.lax.top_k``'s tie order (lower index first) through a stable
-descending sort.
+descending sort. ``scale_boxes_to_original`` (host numpy, float64) undoes a
+letterbox.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +38,16 @@ def _anchors_for(shapes: Sequence[Tuple[int, int]]) -> Tuple[np.ndarray, np.ndar
         points.append(np.stack([(xs + 0.5) * s, (ys + 0.5) * s], axis=-1).reshape(-1, 2))
         strides.append(np.full((h * w,), s, np.float32))
     return np.concatenate(points), np.concatenate(strides)
+
+
+@functools.lru_cache(maxsize=16)
+def _anchors_on(shapes: Tuple[Tuple[int, int], ...], device: torch.device):
+    """``_anchors_for`` on ``device``, uploaded once per level layout (an
+    upload after the detector's forward would hold the host until it is
+    done)."""
+    points, strides = _anchors_for(shapes)
+    with torch.inference_mode(False):
+        return torch.from_numpy(points).to(device), torch.from_numpy(strides).to(device)
 
 
 def dfl_expectation(reg: torch.Tensor) -> torch.Tensor:
@@ -68,9 +80,8 @@ def decode_predictions(
     cls = torch.cat(clss, dim=1)  # (B, A, C)
     device = reg.device
 
-    points, strides = _anchors_for(shapes)
-    points = torch.from_numpy(points).to(device)
-    strides = torch.from_numpy(strides).to(device)[None, :, None]
+    points, strides = _anchors_on(tuple(shapes), device)
+    strides = strides[None, :, None]
 
     dist = dfl_expectation(reg)  # (B, A, 4) in stride units
     x1y1 = points[None] - dist[..., :2] * strides
@@ -96,3 +107,22 @@ def decode_predictions(
         torch.gather(top_classes, 1, order),
         keep,
     )
+
+
+def scale_boxes_to_original(
+    boxes: np.ndarray,
+    scale: float,
+    pad: Tuple[int, int],
+    original_hw: Tuple[int, int],
+) -> np.ndarray:
+    """Undo letterboxing: model-input pixel boxes → original image coords,
+    clipped to the image (ultralytics scale_boxes convention)."""
+    pad_top, pad_left = pad
+    out = boxes.astype(np.float64).copy()
+    out[..., [0, 2]] -= pad_left
+    out[..., [1, 3]] -= pad_top
+    out /= scale
+    h, w = original_hw
+    out[..., [0, 2]] = np.clip(out[..., [0, 2]], 0, w)
+    out[..., [1, 3]] = np.clip(out[..., [1, 3]], 0, h)
+    return out

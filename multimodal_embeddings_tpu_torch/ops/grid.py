@@ -1,6 +1,6 @@
-"""Multi-grid tiling geometry — a verbatim copy of ``GridCell`` and
-``grid_cells`` from ``multimodal_embeddings_tpu/ops/grid.py``, whose
-package imports JAX.
+"""Multi-grid tiling geometry — a verbatim copy of ``GridCell``,
+``grid_cells`` and ``translate_boxes`` from
+``multimodal_embeddings_tpu/ops/grid.py``, whose package imports JAX.
 
 Reproduces the cell-coordinate float math of ``split_image_into_grid``
 (``1_doclayout_bboxes.py:366-444``): cells are ``width/cols`` × ``height/rows``
@@ -93,3 +93,17 @@ def grid_cells(
     return cells
 
 
+def translate_boxes(boxes, cell: GridCell):
+    """Shift cell-local boxes into page coordinates (float64, exact)."""
+    out = []
+    for box in boxes:
+        x_min, y_min, x_max, y_max = box
+        out.append(
+            [
+                x_min + cell.x_start,
+                y_min + cell.y_start,
+                x_max + cell.x_start,
+                y_max + cell.y_start,
+            ]
+        )
+    return out

@@ -2,12 +2,16 @@
 dense matrix products on the device.
 
 Port of ``multimodal_embeddings_tpu/ops/image.py``'s ``_interp_matrix``,
-``resize_matmul``, ``extract_views_matmul`` and ``crop_and_resize_mxu``.
-Images are ``(H, W, C)`` / ``(B, H, W, C)`` as in the JAX package.
+``resize_matmul``, ``extract_views_matmul``, ``letterbox_views_matmul`` and
+``crop_and_resize_mxu``. Images are ``(H, W, C)`` / ``(B, H, W, C)`` as in
+the JAX package. ``resize_bilinear_host`` is the one host resize of the
+port (the detector's ``_letterbox_host``): the same interpolation matrices
+on a numpy image.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -35,6 +39,15 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_on(in_size: int, out_size: int, device: torch.device, dtype) -> torch.Tensor:
+    """``_interp_matrix`` on ``device`` in ``dtype``, uploaded once: a copy
+    from pageable host memory in the middle of a page would hold the host
+    until the card's queued work is done."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device, dtype)
+
+
 def resize_matmul(
     images: torch.Tensor, out_h: int, out_w: int, dtype=torch.float32
 ) -> torch.Tensor:
@@ -42,11 +55,22 @@ def resize_matmul(
     contractions with static interpolation matrices, each rounded to
     ``dtype`` (as the JAX version's ``preferred_element_type``)."""
     h, w = int(images.shape[1]), int(images.shape[2])
-    dev = images.device
-    ry = torch.from_numpy(_interp_matrix(h, out_h)).to(dev, dtype)
-    rx = torch.from_numpy(_interp_matrix(w, out_w)).to(dev, dtype)
+    ry = _interp_on(h, out_h, images.device, dtype)
+    rx = _interp_on(w, out_w, images.device, dtype)
     tmp = torch.einsum("oh,bhwc->bowc", ry, images.to(dtype))
     return torch.einsum("pw,bowc->bopc", rx, tmp)
+
+
+def resize_bilinear_host(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Half-pixel-centre, edge-clamped bilinear resize of an ``(H, W, C)``
+    numpy image → ``(out_h, out_w, C)`` float32 (cv2 ``INTER_LINEAR``'s
+    convention): the interpolation matrices of ``resize_matmul``, applied in
+    float64."""
+    h, w = image.shape[:2]
+    ry = _interp_matrix(h, out_h).astype(np.float64)
+    rx = _interp_matrix(w, out_w).astype(np.float64)
+    img = np.asarray(image, np.float64)
+    return np.einsum("oh,hwc,pw->opc", ry, img, rx, optimize=True).astype(np.float32)
 
 
 def extract_views_matmul(
@@ -70,6 +94,41 @@ def extract_views_matmul(
         for slot, (idx, _, _) in enumerate(members):
             slots[idx] = resized[slot]
     return torch.stack(slots)
+
+
+def letterbox_views_matmul(
+    page: torch.Tensor,
+    view_bounds: List[Tuple[int, int, int, int]],
+    out_size: int,
+    pad_value: float = 114.0,
+):
+    """All page views (static slices) letterboxed on the device: an
+    aspect-preserving matmul resize (f32) placed on a ``pad_value`` gray
+    canvas at the host letterbox's round-half-even scale and ``//2``
+    offsets, one batched resize per distinct slice shape.
+
+    Returns ``(views (V, S, S, C) float32, metas)``, ``metas[i] = (scale,
+    (pad_top, pad_left))`` per view, for ``scale_boxes_to_original``."""
+    groups: dict = {}
+    for idx, (x0, y0, x1, y1) in enumerate(view_bounds):
+        groups.setdefault((y1 - y0, x1 - x0), []).append((idx, x0, y0))
+
+    c = page.shape[2]
+    slots = [None] * len(view_bounds)
+    metas = [None] * len(view_bounds)
+    for (gh, gw), members in groups.items():
+        scale = min(out_size / gh, out_size / gw)
+        new_h, new_w = int(round(gh * scale)), int(round(gw * scale))
+        top = (out_size - new_h) // 2
+        left = (out_size - new_w) // 2
+        stack = torch.stack([page[y0 : y0 + gh, x0 : x0 + gw] for _, x0, y0 in members])
+        canvas = torch.full((len(members), out_size, out_size, c), pad_value,
+                            dtype=torch.float32, device=page.device)
+        canvas[:, top : top + new_h, left : left + new_w] = resize_matmul(stack, new_h, new_w)
+        for slot, (idx, _, _) in enumerate(members):
+            slots[idx] = canvas[slot]
+            metas[idx] = (scale, (top, left))
+    return torch.stack(slots), metas
 
 
 def crop_and_resize_mxu(

@@ -21,10 +21,15 @@ halves: the vision tower runs ``embed_chunk`` crops at a time, the states
 are concatenated on the device, and the text stack runs ``N`` crops at a
 time over them.
 
+Step 1 squeezes each view to the detector's square input, or with
+``letterbox=True`` (the serving CLI's default) letterboxes it on a 114-gray
+canvas (``letterbox_views_matmul``), as in the JAX package: the page in
+bf16, the canvas in f32, then bf16 ``/255``.
+
 PyTorch runs eagerly, so the JAX package's program-shaping arguments
 (``closure_weights``, ``embed_closure``, ``auto_layouts``) and its XLA cost
-analysis have no counterpart. The letterboxed views and the multi-page
-batch functions are not ported yet.
+analysis have no counterpart. The multi-page batch functions are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from multimodal_embeddings_tpu_torch.ops.grid import grid_cells
 from multimodal_embeddings_tpu_torch.ops.image import (
     crop_and_resize_mxu,
     extract_views_matmul,
+    letterbox_views_matmul,
 )
 from multimodal_embeddings_tpu_torch.ops.nms import nms_padded
 
@@ -60,6 +66,17 @@ class PageResult(NamedTuple):
     classes: torch.Tensor  # (K,) int32
     valid: torch.Tensor  # (K,) bool
     embeddings: torch.Tensor  # (K, D) L2-normalised region embeddings
+
+
+def view_boxes_for_page(
+    width: int, height: int, grids: Sequence[Tuple[int, int]], overlap: float
+) -> np.ndarray:
+    """Static (V, 4) xyxy view rectangles: full page + every grid cell."""
+    boxes = [[0.0, 0.0, float(width), float(height)]]
+    for rows, cols in grids:
+        for cell in grid_cells(width, height, rows, cols, overlap):
+            boxes.append([cell.x_start, cell.y_start, cell.x_end, cell.y_end])
+    return np.asarray(boxes, np.float32)
 
 
 def view_slice_bounds_for_page(
@@ -88,12 +105,11 @@ def build_fused_detect_fn(
     top ``num_regions`` regions, without the embedding forward; the page is
     ``(H, W, 3)`` uint8 on the detector's device.
 
+    ``letterbox`` letterboxes each view instead of squeezing it;
     ``edge_filter`` drops grid-cell boxes within 10 px of an internal cell
     edge before the cross-view NMS; ``candidate_cap`` bounds that NMS at
     ``cap·num_regions`` candidates (≤ 0: all view boxes). Pixels ride in
     bf16 through the resampling, as in the JAX package's default."""
-    if letterbox:
-        raise NotImplementedError("letterboxed views are not ported yet")
     height, width = page_hw
     cfg = detector.config
     view_bounds = view_slice_bounds_for_page(
@@ -102,22 +118,40 @@ def build_fused_detect_fn(
     det_size = cfg.image_size
     dev = detector.device
 
-    # per-view affine from detector-input pixels back to page pixels
+    # per-view affine from detector-input pixels back to page pixels:
+    # squeeze → scale (w/S, h/S), offset (x0, y0); letterbox → scale 1/s,
+    # offset (x0 − left/s, y0 − top/s) at the host letterbox's (s, top, left)
     vb = np.asarray(view_bounds, np.float32)
-    sx = torch.from_numpy((vb[:, 2] - vb[:, 0]) / det_size).to(dev)[:, None]
-    sy = torch.from_numpy((vb[:, 3] - vb[:, 1]) / det_size).to(dev)[:, None]
-    ox = torch.from_numpy(vb[:, 0]).to(dev)[:, None]
-    oy = torch.from_numpy(vb[:, 1]).to(dev)[:, None]
+    if letterbox:
+        affine = []
+        for x0, y0, x1, y1 in view_bounds:
+            gh, gw = y1 - y0, x1 - x0
+            s = min(det_size / gh, det_size / gw)
+            new_h, new_w = int(round(gh * s)), int(round(gw * s))
+            top, left = (det_size - new_h) // 2, (det_size - new_w) // 2
+            affine.append((1.0 / s, 1.0 / s, x0 - left / s, y0 - top / s))
+        sx, sy, ox, oy = np.asarray(affine, np.float32).T
+    else:
+        sx, sy = (vb[:, 2] - vb[:, 0]) / det_size, (vb[:, 3] - vb[:, 1]) / det_size
+        ox, oy = vb[:, 0], vb[:, 1]
+    sx, sy, ox, oy = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)[:, None]
+                      for a in (sx, sy, ox, oy))
     cells = torch.from_numpy(vb).to(dev)
     page_size = torch.tensor([float(width), float(height)], device=dev)
 
     @torch.inference_mode()
     def detect_and_crop(page: torch.Tensor):
         pagef = page.to(torch.bfloat16)
-        view_imgs = (
-            extract_views_matmul(pagef, view_bounds, det_size, dtype=torch.bfloat16)
-            / 255.0
-        )
+        if letterbox:
+            view_imgs = (
+                letterbox_views_matmul(pagef, view_bounds, det_size)[0].to(torch.bfloat16)
+                / 255.0
+            )
+        else:
+            view_imgs = (
+                extract_views_matmul(pagef, view_bounds, det_size, dtype=torch.bfloat16)
+                / 255.0
+            )
         det = decode_predictions(
             detector.model(view_imgs),
             max_det=cfg.max_detections,

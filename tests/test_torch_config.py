@@ -10,7 +10,7 @@ from multimodal_embeddings_tpu import config as jconfig
 from multimodal_embeddings_tpu_torch import config as tconfig
 
 LEFT_OUT = {
-    "DetectorConfig": {"s2d_stem", "device_letterbox"},
+    "DetectorConfig": {"s2d_stem"},
     "EmbedderConfig": set(),
 }
 
@@ -37,3 +37,24 @@ def test_port_defaults_build_the_jax_defaults(name):
     ref = getattr(jconfig, name)(**dataclasses.asdict(port))
     assert ref == getattr(jconfig, name)()
     assert getattr(tconfig, name).__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("name", ["ID_TO_NAMES", "NAMES_TO_ID", "REGION_TYPES_TO_PROCESS"])
+def test_taxonomy_equals_jax(name):
+    assert getattr(tconfig, name) == getattr(jconfig, name)
+    assert type(getattr(tconfig, name)) is type(getattr(jconfig, name))
+
+
+def test_device_letterbox_default():
+    assert tconfig.DetectorConfig().device_letterbox is jconfig.DetectorConfig().device_letterbox
+
+
+@pytest.mark.parametrize("size", ["tiny", "base"])
+def test_dual_encoder_sizes_equal_jax(size):
+    """``DualEncoderConfig.tiny()`` (``serve --embedder_size tiny``) and
+    ``base()``, field by field."""
+    from multimodal_embeddings_tpu.models import vision_encoder as jve
+    from multimodal_embeddings_tpu_torch.models import vision_encoder as tve
+
+    got, want = getattr(tve.DualEncoderConfig, size)(), getattr(jve.DualEncoderConfig, size)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -308,3 +308,86 @@ def test_page_fn_arguments_are_checked(both, mme5):
     for kwargs in ({"text_chunk": 3}, {"embed_chunk": 3}, {"embed_tiles": 2}):
         with pytest.raises(ValueError):
             tfused.build_split_page_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def letterboxed(both):
+    """The detect half of both page programs with letterboxed views (the
+    serving CLI's default) on the same page and detector parameters."""
+    from multimodal_embeddings_tpu.ops.image import letterbox_views_matmul as jletterbox
+
+    jdet = SimpleNamespace(
+        config=JDetectorConfig(**DET),
+        model=JYolo(num_classes=10, variant="n", glcrm=True, dtype=jnp.float32),
+        variables=unflatten_params(export_jax_params(both.tdet.model)),
+    )
+    bounds = tfused.view_slice_bounds_for_page(PAGE_HW[1], PAGE_HW[0], ((2, 2),), 20.0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        jdetect = jfused.build_fused_detect_fn(jdet, PAGE_HW, num_regions=K, emb_size=256,
+                                               letterbox=True)
+        jres = [np.array(x) for x in jdetect(jnp.asarray(both.page))]
+        jviews = np.array(
+            jletterbox(jnp.asarray(both.page, jnp.bfloat16), bounds, 128)[0]
+            .astype(jnp.bfloat16).astype(jnp.float32) / 255.0
+        )
+        jmaps = jdet.model.apply(jdet.variables, jnp.asarray(jviews))
+    seen = []
+    model = both.tdet.model
+    tdet = SimpleNamespace(config=both.tdet.config, device=both.tdet.device,
+                           model=lambda x: seen.append(x) or model(x))
+    tdetect = tfused.build_fused_detect_fn(tdet, PAGE_HW, num_regions=K, emb_size=256,
+                                           letterbox=True)
+    tres = tdetect(torch.from_numpy(both.page))
+    page_fn = tfused.build_split_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K,
+                                         embed_chunk=4, letterbox=True)
+    return SimpleNamespace(jres=jres, jviews=jviews, jmaps=jmaps, tres=tres, seen=seen,
+                           page=page_fn(torch.from_numpy(both.page)))
+
+
+def test_letterboxed_views_equal_jax(letterboxed):
+    """The views the detector sees: bf16 in [0, 1] from the f32 canvas, one
+    bf16 step at 1 (the canvas sums differ by f32 rounding)."""
+    got = letterboxed.seen[0]
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == letterboxed.jviews.shape
+    np.testing.assert_allclose(got.float().numpy(), letterboxed.jviews, atol=1 / 255)
+
+
+def test_letterboxed_head_maps_on_jax_views(both, letterboxed):
+    """Tolerance 1e-4 on head logits, as ``test_head_maps_on_jax_views``."""
+    with torch.no_grad():
+        got = both.tdet.model(torch.from_numpy(letterboxed.jviews))
+    for (greg, gcls), (wreg, wcls) in zip(got, letterboxed.jmaps):
+        np.testing.assert_allclose(greg.numpy(), np.asarray(wreg), atol=1e-4)
+        np.testing.assert_allclose(gcls.numpy(), np.asarray(wcls), atol=1e-4)
+
+
+def test_letterboxed_selection_and_crops(both, letterboxed):
+    """What a tie flip cannot move (the sorted top-K scores within 2e-7,
+    the valid count), and crops of JAX's boxes within two uint8 steps."""
+    got, want = letterboxed.tres, letterboxed.jres
+    assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in want]
+    assert int(got[3].sum()) == int(want[3].sum())
+    np.testing.assert_allclose(np.sort(got[1].numpy()), np.sort(want[1]), rtol=0, atol=2e-7)
+    crops = crop_and_resize_mxu(
+        torch.from_numpy(both.page).bfloat16(), torch.from_numpy(want[0]),
+        out_size=256, compute_dtype=torch.bfloat16,
+    ) / 255.0
+    np.testing.assert_allclose(crops.numpy(), want[4], atol=2 / 255)
+    # other boxes than the squeezed program's (a box on a letterbox bar maps
+    # off the page, as in JAX; the serving CLI clips it)
+    assert not torch.equal(got[0], both.tres.boxes)
+
+
+def test_letterboxed_page_fn_output_contract(letterboxed):
+    r = letterboxed.page
+    assert tuple(r.embeddings.shape) == (K, 64)
+    np.testing.assert_allclose(r.embeddings.norm(dim=-1).numpy(), 1.0, rtol=1e-6)
+    torch.testing.assert_close(r.boxes, letterboxed.tres[0], rtol=0, atol=0)
+
+
+def test_view_boxes_for_page_equal_jax():
+    for grids in ((), ((2, 2),), ((2, 2), (3, 3), (4, 4))):
+        np.testing.assert_array_equal(
+            tfused.view_boxes_for_page(1700, 2200, grids, 20.0),
+            jfused.view_boxes_for_page(1700, 2200, grids, 20.0))

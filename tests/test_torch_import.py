@@ -73,7 +73,9 @@ def test_module_list_covers_the_slice():
         "models.mllama_processor", "models.tokenizer", "kernels.flash_attention",
         "kernels.quantization_int4", "models.qwen_vl", "analysis.doc_parser", "cli.parse",
         "kernels.conv", "kernels.ln_matmul", "kernels.ln_stats", "io.images",
-        "models.qwen_serve", "models.bpe",
+        "models.qwen_serve", "models.bpe", "io.logging_setup", "io.json_io", "io.progress",
+        "io.prefetch", "utils.native", "store.embedding_store", "pipeline.regions",
+        "cli.serve",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 

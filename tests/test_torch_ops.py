@@ -152,3 +152,58 @@ def test_crop_and_resize_mxu(dtype):
     assert got.shape == (11, 24, 24, 3) and got.dtype == torch.float32
     atol = 5e-3 if dtype == "float32" else 2.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+
+
+# views of four slice shapes: the full page, two grid cells of one shape
+# (one batched resize), a tall cell and a wide one
+LETTERBOX_BOUNDS = [(0, 0, 150, 200), (0, 0, 90, 120), (60, 0, 150, 120), (0, 80, 40, 200),
+                    (10, 150, 150, 190)]
+
+
+def test_letterbox_views_matmul_f32():
+    """f32 both sides (HIGHEST on the JAX side): views to float rounding,
+    the placements (scale, (top, left)) exactly JAX's."""
+    page = np.random.default_rng(6).integers(0, 256, (200, 150, 3)).astype(np.float32)
+    got, gmetas = timage.letterbox_views_matmul(torch.from_numpy(page), LETTERBOX_BOUNDS, 64)
+    want, wmetas = jimage.letterbox_views_matmul(jnp.asarray(page), LETTERBOX_BOUNDS, 64)
+    assert gmetas == wmetas
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5, 64, 64, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
+    # the gray bars are exactly 114
+    scale, (top, left) = gmetas[3]
+    assert top == 0 and left > 0 and bool((got[3, :, :left] == 114.0).all())
+
+
+def test_letterbox_views_matmul_bf16_page():
+    """The page program's form: a bf16 page (uint8 values are exact in bf16),
+    an f32 canvas, then bf16. One bf16 step at 255 (2.0) after the cast."""
+    page = np.random.default_rng(7).integers(0, 256, (200, 150, 3)).astype(np.uint8)
+    got, _ = timage.letterbox_views_matmul(
+        torch.from_numpy(page).bfloat16(), LETTERBOX_BOUNDS, 64)
+    want, _ = jimage.letterbox_views_matmul(
+        jnp.asarray(page, jnp.bfloat16), LETTERBOX_BOUNDS, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
+    np.testing.assert_allclose(got.bfloat16().float().numpy(),
+                               np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32)),
+                               atol=2.0)
+
+
+@pytest.mark.parametrize("shape,out", [((200, 150), (97, 73)), ((37, 53), (64, 91)),
+                                       ((64, 64), (64, 64))])
+def test_resize_bilinear_host_against_jax(shape, out):
+    """The host resize against JAX's ``resize_bilinear`` (the gather form of
+    the same half-pixel bilinear). JAX computes the source coordinates in
+    f32: up to ~1.5e-5 px off at 200 px, times a neighbour difference of up
+    to 255, so 1e-2 on 0-255 values (measured 4.3e-3)."""
+    img = np.random.default_rng(8).integers(0, 256, (*shape, 3)).astype(np.float32)
+    got = timage.resize_bilinear_host(img, *out)
+    want = np.asarray(jimage.resize_bilinear(jnp.asarray(img), *out))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-2)
+
+
+def test_translate_boxes_equal():
+    cell = tgrid.grid_cells(1700, 2200, 3, 3, 20.0)[4]
+    jcell = jgrid.grid_cells(1700, 2200, 3, 3, 20.0)[4]
+    boxes = _boxes(np.random.default_rng(9), (6,)).tolist()
+    assert tgrid.translate_boxes(boxes, cell) == jgrid.translate_boxes(boxes, jcell)
