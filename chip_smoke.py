@@ -252,7 +252,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
     --quantize`` (int8-mixed, 11B) on 2 of the pages: exact K1-prefix and K2
     counts, unit-norm finite embeddings.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16) sets the launch
+17. the numbered chain (``run.sh`` stages 0-5) through
+    ``cli.pipeline.main([..., "--device", "cuda"])`` on its defaults
+    (DocLayout-YOLOv10-m, 1024 px, grids ``2x2,3x3,4x4``, bf16, random
+    weights from seed 0, each class's head logits mapped once by an affine
+    fit on one page's views so that a view keeps about as many boxes of
+    each class as ``STAGE_VIEW_BOXES`` says, most of them plain_text, and
+    stages 4-5 find widths and columns) over four synthetic 2200×1700 text
+    pages, three
+    rotated by −2.5, 2.0 and 5.0 degrees and one clean, after a warm-up
+    chain on one page: each skew estimate within 0.3° of −angle (the clean
+    page: None or within 0.3° of 0), the card's estimates EQUAL to the CPU's
+    f32 ones and to a second card run, each rotated page within one uint8
+    step of the CPU's rotation of the same page by the same angle, K1 packed
+    exactly once per page and no other kernel, the stage-1 tree's layout,
+    a cached rerun that skips all six stages and changes no byte, and a
+    forced rerun of stages 2-5 whose JSON is byte-identical, plain_text
+    boxes and a median width on every page and column centres on at least
+    one; ms per page of
+    each stage, stage 0 split into decode / estimate / rotation / encode and
+    stage 1 into decode / detect / write, stage-1 pages/s with prefetch (the
+    chain's) and without (a profiled ``prefetch=False`` run, which gives
+    stage 1's device idle share) and peak memory.
+
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -284,6 +307,11 @@ prints no result line.
 
 runs phase 1, K1's and K2's builds and phase 16 only, and prints no result
 line.
+
+    python3 chip_smoke.py --stages
+
+runs phase 1, K1's build and phase 17 only, then prints the card line and
+the last line.
 
     python3 chip_smoke.py --k6
 
@@ -348,6 +376,22 @@ MME5_TEXT_CHUNK = 16  # phase 8b: the text stack at 16 crops a pass
 # regions instead of 48 for time only
 MME5_TILES4_REGIONS, MME5_TILES4_CHUNK = 8, 2
 MME5_API_BATCH = 2  # phase 8d: each image is a 4-tile stack; 16 would not fit
+# phase 17: the rotation of each synthetic page (degrees; 0 = clean) and the
+# skew estimator's gate, the JAX test's bound
+STAGE_ANGLES = (-2.5, 2.0, 5.0, 0.0)
+STAGE_ANGLE_TOL = 0.3
+# phase 17: a random head gives every anchor of a class nearly one score,
+# so each view keeps max_detections boxes or none, of whatever class that
+# score favours. fit_head refits the class head's output convs on one
+# page's 30 views: the k-th best anchor of a class (k below per view, on
+# average over the views) lands on conf_threshold and the best on a score
+# of 0.9; a class left out scores no box. Counted before NMS; a trained
+# detector keeps tens of boxes on a newspaper page, most of them plain_text.
+STAGE_VIEW_BOXES = {"plain_text": 48, "title": 6, "abandon": 4, "figure": 3,
+                    "figure_caption": 2}
+STAGE_BEST_SCORE = 0.9
+STAGE_FOLDERS = ("0_oriented_images", "1_doclayout_parsed", "2_edge_box_filtered",
+                 "3_combined_bboxes", "4_medians_extracted", "5_column_detection")
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -3608,6 +3652,373 @@ def serving_cli(counters) -> dict:
     return out
 
 
+class _LogRecords:
+    """Collects the records of the ``mmtpu`` loggers while it is open."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        logging.getLogger("mmtpu").addHandler(self.handler)
+
+    def __enter__(self) -> "_LogRecords":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import logging
+
+        logging.getLogger("mmtpu").removeHandler(self.handler)
+
+    def stage_seconds(self) -> dict:
+        """Wall seconds of each stage the runner ran: from its "running"
+        record to the next one (the last to the timing summary)."""
+        marks = [(r.args[0], r.created) for r in self.records
+                 if r.name == "mmtpu.runner" and r.msg == "stage %s: running"]
+        end = [r.created for r in self.records if r.name == "mmtpu.profiling"][-1]
+        return {name: (marks[i + 1][1] if i + 1 < len(marks) else end) - t
+                for i, (name, t) in enumerate(marks)}
+
+    def pipeline_results(self) -> dict:
+        # logging keeps a lone dict argument as the record's args
+        return [r.args for r in self.records if r.name == "mmtpu.cli.pipeline"][-1]
+
+
+def _file_digests(root: str) -> dict:
+    import hashlib
+
+    out = {}
+    for folder in STAGE_FOLDERS:
+        for dirpath, _, files in os.walk(os.path.join(root, folder)):
+            for name in files:
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def fit_head(detector, image) -> dict:
+    """The class head's output convs ``{level: (weight, bias)}`` that
+    ``STAGE_VIEW_BOXES`` asks for, fitted on ``image``'s views (see the
+    constant): each level's weight rows lose their component along the mean
+    of the conv's input over the views, so that the logits vary about 0 and
+    bf16 resolves them, then each class's row and bias take the affine map.
+    Leaves ``detector`` with the fitted head."""
+    import math
+
+    import torch
+
+    from multimodal_embeddings_tpu_torch.config import ID_TO_NAMES
+    from multimodal_embeddings_tpu_torch.ops.image import letterbox_views_matmul
+
+    head = detector.model.head
+    convs = [getattr(head, f"cls{i}_out") for i in range(head.levels)]
+    _, bounds, _ = detector._views_layout(*image.shape[:2])
+    means = {}
+
+    def logits():
+        with torch.inference_mode():
+            page = torch.from_numpy(image.copy()).to(detector.device).float()
+            views, _ = letterbox_views_matmul(page, bounds, detector.config.image_size)
+            maps = detector.model((views / 255.0).to(detector.dtype))
+            return torch.cat([cls.flatten(1, 2) for _, cls in maps], 1).float()
+
+    hooks = [conv.register_forward_hook(
+        lambda m, args, out, i=i: means.__setitem__(i, args[0].float().mean((0, 2, 3))))
+        for i, conv in enumerate(convs)]
+    logits()
+    for hook in hooks:
+        hook.remove()
+    with torch.no_grad():
+        for i, conv in enumerate(convs):
+            w, m = conv.weight.float()[:, :, 0, 0], means[i]
+            w = w - torch.outer(w @ m, m) / (m @ m)
+            conv.weight.copy_(w[:, :, None, None])
+            conv.bias.zero_()
+    z = logits()
+    low = math.log(detector.config.conf_threshold / (1 - detector.config.conf_threshold))
+    high = math.log(STAGE_BEST_SCORE / (1 - STAGE_BEST_SCORE))
+    with torch.no_grad():
+        for c in range(z.shape[-1]):
+            k = STAGE_VIEW_BOXES.get(ID_TO_NAMES[c], 0) * len(bounds)
+            if k:
+                best = z[..., c].flatten().topk(k).values
+                spread = (best[0] - best[-1]).item()
+                check(spread > 0, f"class {c}: its {k} best logits tie")
+                a, b = (high - low) / spread, low - (high - low) / spread * best[-1].item()
+            else:
+                a, b = 0.0, 2 * low  # no anchor reaches the threshold
+            for conv in convs:
+                conv.weight[c] *= a
+                conv.bias[c] = b
+    return {i: (conv.weight.detach().clone(), conv.bias.detach().clone())
+            for i, conv in enumerate(convs)}
+
+
+def apply_head(detector, fit: dict) -> None:
+    """Gives ``detector`` the class head ``fit_head`` fitted."""
+    import torch
+
+    with torch.no_grad():
+        for i, (weight, bias) in fit.items():
+            conv = getattr(detector.model.head, f"cls{i}_out")
+            conv.weight.copy_(weight)
+            conv.bias.copy_(bias)
+
+
+def stage_chain(counters) -> dict:
+    """Phase 17; returns the launches of the chain's run over the four
+    pages."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.cli import pipeline as cli_pipeline
+    from multimodal_embeddings_tpu_torch.config import DetectorConfig
+    from multimodal_embeddings_tpu_torch.io.images import (
+        load_image_bgr,
+        load_image_rgb,
+        save_image_bgr,
+    )
+    from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+    from multimodal_embeddings_tpu_torch.ops.image import rotate_bound
+    from multimodal_embeddings_tpu_torch.ops.skew import detect_skew
+    from multimodal_embeddings_tpu_torch.pipeline import detect as stage1
+    from multimodal_embeddings_tpu_torch.pipeline.runner import (
+        PipelineRunner,
+        numbered_pipeline_stages,
+    )
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+    phase("17. the numbered chain (run.sh stages 0-5) through cli.pipeline on the card")
+    n = len(STAGE_ANGLES)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        src = os.path.join(run_dir, "pages")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        paths = []
+        for i, angle in enumerate(STAGE_ANGLES):
+            page = make_page(*PAGE_HW, seed=40 + i)
+            if angle:  # rotated, then cut back to the page's size around its centre
+                rot = rotate_bound(torch.from_numpy(page), angle).numpy()
+                top = (rot.shape[0] - PAGE_HW[0]) // 2
+                left = (rot.shape[1] - PAGE_HW[1]) // 2
+                rot = rot[top : top + PAGE_HW[0], left : left + PAGE_HW[1]]
+                page = np.clip(rot, 0, 255).astype(np.uint8)
+            path = os.path.join(src, f"page_{i}.png")
+            Image.fromarray(page).save(path)
+            paths.append(path)
+        print(f"pages: {n} at {PAGE_HW}, rotated by {STAGE_ANGLES}; written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # the estimator: two card runs EQUAL, EQUAL to the CPU's f32 run, each
+        # within STAGE_ANGLE_TOL of -angle
+        rgbs = [load_image_rgb(p) for p in paths]
+        card_a = [detect_skew(rgb, device="cuda") for rgb in rgbs]
+        card_b = [detect_skew(rgb, device="cuda") for rgb in rgbs]
+        t0 = time.perf_counter()
+        cpu = [detect_skew(rgb, device="cpu") for rgb in rgbs]
+        cpu_s = time.perf_counter() - t0
+        print(f"skew estimates (card): {card_a}; second card run {card_b}; CPU f32 {cpu} "
+              f"({1e3 * cpu_s / n:.0f} ms/page on the host)")
+        check(card_a == card_b, f"two card runs differ: {card_a} vs {card_b}")
+        check(card_a == cpu, f"card {card_a} vs CPU {cpu}")
+        for angle, est in zip(STAGE_ANGLES, card_a):
+            if angle:
+                check(est is not None and abs(est + angle) <= STAGE_ANGLE_TOL,
+                      f"page rotated by {angle}: estimate {est}")
+            else:
+                check(est is None or abs(est) <= STAGE_ANGLE_TOL, f"clean page: {est}")
+
+        # warm-up: a detector of the chain's config (kept for the splits)
+        # runs one page's views, so the chain's first forward finds the
+        # card's libraries loaded
+        t0 = time.perf_counter()
+        detector = LayoutDetector(DetectorConfig())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fit = fit_head(detector, rgbs[0])
+        detector.detect_page_multigrid(paths[0], image=rgbs[0])
+
+        # the chain through the user's entry point; stage 1 builds its own
+        # detector, whose build is timed apart
+        builds = []
+
+        class TimedDetector(LayoutDetector):
+            def __init__(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                apply_head(self, fit)
+                torch.cuda.synchronize()
+                builds.append(time.perf_counter() - t0)
+
+        os.chdir(run_dir)
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        t0 = time.perf_counter()
+        with _LogRecords() as log, _swap(stage1, "LayoutDetector", TimedDetector):
+            check(cli_pipeline.main(["pages", "--device", "cuda"]) == 0, "chain exit code")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        want = only(counters, {"encoder_attention_blf_packed": n})
+        check(launches == want, f"launches {launches} != {want}")
+        results = log.pipeline_results()
+        check(set(results.values()) == {"ran"} and len(results) == 6, f"first run {results}")
+        seconds = log.stage_seconds()
+        check(len(builds) == 1, f"stage 1 built {len(builds)} detectors")
+        print(f"chain: {n} pages in {wall:.2f} s through cli.pipeline.main; peak device "
+              f"memory {peak / 2**30:.2f} GiB; stage 1's detector build {builds[0]:.2f} s "
+              f"(the warm-up's {build_s:.2f} s)")
+        print("ms per page by stage: " + ", ".join(
+            f"{name} {1e3 * sec / n:.1f}" for name, sec in seconds.items())
+            + f"; stage 1 without its detector build "
+              f"{1e3 * (seconds['detect'] - builds[0]) / n:.1f} "
+              f"({n / (seconds['detect'] - builds[0]):.3f} pages/s, prefetch)")
+        print("launches per page: " + ", ".join(
+            f"{k} {c // n}" for k, c in launches.items() if c))
+
+        # stage 0's outputs: rotated pages within one uint8 step of the CPU's
+        # rotation by the same angle; the clean page copied byte for byte
+        for path, angle, est in zip(paths, STAGE_ANGLES, card_a):
+            out = os.path.join("0_oriented_images", os.path.basename(path))
+            if est is None or abs(est) < 0.5:
+                check(open(out, "rb").read() == open(path, "rb").read(), f"{out} not copied")
+                continue
+            got = np.asarray(Image.open(out).convert("RGB"))[:, :, ::-1].astype(np.int16)
+            bgr = load_image_bgr(path)
+            ref = np.clip(rotate_bound(torch.from_numpy(bgr), est).numpy(), 0, 255)
+            diff = int(np.abs(got - ref.astype(np.uint8).astype(np.int16)).max())
+            print(f"{os.path.basename(path)} (rotated by {angle}): corrected by {est}, "
+                  f"{got.shape[1]}x{got.shape[0]}, card vs CPU rotation max |diff| {diff}")
+            check(diff <= 1, f"{out}: card rotation differs from the CPU's by {diff}")
+
+        # the stage-1 tree (pipeline/detect.py::write_page_artifacts)
+        grids = DetectorConfig().grid_configs
+        for path in paths:
+            base = os.path.splitext(os.path.basename(path))[0]
+            check(os.path.isfile(f"1_doclayout_parsed/json/{base}.json"), f"{base}.json")
+            for rows, cols in grids:
+                g = f"1_doclayout_parsed/grid_{rows}x{cols}"
+                info = json.load(open(f"1_doclayout_parsed/json/{base}_grid_{rows}x{cols}.json"))
+                check(list(info) == ["original_image_path", "grid_config", "cells"]
+                      and len(info["cells"]) == rows * cols, f"{base} grid {rows}x{cols}")
+                for sub, ext in (("images", ".png"), ("json", ".json")):
+                    cells = [f for f in os.listdir(f"{g}/{sub}") if f.startswith(base + "_row")]
+                    check(len(cells) == rows * cols and all(f.endswith(ext) for f in cells),
+                          f"{g}/{sub}: {len(cells)} cells of {base}")
+                for sub in ("visualizations", "visualizations_original_coords"):
+                    check(os.path.isdir(f"{g}/{sub}"), f"{g}/{sub}")
+        n_cells = sum(r * c for r, c in grids)
+        view_boxes = [len(json.load(open(f"1_doclayout_parsed/json/page_{i}.json"))["boxes"])
+                      for i in range(n)]
+        classes = collections.Counter(
+            name for f in sorted(os.listdir("3_combined_bboxes/json"))
+            for name in json.load(open(f"3_combined_bboxes/json/{f}"))["class_names"])
+        medians = [json.load(open(f"4_medians_extracted/json/page_{i}_combined_median_width"
+                                  ".json"))["median_width"] for i in range(n)]
+        columns = [len(json.load(open(f"5_column_detection/json/{f}"))["column_centers"])
+                   for f in sorted(os.listdir("5_column_detection/json"))]
+        print(f"stage-1 tree: {n} pages x (1 + {n_cells} cells), grids {grids}; full-page "
+              f"boxes {view_boxes}; {sum(classes.values())} combined boxes by class "
+              f"{dict(classes)}; median widths {medians}; column centres per column file "
+              f"{columns}")
+        check(classes["plain_text"] > 0, "no plain_text box")
+        check(all(m > 0 for m in medians), f"median widths {medians}")
+        check(sum(columns) > 0, f"column files {columns}")
+
+        # a cached rerun skips all six stages and changes no byte
+        before = _file_digests(".")
+        with _LogRecords() as log:
+            check(cli_pipeline.main(["pages", "--device", "cuda"]) == 0, "cached rerun")
+        results = log.pipeline_results()
+        check(set(results.values()) == {"skipped"} and len(results) == 6, f"rerun {results}")
+        check(_file_digests(".") == before, "the cached rerun changed files")
+        # a forced rerun of stages 2-5 writes the same JSON
+        stages = numbered_pipeline_stages("pages", device="cuda")[2:]
+        check(set(PipelineRunner().run(stages, force=True).values()) == {"ran"}, "forced rerun")
+        after = _file_digests(".")
+        json_before = {k: v for k, v in before.items()
+                       if k.endswith(".json") and not k.startswith(STAGE_FOLDERS[:2])}
+        check(len(json_before) > 4 * n and all(after[k] == v for k, v in json_before.items()),
+              "forced rerun of stages 2-5 changed the JSON")
+        print(f"cached rerun: all six stages skipped, {len(before)} files unchanged; forced "
+              f"stages 2-5: {len(json_before)} JSON files byte-identical")
+
+        # stage 0 split, on the same pages
+        split = {"decode": [], "estimate": [], "rotate": [], "encode": []}
+        for path, est in zip(paths, card_a):
+            t0 = time.perf_counter()
+            bgr = load_image_bgr(path)
+            t1 = time.perf_counter()
+            detect_skew(bgr[:, :, ::-1], device="cuda")
+            t2 = time.perf_counter()
+            with torch.inference_mode():
+                rot = rotate_bound(torch.from_numpy(bgr).cuda(), est or 0.0).cpu().numpy()
+            rot = np.clip(rot, 0, 255).astype(np.uint8)
+            t3 = time.perf_counter()
+            save_image_bgr(os.path.join(tmp, "split0", os.path.basename(path)), rot)
+            t4 = time.perf_counter()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key].append(1e3 * dt)
+        print("stage 0 per page (host clock): " + ", ".join(
+            f"{k} {statistics.mean(v):.1f} ms" for k, v in split.items()))
+
+        # stage 1 sequential (prefetch=False) over the oriented pages, its
+        # forward and its writer timed inside the run, under the profiler
+        split = {"detect": [], "write": []}
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                split[key].append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        detector.detect_page_multigrid = timed("detect", detector.detect_page_multigrid)
+        seq = {}
+
+        def sequential():
+            t0 = time.perf_counter()
+            seq["stats"] = stage1.run_detect_stage(
+                "0_oriented_images", os.path.join(tmp, "s1_seq"), detector=detector,
+                prefetch=False)
+            seq["s"] = time.perf_counter() - t0
+
+        with _swap(stage1, "write_page_artifacts",
+                   timed("write", stage1.write_page_artifacts)):
+            profile_run(f"stage 1 over {n} pages (run_detect_stage, prefetch=False)",
+                        sequential)
+        stats = seq["stats"]
+        check(stats.processed == n and stats.errors == 0, f"stage 1 {stats}")
+        other = 1e3 * seq["s"] / n - statistics.mean(split["detect"]) - statistics.mean(
+            split["write"])
+        print(f"stage 1 sequential (profiled): {n / seq['s']:.3f} pages/s; per page (host "
+              f"clock) detect {statistics.mean(split['detect']):.1f} ms, write "
+              f"{statistics.mean(split['write']):.1f} ms, decode and the rest {other:.1f} ms")
+        del detector
+        os.chdir(cwd)
+    gc_cuda()
+    return launches
+
+
+@contextlib.contextmanager
+def _swap(module, name: str, value):
+    """``module.name`` is ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    yield
+    setattr(module, name, old)
+
+
 def gc_cuda() -> None:
     import gc
 
@@ -3672,6 +4083,17 @@ def main() -> int:
         serving_cli(kernel_counters(k1, k2, k3, k4, k5, k6, k7))
         print(f"serving CLI alone: {time.perf_counter() - start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--stages"]:
+        build(("K1", k1))
+        stage_chain(kernel_counters(k1, k2, k3, k4, k5, k6, k7))
+        print(f"stage chain alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
@@ -3733,6 +4155,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches_by_run = serving_cli(counters)
+    stage_launches = stage_chain(counters)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -3752,7 +4175,8 @@ def main() -> int:
              "qwen_continuous_fixed": cont_launches["continuous, fixed chunks"],
              "qwen_waves_b8": cont_launches["waves"],
              "serve_siglip_5_pages": serve_launches_by_run["pipelined"],
-             "serve_mme5_2_pages": serve_launches_by_run["mme5"]}
+             "serve_mme5_2_pages": serve_launches_by_run["mme5"],
+             "stage_chain_4_pages": stage_launches}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

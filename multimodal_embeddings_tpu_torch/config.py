@@ -1,5 +1,6 @@
-"""Engine configuration of the page program: ``DetectorConfig`` and
-``EmbedderConfig`` of ``multimodal_embeddings_tpu/config.py``, with its
+"""Engine and stage configuration: ``DetectorConfig``, ``EmbedderConfig``
+and the numbered chain's stage configs of
+``multimodal_embeddings_tpu/config.py``, with its
 class taxonomy (``ID_TO_NAMES``, ``NAMES_TO_ID``) and the region classes the
 embedder takes (``REGION_TYPES_TO_PROCESS``), copied so that the port and
 its runs import nothing of the JAX package.
@@ -9,9 +10,13 @@ Each field here is the JAX field of the same name with the same default
 and ``pallas_mode`` select the GL-CRM stages' route through the 3×3 conv
 kernel (K5, ``kernels/conv.py``); ``device_letterbox`` makes the
 detector's multigrid host API letterbox the views on the device
-(``models/detector.py``). The one field that selects a path the port does
-not have is left out: the space-to-depth stem (``s2d_stem``), which runs no
-kernel.
+(``models/detector.py``). The one field left out is the space-to-depth
+stem (``s2d_stem``): it evaluates the stem conv by an exact rewrite that
+feeds the TPU's matrix unit better, gives the same outputs, and on an H100
+is no faster than the one stem the port keeps (``nn.Conv2d``; timed by
+``scripts/torch_stem_bench.py``). The stage configs of the numbered chain
+(``OrientationConfig``, ``EdgeFilterConfig``, ``CombineConfig``,
+``MedianWidthConfig``, ``ColumnConfig``) are copied whole.
 """
 
 from __future__ import annotations
@@ -47,6 +52,24 @@ REGION_TYPES_TO_PROCESS = (
 
 
 @dataclasses.dataclass(frozen=True)
+class OrientationConfig:
+    """Stage-0 deskew settings (reference: 0_orientation.py:326-388)."""
+
+    sensitivity_threshold: float = 0.5  # degrees; below this → copy unchanged
+    advanced_detection: bool = True  # Hough-based skew path
+    # Hough skew-detection parameters (reference: 0_orientation.py:143-167)
+    gaussian_kernel: int = 5
+    adaptive_block_size: int = 11
+    adaptive_c: float = 2.0
+    canny_low: float = 50.0
+    canny_high: float = 150.0
+    hough_threshold: int = 100
+    hough_max_gap: int = 10
+    max_abs_angle: float = 45.0  # reject steeper lines
+    max_angle_std: float = 10.0  # reject noisy estimates
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Stage-1 DocLayout-YOLO settings (reference: 1_doclayout_bboxes.py:684-701,
     deprecated_package/config.py:62-64)."""
@@ -75,6 +98,40 @@ class DetectorConfig:
     # letterbox all views on the device (matmul resize) instead of one host
     # resize per view
     device_letterbox: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeFilterConfig:
+    """Stage-2 settings (reference: 2_edge_box_filter.py:44-90)."""
+
+    threshold: int = 10  # px distance from an internal edge
+
+
+@dataclasses.dataclass(frozen=True)
+class CombineConfig:
+    """Stage-3 settings (reference: 3_combine_grids.py:403-411)."""
+
+    iou_threshold: float = 0.5
+    viz_alpha: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class MedianWidthConfig:
+    """Stage-4 settings (reference: 4_extract_median_widths.py:227-233)."""
+
+    min_margin_percent: float = 0.2
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnConfig:
+    """Stage-5 settings (reference: 5_detect_column_centers.py:91-224)."""
+
+    min_confidence: float = 0.3
+    density_bins: int = 1000  # resolution = page_width // density_bins px/bin
+    min_width_ratio: float = 0.33
+    max_width_ratio: float = 2.0
+    peak_height_frac: float = 0.2
+    peak_prominence_frac: float = 0.05
 
 
 @dataclasses.dataclass(frozen=True)

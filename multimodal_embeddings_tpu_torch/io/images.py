@@ -4,16 +4,24 @@ Copies of the functions of the same names in
 ``multimodal_embeddings_tpu/io/images.py`` and of ``IMAGE_EXTENSIONS`` from
 its ``config``: that module imports the JAX package's ``config``, so only the
 functions are copied, with PIL imported where an image is opened or resized
-(``tests/test_torch_serve.py`` and ``tests/test_torch_embedder.py`` hold
-them equal). ``validate_image`` suppresses PIL's error where the JAX
-function catches it: the package keeps no ``try``.
+(``tests/test_torch_serve.py``, ``tests/test_torch_embedder.py`` and
+``tests/test_torch_stages.py`` hold them equal). ``validate_image``
+suppresses PIL's error where the JAX function catches it: the package keeps
+no ``try``.
+
+``load_image_bgr``, ``load_image_gray`` and ``save_image_bgr`` take cv2
+where it is installed and PIL otherwise, as the JAX module does; cv2 is
+found by ``importlib.util.find_spec`` (``cv2_module``) and imported only
+where an image is read or written.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
+import importlib.util
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -44,11 +52,50 @@ def validate_image(image_path: str) -> bool:
     return valid
 
 
+def cv2_module():
+    """The cv2 module where it is installed, else None (the JAX module's
+    ``cv2`` global: cv2 when it imports, PIL otherwise)."""
+    if importlib.util.find_spec("cv2") is None:
+        return None
+    return importlib.import_module("cv2")
+
+
+def load_image_bgr(path: str) -> Optional[np.ndarray]:
+    """uint8 HxWx3 BGR (cv2 convention used by the reference viz/rotation)."""
+    cv2 = cv2_module()
+    if cv2 is not None:
+        return cv2.imread(path)
+    from PIL import Image
+
+    img = np.asarray(Image.open(path).convert("RGB"))
+    return img[:, :, ::-1].copy()
+
+
 def load_image_rgb(path: str) -> np.ndarray:
     """uint8 HxWx3 RGB (model input convention)."""
     from PIL import Image
 
     return np.asarray(Image.open(path).convert("RGB"))
+
+
+def load_image_gray(path: str) -> Optional[np.ndarray]:
+    cv2 = cv2_module()
+    if cv2 is not None:
+        return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("L"))
+
+
+def save_image_bgr(path: str, image: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cv2 = cv2_module()
+    if cv2 is not None:
+        cv2.imwrite(path, image)
+    else:
+        from PIL import Image
+
+        Image.fromarray(image[:, :, ::-1]).save(path)
 
 
 def image_size(path: str) -> Tuple[int, int]:

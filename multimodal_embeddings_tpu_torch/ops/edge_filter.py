@@ -1,14 +1,47 @@
-"""Internal-edge box filter (stage 2), batched on the device.
+"""Internal-edge box filter (stage 2).
 
-Port of ``multimodal_embeddings_tpu/ops/edge_filter.py::internal_edge_mask``:
-a cell edge is internal when it lies more than ``threshold`` px from the
-page edge, and a box is rejected when it comes within ``threshold`` px of an
-internal edge (inclusive comparisons), in page coordinates.
+Port of ``multimodal_embeddings_tpu/ops/edge_filter.py``: a cell edge is
+internal when it lies more than ``threshold`` px from the page edge, and a
+box is rejected when it comes within ``threshold`` px of an internal edge
+(inclusive comparisons), in page coordinates. ``internal_edge_mask_np`` is
+the stage's host float64 copy (``tests/test_torch_stages.py`` holds the
+sources equal); ``internal_edge_mask`` the batched device form.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def internal_edge_mask_np(
+    boxes: np.ndarray,
+    cell_bounds: tuple[float, float, float, float],
+    image_width: float,
+    image_height: float,
+    threshold: float = 10.0,
+) -> np.ndarray:
+    """Boolean mask, True where the box touches an internal cell edge
+    (i.e. should be removed). Exact float64 reproduction of the reference
+    predicate including its comparison directions."""
+    b = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
+    cx_min, cy_min, cx_max, cy_max = (float(v) for v in cell_bounds)
+
+    right_internal = abs(cx_max - image_width) > threshold
+    bottom_internal = abs(cy_max - image_height) > threshold
+    left_internal = cx_min > threshold
+    top_internal = cy_min > threshold
+
+    touching = np.zeros(b.shape[0], dtype=bool)
+    if right_internal:
+        touching |= b[:, 2] >= (cx_max - threshold)
+    if bottom_internal:
+        touching |= b[:, 3] >= (cy_max - threshold)
+    if left_internal:
+        touching |= b[:, 0] <= (cx_min + threshold)
+    if top_internal:
+        touching |= b[:, 1] <= (cy_min + threshold)
+    return touching
 
 
 def internal_edge_mask(

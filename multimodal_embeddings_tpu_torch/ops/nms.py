@@ -1,20 +1,87 @@
-"""Greedy NMS on padded box sets, on the device with static shapes.
+"""Greedy non-maximum suppression (port of
+``multimodal_embeddings_tpu/ops/nms.py``).
 
-Port of ``multimodal_embeddings_tpu/ops/nms.py`` (``nms_padded``,
-``batched_nms_padded``): boxes go into stable descending-score order
-(invalid rows last), and the greedy keep set is reached as the same Jacobi
-fixpoint — ``keep_i = valid_i ∧ ¬∃ j<i (keep_j ∧ suppress_ji)`` — which
-settles in (suppression-chain depth + 1) sweeps instead of N sequential
-steps. Each sweep's convergence test reads one flag back to the host.
+On the host: ``greedy_nms_np`` is the exact float64 greedy scan, a copy of
+the JAX function (``tests/test_torch_stages.py`` holds the sources equal);
+``greedy_nms_host``, which the stages call, runs the native C++ kernel
+(bit-identical to it, held in tests), whose build raises where it fails.
+
+On the device (``nms_padded``, ``batched_nms_padded``): boxes go into
+stable descending-score order (invalid rows last), and the greedy keep set
+is reached as the same Jacobi fixpoint —
+``keep_i = valid_i ∧ ¬∃ j<i (keep_j ∧ suppress_ji)`` — which settles in
+(suppression-chain depth + 1) sweeps instead of N sequential steps. Each
+sweep's convergence test reads one flag back to the host.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from multimodal_embeddings_tpu_torch.ops.iou import iou_matrix
+from multimodal_embeddings_tpu_torch.ops.iou import iou_matrix, iou_matrix_np
+
+
+def greedy_nms_host(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    classes: np.ndarray | None = None,
+    iou_threshold: float = 0.5,
+) -> np.ndarray:
+    """Host greedy NMS on the native C++ kernel (bit-identical to
+    ``greedy_nms_np``, held in tests; its build raises where it fails).
+    Production host callers use this; ``greedy_nms_np`` stays pure for
+    parity testing."""
+    from multimodal_embeddings_tpu_torch.utils.native import greedy_nms_native
+
+    return greedy_nms_native(boxes, scores, classes, iou_threshold)
+
+
+def greedy_nms_np(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    classes: np.ndarray | None = None,
+    iou_threshold: float = 0.5,
+) -> np.ndarray:
+    """Exact greedy NMS on the host. Returns kept indices in selection order
+    (descending score, first index wins ties — matching
+    ``scores_copy.index(max(scores_copy))`` at ``3_combine_grids.py:112``).
+
+    ``classes=None`` gives torchvision-style class-agnostic behavior.
+    """
+    boxes = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
+    scores = np.asarray(scores, dtype=np.float64).reshape(-1)
+    n = boxes.shape[0]
+    if n == 0:
+        return np.zeros((0,), dtype=np.int64)
+
+    iou = iou_matrix_np(boxes)
+    if classes is not None:
+        cls = np.asarray(classes, dtype=np.float64).reshape(-1)
+        same = cls[:, None] == cls[None, :]
+    else:
+        same = np.ones((n, n), dtype=bool)
+    suppress = (iou > iou_threshold) & same
+
+    alive = np.ones(n, dtype=bool)
+    keep: list[int] = []
+    neg_inf = -np.inf
+    masked = scores.copy()
+    for _ in range(n):
+        i = int(np.argmax(masked))  # first max index, like list.index(max(...))
+        if not alive[i]:
+            break
+        keep.append(i)
+        # Suppress same-class overlaps (the selected box suppresses itself too).
+        dead = suppress[i] & alive
+        dead[i] = True
+        alive &= ~dead
+        masked[dead] = neg_inf
+        if not alive.any():
+            break
+    return np.asarray(keep, dtype=np.int64)
 
 
 def batched_nms_padded(

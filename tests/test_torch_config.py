@@ -10,8 +10,15 @@ from multimodal_embeddings_tpu import config as jconfig
 from multimodal_embeddings_tpu_torch import config as tconfig
 
 LEFT_OUT = {
+    # the JAX space-to-depth stem: exact, and no faster on an H100 than the
+    # port's one stem (scripts/torch_stem_bench.py)
     "DetectorConfig": {"s2d_stem"},
     "EmbedderConfig": set(),
+    "OrientationConfig": set(),
+    "EdgeFilterConfig": set(),
+    "CombineConfig": set(),
+    "MedianWidthConfig": set(),
+    "ColumnConfig": set(),
 }
 
 

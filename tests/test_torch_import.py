@@ -75,7 +75,11 @@ def test_module_list_covers_the_slice():
         "kernels.conv", "kernels.ln_matmul", "kernels.ln_stats", "io.images",
         "models.qwen_serve", "models.bpe", "io.logging_setup", "io.json_io", "io.progress",
         "io.prefetch", "utils.native", "store.embedding_store", "pipeline.regions",
-        "cli.serve",
+        "cli.serve", "ops.skew", "ops.widths", "ops.peaks", "ops.columns", "utils.colormap",
+        "utils.errors", "utils.profiling", "analysis.visualization", "pipeline.orientation",
+        "pipeline.detect", "pipeline.stages", "pipeline.runner", "cli.orientation",
+        "cli.detect", "cli.edge_filter", "cli.combine", "cli.medians", "cli.columns",
+        "cli.pipeline",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 
@@ -100,6 +104,27 @@ def test_package_imports_without_pil():
         "sys.modules['PIL'] = None\n"
         f"for m in {MODULES!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_package_imports_without_cv2():
+    """cv2 is found by ``find_spec`` and imported only where an image is
+    read, written or drawn: importing every module loads none of it, and
+    the package imports with cv2 taken away."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'cv2' not in sys.modules\n"
+        "sys.modules['cv2'] = None\n"
+        "from multimodal_embeddings_tpu_torch.io.images import cv2_module\n"
+        "assert cv2_module() is None\n"
         "print('ok')\n"
     )
     proc = subprocess.run(

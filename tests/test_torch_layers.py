@@ -73,6 +73,15 @@ def test_conv_bn_act(k, s, g, d, act):
     )
 
 
+@pytest.mark.parametrize("c_in,hw", [(3, (16, 12)), (8, (10, 14))])
+def test_s2d_conv_bn_act(c_in, hw):
+    """JAX's space-to-depth stem cell (``ConvBnAct(s2d=True)``) against the
+    port's one stride-2 conv on the same weights: the port leaves the s2d
+    form out, and loses no result by it."""
+    compare(jl.ConvBnAct(16, 3, strides=2, s2d=True), tl.ConvBnAct(c_in, 16, 3, 2),
+            (2, *hw, c_in))
+
+
 def test_bottleneck():
     compare(jl.Bottleneck(16), tl.Bottleneck(16, 16), (2, 8, 8, 16))
 
