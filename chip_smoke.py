@@ -274,8 +274,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     stage 1 into decode / detect / write, stage-1 pages/s with prefetch (the
     chain's) and without (a profiled ``prefetch=False`` run, which gives
     stage 1's device idle share) and peak memory.
+18. the integrated workflow through ``cli.workflow.main([..., "--device",
+    "cuda", "--run_cross_compare", "--run_region_compare", "--run_demo",
+    "--demo_image", page 0, "--trace_dir", ...])`` on its defaults
+    (DocLayout-YOLOv10-m at 1024 px through ``detect_regions``, one view a
+    page; ViT-B/16 at 448; the store on the card) over six synthetic
+    2200×1700 pages named for two publications (seeds 50-55, three rotated
+    by −2.5, 2.0 and 4.0 degrees), in a temporary working directory, after
+    a warm-up workflow over one page, with the class head fitted on page
+    0's one view (``WORKFLOW_VIEW_BOXES``): K1 packed exactly once per page
+    and K1 BLF 12 per ViT call, no other kernel; every page in the store
+    with regions; the card's ``compute_similarity_matrix`` against the
+    CPU's f32 one on the store's regions snapped to 2⁻¹¹ (within 1e-5,
+    symmetric, unit diagonal), ``cluster_pages`` labels equal but where two
+    merges lie within 1e-5; the output tree (``weighted_clustering/``
+    without plots where matplotlib is missing, ``cross_compare/`` a page per
+    image, ``region_compare/index.html``, ``testout/query_results.txt``
+    with its four sections, a Chrome trace); a second ``--stage all`` run
+    launches nothing and adds no row; ms per page of each stage, seconds of
+    the three reports, peak memory, the trace's device busy time; then the
+    clustering pass at archive scale (1,000 pages × 48 unit regions × 768,
+    Q = k = 10, exact similarities in multiples of 1/64): device ms (CUDA
+    events, median of 5) beside its bound, peak memory, the first 100
+    pages' sums against the CPU's f32 run within 1e-5 of the largest.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17) sets the launch
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -311,6 +334,11 @@ line.
     python3 chip_smoke.py --stages
 
 runs phase 1, K1's build and phase 17 only, then prints the card line and
+the last line.
+
+    python3 chip_smoke.py --workflow
+
+runs phase 1, K1's build and phase 18 only, then prints the card line and
 the last line.
 
     python3 chip_smoke.py --k6
@@ -392,6 +420,28 @@ STAGE_VIEW_BOXES = {"plain_text": 48, "title": 6, "abandon": 4, "figure": 3,
 STAGE_BEST_SCORE = 0.9
 STAGE_FOLDERS = ("0_oriented_images", "1_doclayout_parsed", "2_edge_box_filtered",
                  "3_combined_bboxes", "4_medians_extracted", "5_column_detection")
+# phase 18: the workflow's pages (publication, rotation in degrees), seeds
+# 50-55; two publications, so that cross_compare's 20% filename-prefix skip
+# has pairs to skip
+WORKFLOW_PAGES = (("gazette", 0.0), ("gazette", -2.5), ("gazette", 0.0),
+                  ("tribune", 2.0), ("tribune", 0.0), ("tribune", 4.0))
+# phase 18: the class head fitted on page 0's one 1024 px view (detect_regions
+# runs the whole page only), so that a page keeps tens of regions of the
+# embedded types (fit_head)
+WORKFLOW_VIEW_BOXES = {"plain_text": 48, "title": 12, "abandon": 4, "figure": 3,
+                       "figure_caption": 2}
+WORKFLOW_VIT_LAYERS = 12  # DualEncoderConfig.base(): ViT-B/16
+WORKFLOW_QUERY_SECTIONS = ("=== img_query_pages ===", "=== img_query_regions ===",
+                           "=== txt_query_pages ===", "=== txt_query_regions ===")
+# the card's similarity matrix against the CPU's f32 one: sums of up to Q·k
+# products in other orders, normalised by the largest
+WORKFLOW_SIM_TOL = 1e-5
+# phase 18: the clustering pass at archive scale: N pages of R unit regions
+# in D dimensions (20 seeded topics, so that pairs clear the 0.1 accept
+# threshold), the first Q regions of each page as queries, top k
+ARCHIVE_PAGES, ARCHIVE_REGIONS, ARCHIVE_DIM = 1_000, 48, 768
+ARCHIVE_QUERIES, ARCHIVE_K, ARCHIVE_TOPICS = 10, 10, 20
+ARCHIVE_CHECKED = 100  # pages whose block is held against the CPU's run
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -3698,10 +3748,10 @@ def _file_digests(root: str) -> dict:
     return out
 
 
-def fit_head(detector, image) -> dict:
+def fit_head(detector, image, view_boxes=STAGE_VIEW_BOXES) -> dict:
     """The class head's output convs ``{level: (weight, bias)}`` that
-    ``STAGE_VIEW_BOXES`` asks for, fitted on ``image``'s views (see the
-    constant): each level's weight rows lose their component along the mean
+    ``view_boxes`` asks for, fitted on ``image``'s views (see
+    ``STAGE_VIEW_BOXES``): each level's weight rows lose their component along the mean
     of the conv's input over the views, so that the logits vary about 0 and
     bf16 resolves them, then each class's row and bias take the affine map.
     Leaves ``detector`` with the fitted head."""
@@ -3741,7 +3791,7 @@ def fit_head(detector, image) -> dict:
     high = math.log(STAGE_BEST_SCORE / (1 - STAGE_BEST_SCORE))
     with torch.no_grad():
         for c in range(z.shape[-1]):
-            k = STAGE_VIEW_BOXES.get(ID_TO_NAMES[c], 0) * len(bounds)
+            k = view_boxes.get(ID_TO_NAMES[c], 0) * len(bounds)
             if k:
                 best = z[..., c].flatten().topk(k).values
                 spread = (best[0] - best[-1]).item()
@@ -3792,7 +3842,6 @@ def stage_chain(counters) -> dict:
         PipelineRunner,
         numbered_pipeline_stages,
     )
-    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
 
     phase("17. the numbered chain (run.sh stages 0-5) through cli.pipeline on the card")
     n = len(STAGE_ANGLES)
@@ -3804,15 +3853,8 @@ def stage_chain(counters) -> dict:
         t0 = time.perf_counter()
         paths = []
         for i, angle in enumerate(STAGE_ANGLES):
-            page = make_page(*PAGE_HW, seed=40 + i)
-            if angle:  # rotated, then cut back to the page's size around its centre
-                rot = rotate_bound(torch.from_numpy(page), angle).numpy()
-                top = (rot.shape[0] - PAGE_HW[0]) // 2
-                left = (rot.shape[1] - PAGE_HW[1]) // 2
-                rot = rot[top : top + PAGE_HW[0], left : left + PAGE_HW[1]]
-                page = np.clip(rot, 0, 255).astype(np.uint8)
             path = os.path.join(src, f"page_{i}.png")
-            Image.fromarray(page).save(path)
+            Image.fromarray(synthetic_page(40 + i, angle)).save(path)
             paths.append(path)
         print(f"pages: {n} at {PAGE_HW}, rotated by {STAGE_ANGLES}; written in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4010,6 +4052,387 @@ def stage_chain(counters) -> dict:
     return launches
 
 
+def synthetic_page(seed: int, angle: float):
+    """A 2200×1700 synthetic text page, rotated by ``angle`` degrees (0:
+    clean) and cut back to the page's size around its centre."""
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.ops.image import rotate_bound
+    from multimodal_embeddings_tpu_torch.pipeline.synthetic import make_page
+
+    page = make_page(*PAGE_HW, seed=seed)
+    if angle:
+        rot = rotate_bound(torch.from_numpy(page), angle).numpy()
+        top = (rot.shape[0] - PAGE_HW[0]) // 2
+        left = (rot.shape[1] - PAGE_HW[1]) // 2
+        rot = rot[top : top + PAGE_HW[0], left : left + PAGE_HW[1]]
+        page = np.clip(rot, 0, 255).astype(np.uint8)
+    return page
+
+
+def snapped(pages):
+    """``pages`` with each embedding value rounded to a multiple of 2^-11:
+    every product and partial sum of a similarity (|value| < 4) is then
+    exact in f32 whatever the order, so the card and the CPU see the same
+    similarities and the same ties. Unsnapped, a near tie at the k-th place
+    may fall either way between two summation orders, which moves a pair's
+    sum by a whole product of areas."""
+    import numpy as np
+
+    from multimodal_embeddings_tpu_torch.analysis.clustering import PageRegions
+
+    return [PageRegions(p.name, (np.round(p.embeddings * 2048.0) / 2048.0).astype(np.float32),
+                        p.areas) for p in pages]
+
+
+def near_merges(linkage) -> int:
+    """Merges whose distance lies within ``WORKFLOW_SIM_TOL`` of another's."""
+    import numpy as np
+
+    d = np.sort(linkage[:, 2])
+    return int(np.sum(np.diff(d) <= WORKFLOW_SIM_TOL))
+
+
+def trace_busy(path: str) -> tuple:
+    """Device busy ms (kernel events summed) and the number of kernel events
+    in a Chrome trace that ``torch.profiler`` wrote."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return sum(e.get("dur", 0) for e in kernels) / 1e3, len(kernels)
+
+
+def workflow_run(counters) -> dict:
+    """Phase 18; returns the launches of the workflow's run over the six
+    pages."""
+    import collections
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis import clustering
+    from multimodal_embeddings_tpu_torch.analysis import cross_compare as cross_mod
+    from multimodal_embeddings_tpu_torch.analysis import demo_queries as demo_mod
+    from multimodal_embeddings_tpu_torch.analysis import region_compare as region_mod
+    from multimodal_embeddings_tpu_torch.analysis.reports import _have
+    from multimodal_embeddings_tpu_torch.cli import workflow
+    from multimodal_embeddings_tpu_torch.config import DetectorConfig
+    from multimodal_embeddings_tpu_torch.io.images import cv2_module, load_image_rgb
+    from multimodal_embeddings_tpu_torch.models import detector as detector_mod
+    from multimodal_embeddings_tpu_torch.models import embedder as embedder_mod
+    from multimodal_embeddings_tpu_torch.store import embedding_store
+    from multimodal_embeddings_tpu_torch.store.embedding_store import initialize_db
+    from multimodal_embeddings_tpu_torch.utils import profiling
+
+    phase("18. the integrated workflow through cli.workflow on the card (orient, detect, "
+          "embed, cluster, cross/region compare, demo)")
+    n = len(WORKFLOW_PAGES)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, warm = os.path.join(tmp, "pages"), os.path.join(tmp, "warm_pages")
+        os.makedirs(src)
+        os.makedirs(warm)
+        t0 = time.perf_counter()
+        paths = []
+        for i, (publication, angle) in enumerate(WORKFLOW_PAGES):
+            paths.append(os.path.join(src, f"{publication}_{i}.png"))
+            Image.fromarray(synthetic_page(50 + i, angle)).save(paths[-1])
+        Image.open(paths[0]).save(os.path.join(warm, "warm_0.png"))
+        print(f"pages: {n} at {PAGE_HW}, {[p for p, _ in WORKFLOW_PAGES]}, rotated by "
+              f"{[a for _, a in WORKFLOW_PAGES]}; written in {time.perf_counter() - t0:.1f} s")
+
+        # the class head, fitted once on page 0's one view (detect_regions
+        # runs the whole page alone), then given to every detector the CLI
+        # builds
+        fit_detector = detector_mod.LayoutDetector(DetectorConfig(grid_configs=()))
+        fit = fit_head(fit_detector, load_image_rgb(paths[0]), WORKFLOW_VIEW_BOXES)
+        del fit_detector
+        embeds, timers, seconds = [], [], collections.Counter()
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                seconds[key] += time.perf_counter() - t0
+                return out
+            return call
+
+        class FittedDetector(detector_mod.LayoutDetector):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                apply_head(self, fit)
+
+            def detect_batch(self, images):  # ends in the outputs' download
+                return timed("detect_batch", super().detect_batch)(images)
+
+        class CountedEmbedder(embedder_mod.MultimodalEmbedder):
+            def _embed_batch(self, batch):
+                embeds.append(len(batch))
+                return super()._embed_batch(batch)
+
+            def get_image_embeddings(self, *args, **kwargs):
+                return timed("get_image_embeddings", super().get_image_embeddings)(
+                    *args, **kwargs)
+
+        class KeptTimer(profiling.StageTimer):
+            def __init__(self):
+                super().__init__()
+                timers.append(self)
+
+        trace_dir = os.path.join(tmp, "trace")
+        demo = ["--demo_image", paths[0]]
+        reports = ["--run_cross_compare", "--run_region_compare", "--run_demo"]
+        with contextlib.ExitStack() as stack:
+            for module, name, value in (
+                (detector_mod, "LayoutDetector", FittedDetector),
+                (embedder_mod, "MultimodalEmbedder", CountedEmbedder),
+                (profiling, "StageTimer", KeptTimer),
+                (cross_mod, "create_cross_comparison",
+                 timed("cross_compare", cross_mod.create_cross_comparison)),
+                (region_mod, "create_region_cross_comparison",
+                 timed("region_compare", region_mod.create_region_cross_comparison)),
+                (demo_mod, "run_demo_queries", timed("demo", demo_mod.run_demo_queries)),
+                (detector_mod, "_letterbox_host",
+                 timed("letterbox_host", detector_mod._letterbox_host)),
+                (embedding_store.Collection, "upsert",
+                 timed("upsert", embedding_store.Collection.upsert)),
+            ):
+                stack.enter_context(_swap(module, name, value))
+
+            # warm-up: the whole workflow over one page in its own directory
+            os.makedirs(os.path.join(tmp, "warm_run"))
+            os.chdir(os.path.join(tmp, "warm_run"))
+            t0 = time.perf_counter()
+            check(workflow.main(["--input_folder", warm, *reports, *demo, "--device", "cuda"])
+                  == 0, "warm-up exit code")
+            torch.cuda.synchronize()
+            print(f"warm-up: 1 page in {time.perf_counter() - t0:.2f} s")
+
+            os.makedirs(os.path.join(tmp, "run"))
+            os.chdir(os.path.join(tmp, "run"))
+            embeds.clear()
+            seconds.clear()
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            zero(counters)
+            t0 = time.perf_counter()
+            check(workflow.main(["--input_folder", src, *reports, *demo, "--device", "cuda",
+                                 "--trace_dir", trace_dir]) == 0, "workflow exit code")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts(counters)
+            peak = torch.cuda.max_memory_allocated()
+            vit_calls = len(embeds)
+            want = only(counters, {"encoder_attention_blf_packed": n,
+                                   "encoder_attention_blf": WORKFLOW_VIT_LAYERS * vit_calls})
+            check(launches == want, f"launches {launches} != {want}")
+            timer = timers[-1]
+            print(f"workflow: {n} pages in {wall:.2f} s through cli.workflow.main (traced); "
+                  f"peak device memory {peak / 2**30:.2f} GiB; {vit_calls} ViT calls "
+                  f"({sum(embeds)} images: {embeds})")
+            print("ms per page by stage: " + ", ".join(
+                f"{name} {1e3 * timer.totals[name] / n:.1f}" for name in timer._order))
+            print("seconds over the run (host clock): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in seconds.items()))
+            print("launches: " + ", ".join(f"{k} {c}" for k, c in launches.items() if c))
+            for key in ("cross_compare", "region_compare", "demo"):
+                check(key in seconds, f"{key} did not run")
+            check(timer._order == ["orient", "detect", "embed_pages", "embed_regions",
+                                   "cluster"], f"stages {timer._order}")
+
+            # the store: every page, each with regions
+            _, collection = initialize_db("db", device="cuda")
+            got = collection.get(include=("metadatas",))
+            names = [os.path.basename(p) for p in paths]
+            check(sorted(i for i in got["ids"] if not i.startswith("region_")) == sorted(names),
+                  f"page rows {got['ids'][:10]}")
+            regions = collections.Counter(
+                m["parent_image_name"] for m in got["metadatas"] if m["is_region"])
+            types = collections.Counter(m["region_type"] for m in got["metadatas"]
+                                        if m["is_region"])
+            print(f"store: {collection.count()} rows; regions per page "
+                  f"{[regions[name] for name in names]}; by type {dict(types)}")
+            check(all(regions[name] >= 1 for name in names), f"regions per page {regions}")
+            rows = collection.count()
+
+            # the similarity pass on the card against the CPU's f32 one, on the
+            # store's PageRegions (snapped, see ``snapped``), and the clusters
+            pages = clustering.group_regions_by_page(collection)
+            check([p.name for p in pages] == sorted(names), "pages with regions")
+            raw = {dev: clustering.compute_similarity_matrix(pages, device=dev)
+                   for dev in ("cuda", "cpu")}
+            exact = {dev: clustering.compute_similarity_matrix(snapped(pages), device=dev)
+                     for dev in ("cuda", "cpu")}
+            card = exact["cuda"]
+            err = float(abs(card - exact["cpu"]).max())
+            check(err <= WORKFLOW_SIM_TOL, f"card vs CPU similarity max |diff| {err}")
+            check((card == card.T).all() and (card.diagonal() == 1.0).all(),
+                  "the card's similarity matrix: not symmetric with a unit diagonal")
+            labels = {dev: clustering.cluster_pages(exact[dev], [p.name for p in pages])
+                      for dev in ("cuda", "cpu")}
+            near = near_merges(labels["cpu"].linkage)
+            same = bool((labels["cuda"].labels == labels["cpu"].labels).all())
+            check(same or near > 0, f"labels {labels['cuda'].labels} vs {labels['cpu'].labels}")
+            print(f"similarity ({len(pages)} pages, card vs CPU f32): snapped max |diff| "
+                  f"{err:.2e}, unsnapped {float(abs(raw['cuda'] - raw['cpu']).max()):.2e}; "
+                  f"labels equal {same} ({labels['cpu'].n_clusters} clusters, silhouette "
+                  f"{labels['cpu'].silhouette:.4f}; {near} merges within {WORKFLOW_SIM_TOL})")
+
+            # the output tree
+            report = os.path.join("output", "weighted_clustering")
+            for name in ("clustering_results.json", "similarity_matrix.npy",
+                         "clustering_report.html"):
+                check(os.path.isfile(os.path.join(report, name)), f"{report}/{name}")
+            plots = {"similarity_heatmap.png": _have("matplotlib"),
+                     "dendrogram.png": _have("matplotlib", "scipy"),
+                     "similarity_network.png": _have("matplotlib", "networkx")}
+            for name, expected in plots.items():
+                check(os.path.isfile(os.path.join(report, name)) == expected,
+                      f"{report}/{name}: libraries installed {expected}")
+            result = json.load(open(os.path.join(report, "clustering_results.json")))
+            check(result["names"] == sorted(names), f"clustered {result['names']}")
+            check(os.path.isfile("cross_compare/index.html"), "cross_compare/index.html")
+            for name in names:
+                page = f"cross_compare/{os.path.splitext(name)[0]}_comparison.html"
+                check(os.path.isfile(page), page)
+            check(os.path.isfile("region_compare/index.html"), "region_compare/index.html")
+            region_pages = len([f for f in os.listdir("region_compare") if f.endswith(".html")])
+            drawn = {folder: len(os.listdir(folder)) if os.path.isdir(folder) else 0
+                     for folder in ("output/region_visualizations", "region_compare/comparisons")}
+            has_cv2 = cv2_module() is not None
+            # composites only for regions with a match over the threshold
+            check((drawn["output/region_visualizations"] == n) == has_cv2
+                  and (has_cv2 or not drawn["region_compare/comparisons"]),
+                  f"cv2 installed {has_cv2}, drawings {drawn}")
+            results = open("testout/query_results.txt").read().splitlines()
+            sections = [line for line in results if line.startswith("===")]
+            check(sections == list(WORKFLOW_QUERY_SECTIONS), f"demo sections {sections}")
+            traces = os.listdir(trace_dir)
+            check(len(traces) == 1 and traces[0].endswith(".json"), f"trace files {traces}")
+            busy, kernels = trace_busy(os.path.join(trace_dir, traces[0]))
+            print(f"outputs: clustering {result['labels']}; plots "
+                  f"{[k for k, v in plots.items() if v] or 'none (no matplotlib)'}; cv2 "
+                  f"{has_cv2}: {drawn}; "
+                  f"{len(names)} cross-compare pages; {region_pages - 1} region-compare "
+                  f"pages; demo sections {len(sections)}; trace {traces[0]} "
+                  f"({os.path.getsize(os.path.join(trace_dir, traces[0])) / 2**20:.1f} MiB, "
+                  f"{kernels} kernels, device busy {busy:.1f} ms of {1e3 * wall:.1f} ms wall, "
+                  f"idle {100 * (1 - busy / (1e3 * wall)):.1f}%)")
+
+            # where region-compare's time goes on the host: the same call on
+            # the same store into another folder, under cProfile
+            import cProfile
+            import pstats
+
+            prof = cProfile.Profile()
+            prof.enable()
+            region_mod.create_region_cross_comparison(
+                collection, output_folder=os.path.join(tmp, "region_again"),
+                similarity_threshold=0.1)
+            prof.disable()
+            stats = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
+            print(f"region-compare host profile ({pstats.Stats(prof).total_tt:.2f} s), "
+                  "own s: " + "; ".join(
+                      f"{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {st[2]:.2f} x{st[1]}"
+                      for fn, st in stats[:8]))
+
+            # a second run detects and embeds nothing, and adds no row
+            zero(counters)
+            embeds.clear()
+            check(workflow.main(["--input_folder", src, "--device", "cuda"]) == 0, "rerun")
+            torch.cuda.synchronize()
+            again = counts(counters)
+            _, collection = initialize_db("db", device="cuda")
+            check(again == only(counters, {}) and not embeds, f"rerun launched {again}")
+            check(collection.count() == rows, f"rerun: {collection.count()} rows, not {rows}")
+            print(f"second run: no kernel launched, no image embedded, {rows} rows kept")
+        os.chdir(cwd)
+    gc_cuda()
+    archive_similarity()
+    return launches
+
+
+def archive_similarity() -> None:
+    """The clustering pass at archive scale: ``ARCHIVE_PAGES`` pages of
+    ``ARCHIVE_REGIONS`` unit regions. Each region has 64 nonzero values of
+    ±1/8 (16 of them its topic's, the rest its own), so every similarity is
+    a multiple of 1/64, exact in any summation order: ties at the k-th place
+    are common and must fall as on the CPU."""
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.analysis import clustering
+
+    n, r, d, q, k = ARCHIVE_PAGES, ARCHIVE_REGIONS, ARCHIVE_DIM, ARCHIVE_QUERIES, ARCHIVE_K
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    dims = torch.randperm(d, generator=gen, device="cuda")[: ARCHIVE_TOPICS * 16]
+    topic_dims = dims.view(ARCHIVE_TOPICS, 16)
+    topic_signs = torch.randint(0, 2, (ARCHIVE_TOPICS, 16), generator=gen, device="cuda") * 2 - 1
+    topic = torch.arange(n, device="cuda") % ARCHIVE_TOPICS
+    keys = torch.rand(n, r, d, generator=gen, device="cuda")
+    keys.scatter_(-1, topic_dims[topic][:, None, :].expand(n, r, 16), -1.0)
+    own = keys.topk(48, dim=-1).indices  # 48 dims outside the topic's
+    signs = torch.randint(0, 2, (n, r, 48), generator=gen, device="cuda") * 2 - 1
+    emb = torch.zeros(n, r, d, device="cuda")
+    emb.scatter_(-1, own, signs / 8.0)
+    emb.scatter_(-1, topic_dims[topic][:, None, :].expand(n, r, 16),
+                 (topic_signs[topic][:, None, :] / 8.0).expand(n, r, 16))
+    areas = torch.rand(n, r, generator=gen, device="cuda") * 0.05 + 0.001
+    del keys
+    emb_np, areas_np = emb.cpu().numpy(), areas.cpu().numpy()
+    del emb, areas
+    check(np.allclose(np.linalg.norm(emb_np, axis=-1), 1.0), "archive regions not unit")
+    pages = [clustering.PageRegions(f"page_{i:04d}.png", e, a)
+             for i, (e, a) in enumerate(zip(emb_np, areas_np))]
+
+    arrays = [torch.from_numpy(x).cuda() for x in clustering._pad_pages(pages, q)]
+    with torch.inference_mode():
+        sums = clustering.pair_scores(*arrays, k, 0.1, True)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sums = clustering.pair_scores(*arrays, k, 0.1, True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() - base
+    chunk = max(1, clustering._CHUNK_ELEMENTS // (n * q * r))
+    t0 = time.perf_counter()
+    sim = clustering.compute_similarity_matrix(pages, query_limit=q, top_k=k, device="cuda")
+    whole_s = time.perf_counter() - t0
+    check(np.isfinite(sim).all() and np.array_equal(sim, sim.T)
+          and np.all(np.diag(sim) == 1.0), "archive similarity matrix")
+
+    # the first pages' block against the CPU's f32 run on those pages
+    m = ARCHIVE_CHECKED
+    cpu_arrays = [torch.from_numpy(x) for x in clustering._pad_pages(pages[:m], q)]
+    cpu = clustering.pair_scores(*cpu_arrays, k, 0.1, True).numpy()
+    block = sums[:m, :m].cpu().numpy()
+    err = float(np.abs(block - cpu).max() / np.abs(cpu).max())
+    check(err <= WORKFLOW_SIM_TOL, f"archive: first {m} pages vs CPU, {err} of the largest sum")
+    accepted = float(np.count_nonzero(cpu)) / cpu.size
+
+    flops = 2.0 * n * n * q * r * d
+    nbytes = 4.0 * (n * q * d + n * r * d + n * q + n * r) + n * r + 4.0 * n * n
+    bound, by = bound_ms(flops, nbytes, torch.float32)
+    ms = statistics.median(times)
+    print(f"archive similarity pass: {n} pages x {r} regions x {d}, Q={q}, k={k}, "
+          f"{(n + chunk - 1) // chunk} query chunks of {chunk} pages: device {ms:.2f} ms "
+          f"(median of 5: {', '.join(f'{t:.2f}' for t in times)}), bound {bound:.2f} ms "
+          f"({by}: {flops:.3g} f32 operations at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s), "
+          f"{100 * bound / ms:.1f}% of it; peak {peak / 2**30:.2f} GiB above the inputs; "
+          f"compute_similarity_matrix whole (host clock, upload and host tail) "
+          f"{whole_s:.2f} s; first {m} pages vs CPU f32 {err:.2e} of the largest sum "
+          f"({100 * accepted:.1f}% of pairs nonzero)")
+
+
 @contextlib.contextmanager
 def _swap(module, name: str, value):
     """``module.name`` is ``value`` inside the block."""
@@ -4094,6 +4517,17 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
+    if sys.argv[1:] == ["--workflow"]:
+        build(("K1", k1))
+        workflow_run(kernel_counters(k1, k2, k3, k4, k5, k6, k7))
+        print(f"workflow alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
@@ -4156,6 +4590,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches_by_run = serving_cli(counters)
     stage_launches = stage_chain(counters)
+    workflow_launches = workflow_run(counters)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -4176,7 +4611,8 @@ def main() -> int:
              "qwen_waves_b8": cont_launches["waves"],
              "serve_siglip_5_pages": serve_launches_by_run["pipelined"],
              "serve_mme5_2_pages": serve_launches_by_run["mme5"],
-             "stage_chain_4_pages": stage_launches}
+             "stage_chain_4_pages": stage_launches,
+             "workflow_6_pages": workflow_launches}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

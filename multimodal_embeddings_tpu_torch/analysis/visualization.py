@@ -1,10 +1,11 @@
 """Host-side visualization artifacts: ``draw_regions``,
-``visualize_regions``, ``visualize_median_width`` and ``visualize_columns``
-of ``multimodal_embeddings_tpu/analysis/visualization.py``, the same drawing
-calls (``tests/test_torch_stages.py`` holds the files they write equal).
-cv2 is found by ``io/images.py::cv2_module`` and imported only where a
-function draws; without it each function logs JAX's warning and returns
-False. ``region_comparison_composite`` comes with the analysis slice.
+``visualize_regions``, ``visualize_median_width``, ``visualize_columns`` and
+``region_comparison_composite`` of
+``multimodal_embeddings_tpu/analysis/visualization.py``, the same drawing
+calls (``tests/test_torch_stages.py`` and ``tests/test_torch_analysis.py``
+hold the files they write equal). cv2 is found by
+``io/images.py::cv2_module`` and imported only where a function draws;
+without it each function logs JAX's warning and returns False.
 
 Produces the same artifact types as the reference (bbox overlays with
 class-colored fills and labels, median-width line, column-center overlay,
@@ -17,7 +18,7 @@ stays on the host with cv2.
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -160,4 +161,50 @@ def visualize_columns(
         max(2, int(height / 500)),
     )
     save_image_bgr(output_path, image)
+    return True
+
+
+def region_comparison_composite(
+    source_image_path: str,
+    target_image_path: str,
+    source_box: Sequence[float],
+    target_box: Sequence[float],
+    score: float,
+    output_path: str,
+    banner: Optional[str] = None,
+) -> bool:
+    """Side-by-side page composite with region outlines and a score banner
+    (``visualization.py:154-259``)."""
+    if not _require_cv2():
+        return False
+    cv2 = cv2_module()
+    a = load_image_bgr(source_image_path)
+    b = load_image_bgr(target_image_path)
+    if a is None or b is None:
+        return False
+
+    target_h = 1200
+    def _scale(img):
+        s = target_h / img.shape[0]
+        return cv2.resize(img, (int(img.shape[1] * s), target_h)), s
+
+    a, sa = _scale(a)
+    b, sb = _scale(b)
+
+    for img, box, s in ((a, source_box, sa), (b, target_box, sb)):
+        x0, y0, x1, y1 = (int(v * s) for v in box)
+        cv2.rectangle(img, (x0, y0), (x1, y1), (0, 0, 255), 3)
+
+    gap = 16
+    banner_h = 60
+    canvas = np.full(
+        (target_h + banner_h, a.shape[1] + b.shape[1] + gap, 3), 255, np.uint8
+    )
+    canvas[banner_h:, : a.shape[1]] = a
+    canvas[banner_h:, a.shape[1] + gap :] = b
+    text = banner or f"similarity: {score:.4f}"
+    cv2.putText(
+        canvas, text, (12, 42), cv2.FONT_HERSHEY_SIMPLEX, 1.2, (0, 0, 0), 2
+    )
+    save_image_bgr(output_path, canvas)
     return True

@@ -16,7 +16,9 @@ feeds the TPU's matrix unit better, gives the same outputs, and on an H100
 is no faster than the one stem the port keeps (``nn.Conv2d``; timed by
 ``scripts/torch_stem_bench.py``). The stage configs of the numbered chain
 (``OrientationConfig``, ``EdgeFilterConfig``, ``CombineConfig``,
-``MedianWidthConfig``, ``ColumnConfig``) are copied whole.
+``MedianWidthConfig``, ``ColumnConfig``) and the store's and the
+analysis passes' settings (``StoreConfig``, ``AnalysisConfig``) are copied
+whole.
 """
 
 from __future__ import annotations
@@ -155,3 +157,37 @@ class EmbedderConfig:
     # True/"int8" | "int4" | "int8-mixed" | "int4-mixed" (the mixed forms:
     # bf16 vision tower, int8 or int4 text stack)
     quantize: Any = False
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreConfig:
+    """Embedding store settings (reference: deprecated_package/db_operations.py:17-61).
+
+    The reference uses ChromaDB-over-hnswlib (cosine, M=32, ef=200); the
+    port's store is exact (one matmul and top-k on the collection's device,
+    ``store/embedding_store.py``), so those parameters are retained only as
+    metadata.
+    """
+
+    path: str = "db"
+    collection_name: str = "newspaper_image_embeddings"
+    space: str = "cosine"
+    hnsw_m: int = 32  # recorded for parity; store is exact
+    hnsw_ef_construction: int = 200
+    hnsw_ef: int = 200
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalysisConfig:
+    """Similarity/clustering settings (reference: deprecated_package/config.py:77-79,
+    weighted_region_clustering.py:97-254,452-574)."""
+
+    region_compare_top_n: int = 10
+    region_similarity_threshold: float = 0.3
+    weight_by_area: bool = True
+    cluster_min_k: int = 2
+    cluster_max_k: int = 10
+    pair_region_limit: int = 10  # first-10-regions budget (ref :199)
+    pair_top_k: int = 10  # top-10 matches per pair (ref :207-212)
+    pair_accept_threshold: float = 0.1  # distance <= 1 - 0.1 accepted (ref :151,223)
+    prefix_skip_fraction: float = 0.2  # same-publication filename prefix skip

@@ -5,7 +5,8 @@ Port of ``multimodal_embeddings_tpu/ops/image.py``. Stage 0 (``ops/skew.py``,
 ``pipeline/orientation.py``): ``rgb_to_gray``, ``gaussian_blur``,
 ``adaptive_threshold_gaussian``, ``sobel_gradients``, ``edge_map``,
 ``bilinear_sample``, ``rotate_bound`` and ``resize_bilinear``, f32 tensor
-functions on the input's device. The separable filters are shifted f32
+functions on the input's device (``letterbox`` and ``crop_and_resize`` are
+built on the last two). The separable filters are shifted f32
 multiply-adds on the reflect-101 padded image, each product and sum its own
 correctly rounded op: JAX runs them at ``Precision.HIGHEST`` because they
 feed thresholds, and a convolution could run in TF32 on the card. The
@@ -240,6 +241,49 @@ def resize_bilinear(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     xs = (_iota(out_h, out_w, 1, image.device) + 0.5) * sx - 0.5
     ys = ys.clamp(0.0, h - 1.0)
     xs = xs.clamp(0.0, w - 1.0)
+    return bilinear_sample(image.to(torch.float32), ys, xs)
+
+
+def letterbox(
+    image: torch.Tensor, size: int, pad_value: float = 114.0
+) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
+    """Aspect-preserving resize onto a ``size``×``size`` canvas with centered
+    gray padding (YOLO preprocessing convention). Returns
+    ``(canvas, scale, (pad_top, pad_left))`` for box back-projection.
+
+    Host-computed placement; the resize itself is on the input's device.
+    """
+    h, w = int(image.shape[0]), int(image.shape[1])
+    scale = min(size / h, size / w)
+    new_h = int(round(h * scale))
+    new_w = int(round(w * scale))
+    resized = resize_bilinear(image, new_h, new_w)
+    pad_top = (size - new_h) // 2
+    pad_left = (size - new_w) // 2
+    canvas = torch.full(
+        (size, size) + tuple(image.shape[2:]), pad_value, dtype=resized.dtype,
+        device=resized.device,
+    )
+    canvas[pad_top : pad_top + new_h, pad_left : pad_left + new_w] = resized
+    return canvas, scale, (pad_top, pad_left)
+
+
+def crop_and_resize(
+    image: torch.Tensor,  # (H, W, C)
+    boxes: torch.Tensor,  # (N, 4) [x1, y1, x2, y2] pixel coords
+    out_size: int = 448,
+) -> torch.Tensor:
+    """Batched region crops resampled to a fixed square: one gather-based
+    bilinear sample gives all N crops as a single (N, S, S, C) f32 batch
+    (the reference's per-region PIL crop + LANCZOS resize,
+    ``doclayout_detector.py:165-194``, ``region_processor.py:115-117``).
+    Samples outside the image are 0, as in JAX."""
+    boxes = boxes.to(device=image.device, dtype=torch.float32)
+    x1, y1, x2, y2 = (boxes[:, i, None, None] for i in range(4))
+    h = torch.clamp(y2 - y1, min=1.0)
+    w = torch.clamp(x2 - x1, min=1.0)
+    ys = y1 + (_iota(out_size, out_size, 0, image.device) + 0.5) * (h / out_size) - 0.5
+    xs = x1 + (_iota(out_size, out_size, 1, image.device) + 0.5) * (w / out_size) - 0.5
     return bilinear_sample(image.to(torch.float32), ys, xs)
 
 

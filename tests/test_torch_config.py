@@ -19,6 +19,8 @@ LEFT_OUT = {
     "CombineConfig": set(),
     "MedianWidthConfig": set(),
     "ColumnConfig": set(),
+    "StoreConfig": set(),
+    "AnalysisConfig": set(),
 }
 
 

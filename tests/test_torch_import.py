@@ -79,7 +79,9 @@ def test_module_list_covers_the_slice():
         "utils.errors", "utils.profiling", "analysis.visualization", "pipeline.orientation",
         "pipeline.detect", "pipeline.stages", "pipeline.runner", "cli.orientation",
         "cli.detect", "cli.edge_filter", "cli.combine", "cli.medians", "cli.columns",
-        "cli.pipeline",
+        "cli.pipeline", "analysis.html", "analysis.clustering", "analysis.reports",
+        "analysis.cross_compare", "analysis.region_compare", "analysis.demo_queries",
+        "cli.workflow", "cli.demo", "ops.hough",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 
