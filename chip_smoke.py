@@ -297,6 +297,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     Q = k = 10, exact similarities in multiples of 1/64): device ms (CUDA
     events, median of 5) beside its bound, peak memory, the first 100
     pages' sums against the CPU's f32 run within 1e-5 of the largest.
+19. the checkpoint and parity tooling: (a) ``cli.parity acts-dump --family
+    detector`` (DocLayout-YOLOv10-m GL-CRM at 1024 px, seed 0) on the card
+    and on the CPU in f32; the card's dump equal to an in-process trace of
+    the same detector, whose output is EQUAL to the plain forward's and
+    whose K1 packed launches are exactly 1 with and without hooks;
+    ``acts-compare`` CPU against card at ``PARITY_RTOL`` / ``PARITY_ATOL``
+    with the worst layer printed; (c) that detector exported as an
+    ultralytics state dict (unfolded identity BatchNorm) and loaded through
+    ``doclayout_key_map`` into a detector of other seeded weights, and saved
+    by ``save_checkpoint_safetensors`` and loaded by
+    ``DetectorConfig.weights_path``: detections on a 2200×1700 page EQUAL to
+    the source's; (d) ``cli.parity boxes`` over 2 pages through
+    ``detect_regions`` (one view, the class head fitted), card bf16 against
+    CPU f32: precision, recall, mean matched IoU ≥ 0.99; ``cli.parity
+    embeddings`` over a card store and a CPU store of the same 8 crops
+    (ViT-B/16 at 448 through the host API): min cosine ≥ 0.999; (e) a
+    ``utils/profiling.py::trace`` of one ViT page read by
+    ``utils/trace_analysis.py``: category sums equal to the kernel total
+    within 0.1%, K1 13 launches; (b) mmE5-11B bf16 at full width (the
+    engine's default storage, seeded weights): every layer finite, the
+    names those of the tiny config's dump with indices generalised, the
+    output EQUAL to the plain forward's, launches equal with and without
+    hooks; the 11B widths at reduced depth on ``int8-mixed`` (K1, K2), card
+    bf16 against CPU f32, the tower at ``PARITY_ATOL`` and the text stack
+    at ``PARITY_TEXT_ATOL``, worst layers printed.
 
 Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
@@ -340,6 +365,11 @@ the last line.
 
 runs phase 1, K1's build and phase 18 only, then prints the card line and
 the last line.
+
+    python3 chip_smoke.py --parity
+
+runs phase 1, K1's and K2's builds and phase 19 only, then prints the card
+line and the last line.
 
     python3 chip_smoke.py --k6
 
@@ -1140,59 +1170,43 @@ def int8_checks(k2) -> dict:
     return results
 
 
+# profile_run's families: trace_analysis' categories, the rest as other
+PROFILE_FAMILIES = ("K1 enc_attn", "K2 int8_mm", "K3 int4", "K4 flash", "K5 conv3x3",
+                    "K6 ln_mm", "K7 ln_stats", "GEMM (cuBLAS)", "conv (cuDNN)", "other")
+
+
 def profile_run(label: str, run) -> None:
-    """Device time of ``run()`` by kernel family (torch.profiler)."""
+    """Device time of ``run()`` by kernel family: a ``torch.profiler``
+    Chrome trace (``utils/profiling.py::trace``) read by
+    ``utils/trace_analysis.py``."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_embeddings_tpu_torch.utils import profiling, trace_analysis
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    families = {"K1 enc_attn": 0.0, "K2 int8_mm": 0.0, "K3 int4": 0.0, "K4 flash": 0.0,
-                "K5 conv3x3": 0.0, "K6 ln_mm": 0.0, "K7 ln_stats": 0.0,
-                "GEMM (cuBLAS)": 0.0, "conv (cuDNN)": 0.0, "other": 0.0}
-    counts = dict.fromkeys(families, 0)
-    kernels = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        name = ev.key.lower()
-        if "enc_attn" in name:
-            fam = "K1 enc_attn"
-        elif "int8_mm" in name:
-            fam = "K2 int8_mm"
-        elif "int4_mm" in name or "int4_gemv" in name:
-            fam = "K3 int4"
-        elif "flash_wgmma" in name or "flash_f32" in name or "flash_v2_f32" in name:
-            fam = "K4 flash"
-        elif "conv3x3_bf16" in name or "conv3x3_f32" in name:
-            fam = "K5 conv3x3"
-        elif "ln_mm_wgmma" in name or "ln_mm_bf16" in name or "ln_mm_f32" in name:
-            fam = "K6 ln_mm"
-        elif "ln_stats_kernel" in name:
-            fam = "K7 ln_stats"
-        elif any(s in name for s in ("conv", "cudnn", "implicit", "fprop")):
-            fam = "conv (cuDNN)"  # before GEMM: cuDNN names its kernels *_implicit_gemm_*
-        elif any(s in name for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")):
-            fam = "GEMM (cuBLAS)"
-        else:
-            fam = "other"
-        ms = ev.device_time_total / 1e3
-        families[fam] += ms
-        counts[fam] += ev.count
-        kernels.append((ms, ev.count, ev.key))
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as trace:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        stats = trace_analysis.aggregate_kernels(trace.path)
+    families = dict.fromkeys(PROFILE_FAMILIES, 0.0)
+    counts = dict.fromkeys(PROFILE_FAMILIES, 0)
+    for stat in stats:
+        fam = stat.category if stat.category in families else "other"
+        families[fam] += stat.total_us / 1e3
+        counts[fam] += stat.count
     busy = sum(families.values())
     print(f"profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
           f"(kernel time summed), idle {100 * (1 - busy / wall):.1f}%")
     for fam, t in sorted(families.items(), key=lambda kv: -kv[1]):
         print(f"  {fam}: {t:.1f} ms over {counts[fam]} launches ({100 * t / busy:.1f}%)")
     print("  largest kernels:")
-    for ms, count, key in sorted(kernels, reverse=True)[:8]:
-        print(f"    {ms:9.1f} ms {count:6d}x {key[:100]}")
+    for stat in stats[:8]:
+        print(f"    {stat.total_us / 1e3:9.1f} ms {stat.count:6d}x {stat.name[:100]}")
 
 
 def mme5_launches(config, chunks: int, text_passes: int, prefix: bool = True) -> dict:
@@ -4096,11 +4110,11 @@ def near_merges(linkage) -> int:
 
 def trace_busy(path: str) -> tuple:
     """Device busy ms (kernel events summed) and the number of kernel events
-    in a Chrome trace that ``torch.profiler`` wrote."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    return sum(e.get("dur", 0) for e in kernels) / 1e3, len(kernels)
+    in a Chrome trace that ``torch.profiler`` wrote (``utils/trace_analysis.py``)."""
+    from multimodal_embeddings_tpu_torch.utils import trace_analysis
+
+    stats = trace_analysis.aggregate_kernels(path)
+    return sum(s.total_us for s in stats) / 1e3, sum(s.count for s in stats)
 
 
 def workflow_run(counters) -> dict:
@@ -4433,6 +4447,415 @@ def archive_similarity() -> None:
           f"({100 * accepted:.1f}% of pairs nonzero)")
 
 
+# phase 19: the activation dumps' tolerance, card bf16 against the CPU's f32
+# dump of the same weights (compare_traces' rule |a - b| <= atol + rtol *
+# max(|a|, |b|) on the five moments and the 8 head values of each layer).
+# One bf16 rounding moves a value by up to 2^-9 of itself, and each layer
+# rounds its inputs and outputs again: the gate allows 5e-2 (about 25 such
+# steps) over an atol of 1e-3, which compare_traces' default atol of 1e-4
+# would leave to single head values of ~1e-3. The atol is absolute: the
+# random detector's head (std ~1e-7..1e-5) passes it whatever it holds, so
+# those layers are read through the boxes of 19d. Each run prints the rtol
+# its worst layer needs.
+PARITY_RTOL, PARITY_ATOL = 5e-2, 1e-3
+# the mmE5 text stack's hidden states reach |x| ~ 400 on seeded weights
+# (std ~424), where one bf16 step is 2, and its down projections sum 14,336
+# products of bf16 inputs: its layers take an atol of 8 such steps, 4% of
+# the std (H100 readings: a head value of the reduced model's cross-layer
+# down projection -55.75 on the card against -64.70 on the CPU in f32,
+# everything else within 4); a wrong weight or layout moves values by a
+# good part of the std. The tower (|x| ~ 0.01-1) and the pooled output
+# keep PARITY_ATOL.
+PARITY_TEXT_ATOL = 16.0
+PARITY_PAGES = 2  # phase 19d: pages through detect_regions, one view each
+PARITY_CROPS = 8  # phase 19d: crops in each store
+IOU_MIN = 0.99  # BASELINE.json's matched-box IoU target
+# phase 19c: our module -> its ultralytics index (the inverse of
+# models/hf_port.py::_YOLO_INDEX_TO_MODULE), and the sequential positions
+# of the CIB block and of the head's class branch
+_ULTRALYTICS_INDEX = {
+    "backbone/stem": 0, "backbone/down2": 1, "backbone/c2f_2": 2, "backbone/down3": 3,
+    "backbone/c2f_3": 4, "backbone/down4": 5, "backbone/c2f_4": 6, "backbone/down5": 7,
+    "backbone/c2fcib_5": 8, "backbone/sppf": 9, "backbone/psa": 10, "neck/td_c2f_4": 13,
+    "neck/td_c2f_3": 16, "neck/bu_down_3": 17, "neck/bu_c2fcib_4": 19, "neck/bu_down_4": 20,
+    "neck/bu_c2fcib_5": 22,
+}
+_CIB_SEQ = {"dw1": 0, "pw1": 1, "dw2": 2, "pw2": 3, "dw3": 4}
+_HEAD_CLS_SEQ = {"dw1": (0, 0), "pw1": (0, 1), "dw2": (1, 0), "pw2": (1, 1)}
+
+
+def _ultralytics_leaf(collection: str, leaf: str) -> str:
+    if collection == "params":
+        return {"conv/kernel": "conv.weight", "bn/scale": "bn.weight", "bn/bias": "bn.bias",
+                "kernel": "weight", "bias": "bias"}[leaf]
+    return {"bn/mean": "bn.running_mean", "bn/var": "bn.running_var"}[leaf]
+
+
+def ultralytics_key(flat_key: str) -> str:
+    """Our flat JAX key -> the ultralytics key that ``doclayout_key_map``
+    maps onto it."""
+    import re
+
+    collection, rest = flat_key.split("/", 1)
+    parts = rest.split("/")
+    if parts[0] == "head":
+        branch, level, sub = re.match(r"(reg|cls)(\d)_(.+)", parts[1]).groups()
+        leaf = _ultralytics_leaf(collection, "/".join(parts[2:]))
+        cv = "one2one_cv2" if branch == "reg" else "one2one_cv3"
+        if sub == "out":
+            return f"model.23.{cv}.{level}.2.{leaf}"
+        if branch == "reg":
+            return f"model.23.{cv}.{level}.{int(sub[-1]) - 1}.{leaf}"
+        outer, inner = _HEAD_CLS_SEQ[sub]
+        return f"model.23.{cv}.{level}.{outer}.{inner}.{leaf}"
+    idx = _ULTRALYTICS_INDEX["/".join(parts[:2])]
+    tail = parts[2:]
+    if tail[0] in ("conv", "bn"):
+        return f"model.{idx}.{_ultralytics_leaf(collection, '/'.join(tail))}"
+    if tail[0] in ("cv1", "cv2", "ffn1", "ffn2"):
+        mod = {"ffn1": "ffn.0", "ffn2": "ffn.1"}.get(tail[0], tail[0])
+        return f"model.{idx}.{mod}.{_ultralytics_leaf(collection, '/'.join(tail[1:]))}"
+    if tail[0] == "attn":
+        return f"model.{idx}.attn.{tail[1]}.{_ultralytics_leaf(collection, '/'.join(tail[2:]))}"
+    inner = int(tail[0][1:])  # m<i>: a C2f / G2L_CRM / C2fCIB inner block
+    if tail[1] == "gate":
+        return f"model.{idx}.m.{inner}.gate.{_ultralytics_leaf(collection, tail[2])}"
+    sub = f"cv1.{_CIB_SEQ[tail[1]]}" if tail[1] in _CIB_SEQ else tail[1]
+    return f"model.{idx}.m.{inner}.{sub}.{_ultralytics_leaf(collection, '/'.join(tail[2:]))}"
+
+
+def ultralytics_state(module) -> dict:
+    """``module``'s parameters as an ultralytics DocLayout-YOLO state dict:
+    OIHW convs, each folded conv with an unfolded identity BatchNorm
+    (``export_jax_params``), plus the bookkeeping entries the map skips."""
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.hf_port import doclayout_key_map
+    from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
+
+    state = {}
+    for key, arr in export_jax_params(module).items():
+        tkey = ultralytics_key(key)
+        check(doclayout_key_map(tkey) == key, f"{tkey} does not map back onto {key}")
+        arr = np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4 else arr
+        state[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
+        if tkey.endswith("bn.running_var"):
+            state[tkey[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def worst_layer(ref: dict, cand: dict, atol: float) -> tuple:
+    """The least rtol at which every statistic of a layer passes at
+    ``atol`` (``max(0, |a - b| - atol) / max(|a|, |b|)``), the largest over
+    the layers both dumps hold, and where: (rtol, layer, statistic, a, b)."""
+    worst = (0.0, None, None, None, None)
+    for name, r in ref["layers"].items():
+        c = cand["layers"].get(name)
+        if c is None:
+            continue
+        pairs = [(f, r[f], c[f]) for f in ("mean", "std", "min", "max", "absmean")]
+        pairs += [(f"head[{i}]", a, b) for i, (a, b) in enumerate(zip(r["head"], c["head"]))]
+        for field, a, b in pairs:
+            need = max(0.0, abs(a - b) - atol) / max(abs(a), abs(b), 1e-30)
+            if worst[1] is None or need > worst[0]:
+                worst = (need, name, field, a, b)
+    return worst
+
+
+def worst_text(ref: dict, cand: dict, atol: float) -> str:
+    need, layer, field, a, b = worst_layer(ref, cand, atol)
+    std = ref["layers"][layer]["std"] if layer else 0.0
+    return (f"worst layer {layer} (needs rtol {need:.4g}: {field} {a:.6g} against {b:.6g}, "
+            f"the layer's std {std:.4g})")
+
+
+def finite_trace(trace: dict) -> bool:
+    return all(math.isfinite(v) for rec in [*trace["layers"].values(), trace["output"]]
+               for v in (rec["mean"], rec["std"], rec["min"], rec["max"], rec["absmean"],
+                         *rec["head"]))
+
+
+def traced_and_plain(counters, trace_fn, module, plain_fn) -> tuple:
+    """``trace_fn()`` with the counters zeroed (its output captured by a
+    hook on ``module``, the root, which the trace leaves out), then
+    ``plain_fn()`` with them zeroed again: (trace, traced output, launches
+    traced, plain output, launches plain)."""
+    import torch
+
+    captured = []
+    hook = module.register_forward_hook(lambda m, args, out: captured.append(out))
+    zero(counters)
+    trace = trace_fn()
+    torch.cuda.synchronize()
+    traced = counts(counters)
+    hook.remove()
+    zero(counters)
+    with torch.inference_mode():
+        plain = plain_fn()
+    torch.cuda.synchronize()
+    return trace, captured[0], traced, plain, counts(counters)
+
+
+def parity_phase(counters) -> dict:
+    """Phase 19; returns the launches of each of its runs on the card."""
+    import gc
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis import activations as acts
+    from multimodal_embeddings_tpu_torch.analysis.parity import compare_detection_dirs
+    from multimodal_embeddings_tpu_torch.cli import parity as parity_cli
+    from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig
+    from multimodal_embeddings_tpu_torch.io.json_io import save_json
+    from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
+    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+    from multimodal_embeddings_tpu_torch.models.hf_port import doclayout_key_map
+    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
+    from multimodal_embeddings_tpu_torch.models.weights import (
+        export_jax_params,
+        load_torch_state_dict,
+        save_checkpoint_safetensors,
+    )
+    from multimodal_embeddings_tpu_torch.pipeline.fused import build_split_page_fn
+    from multimodal_embeddings_tpu_torch.store.embedding_store import initialize_db
+    from multimodal_embeddings_tpu_torch.utils import profiling
+    from multimodal_embeddings_tpu_torch.utils import trace_analysis
+
+    phase("19. checkpoint and parity tooling: activation dumps, a published-layout "
+          "checkpoint, the parity measures, the trace parser")
+    start = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- a. the detector's dump at full width, card and CPU ----------------
+        t0 = time.perf_counter()
+        dump = ["acts-dump", "--family", "detector", "--variant", "m", "--imgsz", "1024"]
+        card_json, cpu_json = os.path.join(tmp, "det_card.json"), os.path.join(tmp, "det_cpu.json")
+        zero(counters)
+        check(parity_cli.main([*dump, "--out", card_json, "--device", "cuda"]) == 0,
+              "acts-dump on the card")
+        torch.cuda.synchronize()
+        launches["parity_detector_dump"] = counts(counters)
+        want = only(counters, {"encoder_attention_blf_packed": 1})
+        check(launches["parity_detector_dump"] == want,
+              f"detector dump launches {launches['parity_detector_dump']} != {want}")
+        check(parity_cli.main([*dump, "--out", cpu_json, "--device", "cpu"]) == 0,
+              "acts-dump on the CPU")
+        card, cpu = acts.load_trace(card_json), acts.load_trace(cpu_json)
+        print(f"a. detector dumps (DocLayout-YOLOv10-m GL-CRM, 1024 px): {len(card['layers'])} "
+              f"layers, output {card['output']['shape']}, card and CPU in "
+              f"{time.perf_counter() - t0:.1f} s")
+        detector = make_detector()  # the CLI's weights: seed 0
+        probe = torch.from_numpy(acts.detector_probe(1024)).to("cuda")
+        trace, traced_out, traced, plain_out, plain = traced_and_plain(
+            counters, lambda: acts.detector_trace(detector), detector.model,
+            lambda: detector.model(probe))
+        check(trace == card, "the in-process trace differs from the CLI's dump")
+        check(all(torch.equal(a, b) for a, b in zip(acts._leaves(traced_out),
+                                                    acts._leaves(plain_out))),
+              "the traced forward's output is not the plain forward's, bit for bit")
+        check(acts.device_tensor_stats(acts._leaves(plain_out)[0]) == card["output"],
+              "the dump's output record is not the plain forward's")
+        check(traced == plain == want, f"launches traced {traced}, plain {plain}, want {want}")
+        rc = parity_cli.main(["acts-compare", cpu_json, card_json, "--rtol", str(PARITY_RTOL),
+                              "--atol", str(PARITY_ATOL)])
+        print(f"   traced output EQUAL to the plain forward's; K1 packed 1 launch traced and "
+              f"plain; card bf16 vs CPU f32 at rtol {PARITY_RTOL} / atol {PARITY_ATOL}: "
+              f"exit {rc}; {worst_text(cpu, card, PARITY_ATOL)}")
+        check(rc == 0, "detector: card against CPU diverges")
+
+        # -- c. a published-layout checkpoint on the card ----------------------
+        t0 = time.perf_counter()
+        page = make_pages(1)[0].cpu().numpy()
+        want_det = detector.detect_batch([page])[0]
+        pt = os.path.join(tmp, "docstructbench_layout.pt")
+        torch.save(ultralytics_state(detector.model), pt)
+        fresh = LayoutDetector(DetectorConfig(image_size=1024, variant="m"),
+                               dtype=torch.bfloat16, device="cuda", seed=1)
+        load_torch_state_dict(pt, fresh.model, doclayout_key_map)
+        st = os.path.join(tmp, "detector.safetensors")
+        save_checkpoint_safetensors(detector.model, st)
+        from_st = LayoutDetector(DetectorConfig(image_size=1024, variant="m", weights_path=st),
+                                 dtype=torch.bfloat16, device="cuda")
+        for label, other in (("ultralytics state dict", fresh), (".safetensors", from_st)):
+            got = other.detect_batch([page])[0]
+            check(all(np.array_equal(g, w) for g, w in zip(got, want_det)),
+                  f"{label}: detections differ from the source model's")
+        print(f"c. {len(torch.load(pt, weights_only=True))} ultralytics tensors through "
+              f"doclayout_key_map, and the .safetensors checkpoint: {len(want_det[1])} "
+              f"detections on a 2200x1700 page EQUAL to the source model's "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del fresh, from_st
+        gc_cuda()
+
+        # -- d. boxes and embeddings, card against CPU ------------------------
+        t0 = time.perf_counter()
+        paths = []
+        for i in range(PARITY_PAGES):
+            paths.append(os.path.join(tmp, f"parity_{i}.png"))
+            Image.fromarray(synthetic_page(60 + i, 0.0)).save(paths[-1])
+        one_view = DetectorConfig(grid_configs=())
+        card_det = LayoutDetector(one_view, dtype=torch.bfloat16, device="cuda")
+        fit = fit_head(card_det, np.asarray(Image.open(paths[0]).convert("RGB")),
+                       WORKFLOW_VIEW_BOXES)
+        cpu_det = LayoutDetector(one_view, dtype=torch.float32, device="cpu")
+        apply_head(cpu_det, fit)
+        dirs = {"card": os.path.join(tmp, "boxes_card"), "cpu": os.path.join(tmp, "boxes_cpu")}
+        regions = {}
+        for label, det in (("card", card_det), ("cpu", cpu_det)):
+            os.makedirs(dirs[label])
+            for path in paths:
+                regions[label, path] = det.detect_regions(path)
+                name = os.path.basename(path).replace(".png", ".json")
+                save_json(regions[label, path], os.path.join(dirs[label], name))
+        report = os.path.join(tmp, "boxes.json")
+        check(parity_cli.main(["boxes", dirs["cpu"], dirs["card"], "--out", report]) == 0,
+              "parity boxes")
+        boxes = compare_detection_dirs(dirs["cpu"], dirs["card"])
+        check(json.load(open(report))["mean_matched_iou"] == boxes["mean_matched_iou"],
+              "the CLI's report")
+        print(f"d. boxes, card bf16 vs CPU f32 over {PARITY_PAGES} pages (one view, fitted "
+              f"head): {boxes['total_reference_boxes']} CPU boxes, "
+              f"{boxes['total_candidate_boxes']} card boxes, precision "
+              f"{boxes['precision']:.6f}, recall {boxes['recall']:.6f}, mean matched IoU "
+              f"{boxes['mean_matched_iou']:.6f}")
+        check(boxes["total_matched"] > 0 and boxes["mean_matched_iou"] >= IOU_MIN,
+              f"mean matched IoU {boxes['mean_matched_iou']} < {IOU_MIN}")
+        del cpu_det
+        image = np.asarray(Image.open(paths[0]).convert("RGB"))
+        crops = [image[int(b[1]) : int(b[3]) + 1, int(b[0]) : int(b[2]) + 1]
+                 for b in regions["card", paths[0]]["boxes"][:PARITY_CROPS]]
+        check(len(crops) == PARITY_CROPS, f"{len(crops)} crops")
+        vit = {}
+        for label, device, dtype in (("card", "cuda", "bfloat16"), ("cpu", "cpu", "float32")):
+            vit[label] = MultimodalEmbedder(EmbedderConfig(family="siglip", dtype=dtype),
+                                            device=device, seed=0)
+            _, collection = initialize_db(os.path.join(tmp, f"db_{label}"), device=device)
+            embs = vit[label].get_image_embeddings(crops)
+            collection.upsert(ids=[f"crop{i}" for i in range(len(crops))], embeddings=embs)
+        report = os.path.join(tmp, "embeddings.json")
+        check(parity_cli.main(["embeddings", os.path.join(tmp, "db_cpu"),
+                               os.path.join(tmp, "db_card"), "--out", report,
+                               "--device", "cuda"]) == 0,
+              "parity embeddings")
+        emb = json.load(open(report))
+        print(f"   embeddings, card bf16 vs CPU f32 stores of {PARITY_CROPS} crops (ViT-B/16 "
+              f"at 448): count {emb['count']}, mean cosine {emb['mean_cosine']:.6f}, min "
+              f"{emb['min_cosine']:.6f} ({time.perf_counter() - t0:.1f} s)")
+        check(emb["count"] == PARITY_CROPS and emb["min_cosine"] >= COSINE_MIN,
+              f"embeddings: {emb}")
+        del card_det
+
+        # -- e. the trace parser over one ViT page ----------------------------
+        fn = build_split_page_fn(detector, vit["card"], PAGE_HW, num_regions=NUM_REGIONS,
+                                 embed_chunk=NUM_REGIONS)
+        pages = make_pages(2)
+        fn(pages[0])
+        torch.cuda.synchronize()
+        zero(counters)
+        with profiling.trace(os.path.join(tmp, "trace")) as t:
+            fn(pages[1])
+            torch.cuda.synchronize()
+        launches["trace_vit_page"] = counts(counters)
+        want = only(counters, {"encoder_attention_blf": 12, "encoder_attention_blf_packed": 1})
+        check(launches["trace_vit_page"] == want,
+              f"traced ViT page launches {launches['trace_vit_page']} != {want}")
+        stats = trace_analysis.aggregate_kernels(t.path)
+        with open(t.path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        total = sum(e.get("dur", 0) for e in kernels)
+        by_cat = trace_analysis.category_summary(stats)
+        k1 = sum(s.count for s in stats if s.category == "K1 enc_attn")
+        print(f"e. the trace of one ViT page ({len(kernels)} kernel events, {total / 1e3:.3f} ms):")
+        trace_analysis.print_report(t.path, top=6)
+        check(abs(sum(by_cat.values()) - total) <= 1e-3 * total,
+              f"category sums {sum(by_cat.values())} vs kernel total {total}")
+        check(k1 == 13, f"K1 row: {k1} launches, not 12 + 1")
+        del fn, vit, detector
+        gc_cuda()
+
+        # -- b. the mmE5-11B dump at full width, and card against CPU ---------
+        t0 = time.perf_counter()
+        engine = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="bfloat16"),
+                                    model_config=MllamaConfig.mme5_11b(), device="cuda")
+        built = time.perf_counter() - t0
+        args = [torch.from_numpy(a).to("cuda") for a in acts.mme5_probe(
+            engine.model_config.vision.image_size, engine.text_len,
+            engine.model_config.text.vocab_size)]
+        args[0], args[3] = args[0].long(), args[3].long()
+        trace, traced_out, traced, plain_out, plain = traced_and_plain(
+            counters, lambda: acts.mme5_trace(engine), engine.model,
+            lambda: engine.model(*args))
+        launches["parity_mme5_11b_dump"] = traced
+        acts.save_trace(trace, os.path.join(tmp, "mme5_11b_card.json"))
+        check(torch.equal(traced_out, plain_out), "mmE5 traced output differs from plain")
+        # the probe carries a tile mask, so the tower attends on its masked
+        # plain path, as JAX's does (phase 8c): no K1 here
+        check(traced == plain, f"mmE5 launches traced {traced} vs plain {plain}")
+        check(finite_trace(trace), "mmE5: a non-finite statistic")
+        tiny_json = os.path.join(tmp, "mme5_tiny.json")
+        check(parity_cli.main(["acts-dump", "--family", "mme5", "--size", "tiny", "--out",
+                               tiny_json, "--device", "cpu"]) == 0, "tiny mmE5 dump")
+
+        def general(names):
+            return {re.sub(r"\d+", "N", n) for n in names}
+
+        tiny = acts.load_trace(tiny_json)
+        check(general(trace["layers"]) == general(tiny["layers"]),
+              f"layer names: {sorted(general(trace['layers']) ^ general(tiny['layers']))}")
+        print(f"b. mmE5-11B bf16 dump at full width: built in {built:.1f} s, "
+              f"{len(trace['layers'])} layers, all finite, names those of the tiny config's "
+              f"with indices generalised; output EQUAL to the engine's forward; launches "
+              f"traced = plain = {only_nonzero(traced)}")
+        del engine, traced_out, plain_out
+        gc_cuda()
+        reduced = reduced_mme5(MllamaConfig.mme5_11b_int8_mixed())
+        cpu_engine = MultimodalEmbedder(
+            EmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
+            model_config=reduced, device="cpu", seed=0)
+        card_engine = MultimodalEmbedder(
+            EmbedderConfig(family="mme5", dtype="bfloat16", quantize="int8-mixed"),
+            model_config=reduced, device="cuda", params=export_jax_params(cpu_engine.model))
+        trace, traced_out, traced, plain_out, plain = traced_and_plain(
+            counters, lambda: acts.mme5_trace(card_engine), card_engine.model,
+            lambda: card_engine.model(*args))
+        launches["parity_mme5_reduced_dump"] = traced
+        check(torch.equal(traced_out, plain_out), "reduced mmE5 traced output differs")
+        check(traced == plain and traced["int8_matmul"] > 0,
+              f"reduced mmE5 launches traced {traced} vs plain {plain}")
+        cpu_trace = acts.mme5_trace(cpu_engine)
+        print(f"   11B widths at reduced depth, int8-mixed, card bf16 vs CPU f32; launches "
+              f"traced = plain = {only_nonzero(traced)}:")
+        for stack, atol in (("vision_model", PARITY_ATOL), ("text_model", PARITY_TEXT_ATOL)):
+            part = [{"layers": {k: v for k, v in t["layers"].items() if k.startswith(stack)},
+                     "output": t["output"] if stack == "vision_model" else None}
+                    for t in (cpu_trace, trace)]
+            report = acts.compare_traces(*part, rtol=PARITY_RTOL, atol=atol)
+            print(f"   {stack}{' and the output' if stack == 'vision_model' else ''}: "
+                  f"{report['layers_ok']}/{report['layers_compared']} layers ok at rtol "
+                  f"{PARITY_RTOL} / atol {atol}, first divergent {report['first_divergent']}; "
+                  f"{worst_text(*part, atol)}")
+            for r in report["results"]:
+                if not r["ok"]:
+                    print(f"     {r['layer']}: {r['bad_fields']} head ok {r['head_ok']}; "
+                          f"{worst_text(*({'layers': {r['layer']: t['layers'][r['layer']]}} for t in part), atol)}")
+            check(report["ok"] and report.get("output_ok", True),
+                  f"mmE5 {stack}: card against CPU diverges")
+        print(f"   ({time.perf_counter() - t0:.1f} s for b)")
+        del cpu_engine, card_engine
+        gc_cuda()
+    print(f"phase 19: {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def only_nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
 @contextlib.contextmanager
 def _swap(module, name: str, value):
     """``module.name`` is ``value`` inside the block."""
@@ -4528,6 +4951,17 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
+    if sys.argv[1:] == ["--parity"]:
+        build(("K1", k1), ("K2", k2))
+        parity_phase(kernel_counters(k1, k2, k3, k4, k5, k6, k7))
+        print(f"parity tooling alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
@@ -4591,6 +5025,8 @@ def main() -> int:
     serve_launches_by_run = serving_cli(counters)
     stage_launches = stage_chain(counters)
     workflow_launches = workflow_run(counters)
+    gc_cuda()
+    parity_launches = parity_phase(counters)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -4598,7 +5034,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches over each path's timed run: 3 ViT pages on each route, 2 Qwen
     # pages; per page of each mmE5 path (per chunk of the fuse_ln tower, per
-    # host-API call of 3 images)
+    # host-API call of 3 images); phase 19: one traced forward of each dump,
+    # one traced ViT page
     paths = {"vit_page": vit_launches, "vit_kernel_route_page": route_launches,
              "vit_bhld_route_page": bhld_launches, "mme5_page": mme5_launches,
              "mme5_tower_fuse_mlp": tower_launches,
@@ -4612,7 +5049,8 @@ def main() -> int:
              "serve_siglip_5_pages": serve_launches_by_run["pipelined"],
              "serve_mme5_2_pages": serve_launches_by_run["mme5"],
              "stage_chain_4_pages": stage_launches,
-             "workflow_6_pages": workflow_launches}
+             "workflow_6_pages": workflow_launches,
+             **parity_launches}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

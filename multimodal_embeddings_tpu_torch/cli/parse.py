@@ -4,8 +4,8 @@ attributes, plus the notebook's two post-processing artifacts.
 Port of ``multimodal_embeddings_tpu/cli/parse.py`` with the same flags,
 sizes and artifacts: per page ``<stem>.qwen.html`` (raw), ``<stem>.clean.html``
 and, with ``--draw_bbox``, ``<stem>_bbox.jpg``; ``parse_index.json`` for the
-run. ``--weights`` reads a JAX package ``.npz`` checkpoint through the weight
-bridge; without it the model runs synthetic weights from seed 0.
+run. ``--weights`` reads a JAX package ``.npz`` or ``.safetensors`` checkpoint
+through the weight bridge; without it the model runs synthetic weights from seed 0.
 ``--device`` (default ``cuda``) picks the device; the model computes in
 bf16 on the card and in f32 on the CPU.
 
@@ -53,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--input_folder", default="newspaper_images")
     parser.add_argument("--output_folder", default="6_parsed_html")
     parser.add_argument("--size", choices=SIZES, default="3b")
-    parser.add_argument("--weights", default=None, help="JAX package .npz checkpoint")
+    parser.add_argument("--weights", default=None, help="JAX package checkpoint (npz/safetensors)")
     parser.add_argument("--image_size", type=int, default=448)
     parser.add_argument("--max_new_tokens", type=int, default=1024)
     parser.add_argument("--dynamic_resolution", action="store_true",

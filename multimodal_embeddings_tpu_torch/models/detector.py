@@ -2,7 +2,8 @@
 
 Port of ``multimodal_embeddings_tpu/models/detector.py::LayoutDetector``:
 the DocLayout-YOLO network of a ``DetectorConfig`` with parameters from a
-JAX flat dict, a JAX ``.npz`` checkpoint (``config.weights_path``) or a
+JAX flat dict, a JAX ``.npz``/``.safetensors`` checkpoint
+(``config.weights_path``) or a
 seed, in ``dtype`` on ``device`` (the card unless the caller asks for the
 CPU; asking for the card where there is none raises).
 ``config.pallas_convs``/``pallas_mode`` route the GL-CRM stages through the

@@ -5,8 +5,8 @@ for both families, on ``device`` (the card unless the caller asks for the
 CPU; asking for the card where there is none raises):
 
 * ``family="siglip"``: the dual encoder (``DualEncoder``: image and text
-  towers) with parameters from a JAX flat dict, a JAX ``.npz`` checkpoint or
-  a seed, in the config's dtype;
+  towers) with parameters from a JAX flat dict, a JAX ``.npz`` or
+  ``.safetensors`` checkpoint or a seed, in the config's dtype;
 * ``family="mme5"``: the Mllama model of ``model_config`` (default the 11B
   layout; ``config.quantize`` selects the weight storage when the model
   config has none), built on its device (``weights.build_mme5``; a float

@@ -106,10 +106,13 @@ class Dense(nn.Module):
 
 def _dense(in_f, out_f, bias, kernel_shape, quantize, dtype, bias_shape=None):
     """A float ``Dense``, or for ``quantize`` True/``"int8"``/``"int4"`` its
-    quantized drop-in computing in ``dtype``."""
+    quantized drop-in computing in ``dtype``, which carries the float
+    kernel's ``kernel_shape`` too (the activation traces read it)."""
     if quantize:
-        return quant_dense_cls(quantize)(in_f, out_f, bias=bias, dtype=dtype,
-                                         bias_shape=bias_shape)
+        dense = quant_dense_cls(quantize)(in_f, out_f, bias=bias, dtype=dtype,
+                                          bias_shape=bias_shape)
+        dense.kernel_shape = tuple(kernel_shape or (in_f, out_f))
+        return dense
     return Dense(in_f, out_f, bias=bias, kernel_shape=kernel_shape, bias_shape=bias_shape)
 
 

@@ -33,21 +33,37 @@ straight on their device: parameters are materialized there in their
 storage types (``models/quantized.py``) and filled from a JAX tree or with
 seeded synthetic values, so the 11B and 32B trees never pass through the
 host.
+
+Checkpoints: ``load_checkpoint`` reads the JAX package's ``.npz`` and
+``.safetensors`` files (keys the ``"/"``-joined flax paths; the
+``.safetensors`` reader is this module's own, so no ``safetensors`` package
+is needed); ``save_checkpoint`` and ``save_checkpoint_safetensors`` write
+them from a port module. A file's tensors that the model lacks are logged
+and dropped before the bridge; a tensor the model needs and the file lacks
+raises. ``load_torch_state_dict`` ports a published torch state dict
+through a key map (``models/hf_port.py``), with the layout rules of
+``adapt_torch_tensor`` (copies of the JAX package's).
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import struct
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from multimodal_embeddings_tpu_torch.io.logging_setup import get_logger
 from multimodal_embeddings_tpu_torch.models.layers import BN_EPS, ConvBnAct
 from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig, MmE5Embedder
 from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig, QwenVLModel
 from multimodal_embeddings_tpu_torch.models.quantized import (
+    Int4Dense,
+    Int8Dense,
     materialize,
     quantize_dense_tree,
     synthetic_int8_init,
@@ -56,11 +72,79 @@ from multimodal_embeddings_tpu_torch.models.transformer import Dense, FastLayerN
 
 Flat = Dict[str, np.ndarray]
 
+logger = get_logger("weights")
+
 
 def load_npz(path: str) -> Flat:
     """A JAX-package ``.npz`` checkpoint as a flat numpy dict."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+# safetensors dtype codes and their little-endian numpy types: every type
+# ``safetensors.numpy.save_file`` writes for a JAX parameter tree. BF16 is
+# read as its 16 bits and widened to f32 exactly (numpy has no bfloat16).
+_ST_TYPES = {
+    "F64": "<f8", "F32": "<f4", "F16": "<f2", "BF16": "<u2",
+    "I64": "<i8", "I32": "<i4", "I16": "<i2", "I8": "i1",
+    "U64": "<u8", "U32": "<u4", "U16": "<u2", "U8": "u1", "BOOL": "?",
+}
+_ST_CODES = {np.dtype(t): c for c, t in _ST_TYPES.items() if c != "BF16"}
+
+
+def load_safetensors(path: str) -> Flat:
+    """A ``.safetensors`` file as a flat numpy dict: an 8-byte little-endian
+    header length, a JSON header (name → dtype, shape, data offsets), then
+    the tensors' raw bytes. Raises on a dtype outside ``_ST_TYPES``."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+    flat: Flat = {}
+    for key, entry in header.items():
+        if key == "__metadata__":
+            continue
+        code = entry["dtype"]
+        if code not in _ST_TYPES:
+            raise ValueError(f"{path}: tensor {key} has dtype {code}, which the reader "
+                             f"does not take ({sorted(_ST_TYPES)})")
+        begin, end = entry["data_offsets"]
+        arr = np.array(data[begin:end].view(np.dtype(_ST_TYPES[code])))
+        if code == "BF16":
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        flat[key] = arr.astype(arr.dtype.newbyteorder("=")).reshape(entry["shape"])
+    return flat
+
+
+def save_safetensors(flat: Flat, path: str) -> None:
+    """Write a flat numpy dict as ``.safetensors`` (keys in sorted order, the
+    header padded with spaces to 8 bytes, as the format asks)."""
+    header, offset, arrays = {}, 0, []
+    for key in sorted(flat):
+        arr = np.asarray(flat[key])
+        if arr.dtype not in _ST_CODES:
+            raise ValueError(f"tensor {key}: dtype {arr.dtype} has no safetensors code")
+        raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+        header[key] = {"dtype": _ST_CODES[arr.dtype], "shape": list(arr.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        arrays.append(raw)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in arrays:
+            f.write(raw)
+
+
+def load_checkpoint(path: str) -> Flat:
+    """A JAX-package checkpoint, ``.safetensors`` or ``.npz``, as a flat
+    numpy dict (JAX's ``save_checkpoint`` and ``save_checkpoint_safetensors``
+    key sets)."""
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    return load_npz(path)
 
 
 def _hwio_to_oihw(k: np.ndarray) -> np.ndarray:
@@ -232,6 +316,184 @@ def export_jax_params(module: nn.Module, prefix: str = "") -> Flat:
     return flat
 
 
+def jax_param_keys(module: nn.Module, prefix: str = "") -> set:
+    """The keys ``load_jax_params`` reads for ``module`` (the key set of
+    ``export_jax_params``), without touching a value; at an ``Int8Dense`` or
+    ``Int4Dense`` site a float ``kernel`` is taken too (quantized at load)."""
+    keys = set()
+
+    def key(collection, path):
+        return "/".join(filter(None, [collection, prefix, path]))
+
+    def visit(obj, path):
+        if isinstance(obj, nn.Parameter):
+            keys.add(key("params", path))
+        elif isinstance(obj, ConvBnAct):
+            keys.update(key("params", _join(path, leaf))
+                        for leaf in ("conv/kernel", "bn/scale", "bn/bias"))
+            keys.update(key("batch_stats", _join(path, leaf)) for leaf in ("bn/mean", "bn/var"))
+        elif isinstance(obj, FastLayerNorm):
+            keys.update(key("params", _join(path, leaf)) for leaf in ("scale", "bias"))
+        else:  # nn.Conv2d, Dense
+            keys.add(key("params", _join(path, "kernel")))
+            if obj.bias is not None:
+                keys.add(key("params", _join(path, "bias")))
+
+    _walk(module, "", visit)
+    for name, site in module.named_modules():
+        if isinstance(site, (Int8Dense, Int4Dense)):
+            keys.add(key("params", _join(name.replace(".", "/"), "kernel")))
+    return keys
+
+
+def checkpoint_for(module: nn.Module, flat: Flat, prefix: str = "") -> Flat:
+    """``flat`` without the tensors ``module`` lacks, each logged as unused
+    (JAX's ``load_checkpoint`` rule); a tensor the module needs and ``flat``
+    lacks is left for the bridge to raise on."""
+    wanted = jax_param_keys(module, prefix)
+    extra = sorted(set(flat) - wanted)
+    if extra:
+        logger.warning("checkpoint has %d unused tensors, e.g. %s", len(extra), extra[:5])
+    return {k: v for k, v in flat.items() if k in wanted}
+
+
+def save_checkpoint(module: nn.Module, path: str) -> None:
+    """Save ``module`` as a flat JAX-keyed ``.npz`` (``export_jax_params``)."""
+    flat = export_jax_params(module)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+    logger.info("saved %d tensors to %s", len(flat), path)
+
+
+def save_checkpoint_safetensors(module: nn.Module, path: str) -> None:
+    """Save ``module`` as a flat JAX-keyed ``.safetensors``."""
+    flat = export_jax_params(module)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    save_safetensors(flat, path)
+    logger.info("saved %d tensors to %s", len(flat), path)
+
+
+def torch_conv_to_flax(weight: np.ndarray) -> np.ndarray:
+    """torch OIHW conv kernel → flax HWIO."""
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def adapt_torch_tensor(arr: np.ndarray, target_shape, tkey: str = "?"):
+    """Convert a torch tensor layout to the flax target layout.
+
+    * 4-D → conv OIHW → HWIO;
+    * 2-D whose shape equals the target → direct (embeddings, already-
+      (in,out) matrices are never produced by torch Linear, so a square
+      direct match is only taken for non-'.weight'-of-Linear tensors —
+      callers route Linears here with ``force_linear=True`` via key
+      naming);
+    * 2-D torch Linear ``(out, in)`` → transpose then reshape to the
+      target (covers Dense ``(in, out)``, DenseGeneral ``(in, H, D)`` and
+      output projections ``(H, D, out)``);
+    * 1-D bias → reshape to the target.
+    """
+    target_shape = tuple(target_shape)
+    if arr.ndim == 5 and len(target_shape) == 4:
+        # Qwen2.5-VL patch embed is a Conv3d (O, I, T, H, W); image inputs
+        # repeat the frame across T, so summing the temporal axis gives the
+        # mathematically exact 2-D kernel
+        arr = arr.sum(axis=2)
+    if arr.ndim == 4:
+        arr = torch_conv_to_flax(arr)
+        if arr.shape != target_shape:
+            raise ValueError(f"conv shape mismatch {tkey}: {arr.shape} vs {target_shape}")
+        return arr
+    if arr.ndim == 2:
+        if int(np.prod(arr.shape)) != int(np.prod(target_shape)):
+            raise ValueError(f"size mismatch {tkey}: {arr.shape} vs {target_shape}")
+        transposed = arr.T
+        # torch Linear stores (out, in); flax Dense-style kernels start
+        # with the input dim, so the transpose-reshape is correct whenever
+        # the target's leading dims consume the torch 'in' axis. Embedding
+        # tables are (vocab, dim) on both sides → direct when equal AND the
+        # reshape path would scramble rows; disambiguate by exact match
+        # first except for square matrices, where Linear semantics win
+        # only if the key says 'proj'/'lm_head'/explicit linear.
+        if arr.shape == target_shape and not _looks_like_linear(tkey):
+            return arr
+        return np.ascontiguousarray(transposed).reshape(target_shape)
+    if arr.ndim <= 1:
+        return arr.reshape(target_shape)
+    if arr.shape == target_shape:
+        return arr
+    raise ValueError(f"unsupported layout {tkey}: {arr.shape} vs {target_shape}")
+
+
+_LINEAR_HINTS = ("proj", "lm_head", "fc1", "fc2", "merger", "qkv", "gate_proj",
+                 "up_proj", "down_proj", ".q.", ".k.", ".v.", ".o.")
+
+
+def _looks_like_linear(tkey: str) -> bool:
+    return any(h in tkey for h in _LINEAR_HINTS)
+
+
+def _check_conv_bn_units(module: nn.Module, prefix: str, mapped: set) -> None:
+    """Raise where a state dict maps part of a ``ConvBnAct`` unit: the port
+    holds the conv and its BatchNorm folded into one weight and bias, so the
+    unmapped leaves have no init values to keep (JAX keeps its init)."""
+
+    def visit(obj, path):
+        if not isinstance(obj, ConvBnAct):
+            return
+        leaves = {"/".join(filter(None, [c, prefix, path, leaf])) for c, leaf in (
+            ("params", "conv/kernel"), ("params", "bn/scale"), ("params", "bn/bias"),
+            ("batch_stats", "bn/mean"), ("batch_stats", "bn/var"))}
+        hit = leaves & mapped
+        if hit and hit != leaves:
+            raise ValueError(
+                f"the state dict maps {sorted(hit)} but not {sorted(leaves - hit)}: the "
+                f"port folds the BatchNorm of {path} into its conv, so a ConvBnAct "
+                "unit loads whole or not at all")
+
+    _walk(module, "", visit)
+
+
+def load_torch_state_dict(
+    path: str,
+    module: nn.Module,
+    key_map: Callable[[str], Optional[str]],
+    prefix: str = "",
+) -> nn.Module:
+    """Port a torch checkpoint (e.g. the DocStructBench ``.pt``) into
+    ``module``, whose scope in the flat JAX keys is ``prefix``.
+
+    ``key_map`` maps each torch key to a flat flax key (or None to skip).
+    The module's own parameters (``export_jax_params``) are the start; each
+    mapped tensor replaces its key, adapted by ``adapt_torch_tensor`` and
+    shape-checked against the model; the result goes through the bridge
+    (``load_jax_params``). A mapped key the model lacks raises ``KeyError``;
+    a ``ConvBnAct`` unit mapped in part raises ``ValueError``. Returns
+    ``module``.
+    """
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(state, "state_dict"):
+        state = state.state_dict()
+    if "model" in state and hasattr(state["model"], "state_dict"):
+        state = state["model"].state_dict()
+
+    flat_target = export_jax_params(module, prefix)
+    out = dict(flat_target)
+    mapped = set()
+    for tkey, tval in state.items():
+        fkey = key_map(tkey)
+        if fkey is None:
+            continue
+        if fkey not in flat_target:
+            raise KeyError(f"mapped key {fkey} (from {tkey}) not in model")
+        arr = tval.detach().to(torch.float32).numpy()
+        out[fkey] = adapt_torch_tensor(arr, flat_target[fkey].shape, tkey)
+        mapped.add(fkey)
+    _check_conv_bn_units(module, prefix, mapped)
+    load_jax_params(module, out, prefix)
+    logger.info("ported %d/%d tensors from torch checkpoint", len(mapped), len(flat_target))
+    return module
+
+
 def init_random(module: nn.Module, seed: int = 0) -> nn.Module:
     """Deterministic random parameters from ``torch.Generator(seed)``, in
     the JAX package's init distributions (not its values): convs
@@ -275,9 +537,10 @@ def load_params(
     module: nn.Module, seed: int, params: Optional[Flat], weights_path: Optional[str],
 ) -> nn.Module:
     """The parameter source of the engines: a JAX flat dict, else a JAX
-    ``.npz`` checkpoint, else seeded random values."""
+    ``.npz`` or ``.safetensors`` checkpoint (tensors the module lacks
+    dropped), else seeded random values."""
     if params is None and weights_path:
-        params = load_npz(weights_path)
+        params = checkpoint_for(module, load_checkpoint(weights_path))
     if params is None:
         return init_random(module, seed)
     return load_jax_params(module.float(), params)
@@ -297,7 +560,7 @@ def _build(factory, dtype, device, seed, params, weights_path) -> nn.Module:
         model = factory()
     materialize(model, device, dtype)
     if params is None and weights_path:
-        params = load_npz(weights_path)
+        params = checkpoint_for(model, load_checkpoint(weights_path))
     if params is None:
         synthetic_int8_init(model, seed)
     else:
@@ -310,7 +573,7 @@ def build_mme5(
     params: Optional[Flat] = None, weights_path: Optional[str] = None,
 ) -> MmE5Embedder:
     """The mmE5 model on ``device``, computing in ``dtype``, its parameters
-    from a JAX flat dict, else a JAX ``.npz`` checkpoint, else
+    from a JAX flat dict, else a JAX ``.npz``/``.safetensors`` checkpoint, else
     ``synthetic_int8_init(seed)`` drawn on ``device``."""
     return _build(lambda: MmE5Embedder(config, dtype), dtype, device, seed, params,
                   weights_path)
@@ -322,7 +585,7 @@ def build_qwen(
 ) -> QwenVLModel:
     """The Qwen2.5-VL model on ``device`` (the card unless asked for the
     CPU), computing in ``dtype``, its parameters from a JAX flat dict, else
-    a JAX ``.npz`` checkpoint, else ``synthetic_int8_init(seed)`` drawn on
+    a JAX ``.npz``/``.safetensors`` checkpoint, else ``synthetic_int8_init(seed)`` drawn on
     ``device`` (every float matrix N(0, 0.02), 1-D leaves 0.02, int8 and
     packed int4 storage uniform)."""
     return _build(lambda: QwenVLModel(config, dtype), dtype, resolve_device(device), seed,

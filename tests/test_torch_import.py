@@ -81,7 +81,8 @@ def test_module_list_covers_the_slice():
         "cli.detect", "cli.edge_filter", "cli.combine", "cli.medians", "cli.columns",
         "cli.pipeline", "analysis.html", "analysis.clustering", "analysis.reports",
         "analysis.cross_compare", "analysis.region_compare", "analysis.demo_queries",
-        "cli.workflow", "cli.demo", "ops.hough",
+        "cli.workflow", "cli.demo", "ops.hough", "models.hf_port", "analysis.activations",
+        "analysis.parity", "cli.parity", "utils.flops", "utils.trace_analysis",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 

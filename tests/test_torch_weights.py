@@ -344,3 +344,230 @@ def test_qwen_qkv_flatten_order():
     w = port.qkv_0.weight.detach().numpy()
     np.testing.assert_array_equal(w[:, (1 * 2 + 1) * 16 : (1 * 2 + 1) * 16 + 16], kernel[:, 1, 1])
     assert port.qkv_0.bias.shape == (3, 2, 16)
+
+
+# -- checkpoints: .safetensors and .npz, read and written as JAX does ---------
+
+from multimodal_embeddings_tpu.models import detector as jdetector  # noqa: E402
+from multimodal_embeddings_tpu.models import embedder as jembedder  # noqa: E402
+from multimodal_embeddings_tpu.models import weights as jweights  # noqa: E402
+from multimodal_embeddings_tpu_torch.models import weights as tweights  # noqa: E402
+
+
+def _det_flat(seed=3):
+    """A tiny detector's parameters in the JAX layout (the port's seeded init
+    with random BatchNorm, so the fold is not the identity)."""
+    cfg = DetectorConfig(image_size=64, variant="n")
+    flat = export_jax_params(LayoutDetector(cfg, dtype=torch.float32, device="cpu", seed=seed).model)
+    rng = np.random.default_rng(seed)
+    for key, val in flat.items():
+        if key.endswith(("bn/var", "bn/scale")):
+            flat[key] = rng.uniform(0.5, 1.5, val.shape).astype(np.float32)
+        elif key.endswith(("bn/mean", "bn/bias")):
+            flat[key] = rng.normal(scale=0.2, size=val.shape).astype(np.float32)
+    return flat
+
+
+def _pages(n=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(90, 70, 3), dtype=np.uint8) for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def det_safetensors(tmp_path_factory):
+    """A JAX-written ``.safetensors`` of a tiny detector (JAX's
+    ``save_checkpoint_safetensors``) and the JAX detector loaded from it."""
+    path = str(tmp_path_factory.mktemp("st") / "det.safetensors")
+    jweights.save_checkpoint_safetensors(unflatten_params(_det_flat()), path)
+    jdet = jdetector.LayoutDetector(
+        jdetector.DetectorConfig(image_size=64, variant="n", weights_path=path),
+        dtype=jnp.float32,
+    )
+    return path, jdet
+
+
+def test_safetensors_checkpoint_detector_equals_jax(det_safetensors):
+    """The repair: a JAX-written ``.safetensors`` loads into the port's
+    detector (``DetectorConfig.weights_path``) as into JAX's, with the same
+    detections (f32 on both: boxes within 1e-3 px, scores within 1e-5,
+    classes equal; head maps within 1e-4)."""
+    path, jdet = det_safetensors
+    det = LayoutDetector(DetectorConfig(image_size=64, variant="n", weights_path=path),
+                         dtype=torch.float32, device="cpu")
+    pages = _pages()
+    want, got = jdet.detect_batch(pages), det.detect_batch(pages)
+    assert len(got) == len(want) == 2
+    assert sum(len(c) for _, c, _ in want) > 0
+    for (gb, gc, gs), (wb, wc, ws) in zip(got, want):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_allclose(gb, wb, atol=1e-3)
+        np.testing.assert_allclose(gs, ws, atol=1e-5)
+    x = np.random.default_rng(1).uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    wmaps = jdet.model.apply(jdet.variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        gmaps = det.model(torch.from_numpy(x))
+    for g, w in zip(jax.tree.leaves(gmaps), jax.tree.leaves(wmaps)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+def test_safetensors_checkpoint_mme5_engine_equals_jax(tmp_path, monkeypatch):
+    """The repair for the mmE5 engine: one JAX-written ``.safetensors`` of
+    the tiny model, loaded by both engines, gives the same image
+    embeddings (f32, within 2e-5). The JAX engine is handed an unboxed init,
+    which its loader needs."""
+    cfg = tm.MllamaConfig.tiny()
+    port = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32"),
+                              model_config=cfg, device="cpu", seed=4)
+    path = str(tmp_path / "mme5.safetensors")
+    jweights.save_checkpoint_safetensors(unflatten_params(export_jax_params(port.model)), path)
+    init = jembedder.deterministic_init_multi
+    monkeypatch.setattr(jembedder, "deterministic_init_multi",
+                        lambda model, args, seed=0: unbox(init(model, args, seed)))
+    jcfg = jembedder.EmbedderConfig(family="mme5", dtype="float32", weights_path=path)
+    jemb = jembedder.MultimodalEmbedder(jcfg, model_config=jm.MllamaConfig.tiny())
+    temb = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32", weights_path=path),
+                              model_config=cfg, device="cpu")
+    images = [np.random.default_rng(s).integers(0, 256, (40, 30, 3), dtype=np.uint8)
+              for s in range(2)]
+    want, got = jemb.get_image_embeddings(images), temb.get_image_embeddings(images)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-5)
+
+
+def test_safetensors_checkpoint_parse_cli_equals_jax(tmp_path, monkeypatch):
+    """The repair for ``cli/parse.py --weights x.safetensors``: both CLIs on
+    one JAX-written file write byte-identical HTML and index. (The JAX CLI's
+    shape target comes from ``jax.eval_shape``, which its loader cannot
+    flatten; the test hands it a concrete init, as the ``.npz`` test does.)"""
+    import os
+
+    from PIL import Image
+
+    from multimodal_embeddings_tpu.cli import parse as jcli
+    from multimodal_embeddings_tpu_torch.cli import parse as tcli
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(jax, "eval_shape", lambda fn, *args: fn(*args))
+    model = build_qwen(tqwen.QwenVLConfig.tiny(), torch.float32, "cpu", seed=2)
+    flat = export_jax_params(model)
+    rng = np.random.default_rng(2)
+    for key, val in flat.items():  # decisive logits
+        scale = 0.5 if key.endswith(("/scale", "/bias")) else 0.1
+        flat[key] = (val + rng.normal(scale=scale, size=val.shape)).astype(np.float32)
+    jweights.save_checkpoint_safetensors(unflatten_params(flat), "tiny.safetensors")
+    os.makedirs("pages")
+    for i, (w, h) in enumerate([(120, 90), (90, 120)]):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(f"pages/d{i}.png")
+    base = ["--input_folder", "pages", "--size", "tiny", "--weights", "tiny.safetensors",
+            "--max_new_tokens", "8"]
+    assert jcli.main([*base, "--output_folder", "out_jax"]) == 0
+    assert tcli.main([*base, "--output_folder", "out_port", "--device", "cpu"]) == 0
+    names = sorted(os.listdir("out_jax"))
+    assert names == sorted(os.listdir("out_port")) and len(names) == 5
+    for name in names:
+        assert open(f"out_port/{name}", "rb").read() == open(f"out_jax/{name}", "rb").read()
+
+
+def _typed_tree():
+    rng = np.random.default_rng(5)
+    return {
+        "params": {
+            "a": {"kernel": rng.normal(size=(3, 4)).astype(np.float32),
+                  "bias": rng.normal(size=(4,)).astype(jnp.bfloat16)},
+            "q": {"kernel_q": rng.integers(-127, 128, (4, 6), dtype=np.int8),
+                  "kernel_q4": rng.integers(0, 256, (2, 6), dtype=np.uint8),
+                  "kernel_scale": rng.uniform(size=(1, 6)).astype(np.float16)},
+            "n": {"ids": np.arange(5, dtype=np.int32), "big": np.arange(3, dtype=np.int64),
+                  "d": rng.normal(size=(2, 2)), "flag": np.array([True, False]),
+                  "scalar": np.float32(0.5)},
+        }
+    }
+
+
+def test_safetensors_reader_equals_the_library(tmp_path):
+    """The port's own reader gives what ``safetensors.numpy.load_file``
+    gives on a JAX-written file, for every dtype in it (bf16 widened to f32
+    exactly); a dtype it does not take raises."""
+    from safetensors.numpy import load_file
+
+    path = str(tmp_path / "t.safetensors")
+    jweights.save_checkpoint_safetensors(_typed_tree(), path)
+    want, got = load_file(path), tweights.load_safetensors(path)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        w = want[key]
+        if w.dtype == jnp.bfloat16:
+            assert got[key].dtype == np.float32
+            w = w.astype(np.float32)
+        else:
+            assert got[key].dtype == w.dtype, key
+        assert got[key].shape == w.shape
+        np.testing.assert_array_equal(got[key], w)
+    header = b'{"x":{"dtype":"F8_E4M3","shape":[1],"data_offsets":[0,1]}}'
+    bad = tmp_path / "bad.safetensors"
+    bad.write_bytes(len(header).to_bytes(8, "little") + header + b"\0")
+    with pytest.raises(ValueError, match="F8_E4M3"):
+        tweights.load_safetensors(str(bad))
+
+
+@pytest.mark.parametrize("fmt", ["npz", "safetensors"])
+def test_port_writer_is_read_by_jax(tmp_path, fmt):
+    """``save_checkpoint`` / ``save_checkpoint_safetensors`` of a port module
+    are read by JAX's ``load_checkpoint`` (shape-validated against the JAX
+    tree) and by the port's, as ``export_jax_params`` gives them."""
+    det = LayoutDetector(DetectorConfig(image_size=64, variant="n"), dtype=torch.float32,
+                         device="cpu", seed=6)
+    flat = export_jax_params(det.model)
+    path = str(tmp_path / f"det.{fmt}")
+    save = tweights.save_checkpoint if fmt == "npz" else tweights.save_checkpoint_safetensors
+    save(det.model, path)
+    target = unflatten_params({k: np.zeros_like(v) for k, v in flat.items()})
+    loaded = flatten_params(jweights.load_checkpoint(path, target))
+    port = tweights.load_checkpoint(path)
+    assert sorted(loaded) == sorted(port) == sorted(flat)
+    for key, val in flat.items():
+        np.testing.assert_array_equal(np.asarray(loaded[key]), val)
+        np.testing.assert_array_equal(port[key], val)
+
+
+def test_missing_tensor_raises_extra_tensor_warns(tmp_path, monkeypatch):
+    """JAX's rules: a tensor the model needs and the file lacks raises; a
+    tensor the model lacks is logged as unused and dropped before the
+    (strict) bridge."""
+    flat = _det_flat(seed=7)
+    missing = dict(flat)
+    del missing["params/backbone/stem/conv/kernel"]
+    tweights.save_safetensors(missing, str(tmp_path / "missing.safetensors"))
+    with pytest.raises(KeyError, match="backbone/stem/conv/kernel"):
+        LayoutDetector(DetectorConfig(image_size=64, variant="n",
+                                      weights_path=str(tmp_path / "missing.safetensors")),
+                       dtype=torch.float32, device="cpu")
+    warnings = []
+    monkeypatch.setattr(tweights.logger, "warning", lambda *a: warnings.append(a))
+    extra = dict(flat, **{"params/not_in_model/kernel": np.ones(3, np.float32)})
+    np.savez(tmp_path / "extra.npz", **extra)
+    det = LayoutDetector(DetectorConfig(image_size=64, variant="n",
+                                        weights_path=str(tmp_path / "extra.npz")),
+                         dtype=torch.float32, device="cpu")
+    assert len(warnings) == 1 and warnings[0][1] == 1
+    ref = LayoutDetector(DetectorConfig(image_size=64, variant="n"), dtype=torch.float32,
+                         device="cpu", params=flat)
+    for a, b in zip(det.model.parameters(), ref.model.parameters()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unused"):  # the bridge itself stays strict
+        load_jax_params(ref.model, extra)
+
+
+@pytest.mark.parametrize("quantize", [False, "int8-mixed", "int4"])
+def test_jax_param_keys_is_the_export_key_set(quantize):
+    """``jax_param_keys`` lists the bridge's keys without touching a value:
+    the export's key set, plus a float ``kernel`` at each quantized site."""
+    det = LayoutDetector(DetectorConfig(image_size=64, variant="n"), dtype=torch.float32,
+                         device="cpu")
+    assert tweights.jax_param_keys(det.model) == set(export_jax_params(det.model))
+    model = build_mme5(dataclasses.replace(tm.MllamaConfig.tiny(), quantize=quantize),
+                       torch.float32, "cpu")
+    keys, exported = tweights.jax_param_keys(model), set(export_jax_params(model))
+    extra = keys - exported
+    assert exported <= keys
+    assert all(k.endswith("/kernel") for k in extra)
+    assert bool(extra) == bool(quantize)
