@@ -323,6 +323,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     bf16 against CPU f32, the tower at ``PARITY_ATOL`` and the text stack
     at ``PARITY_TEXT_ATOL``, worst layers printed.
 
+20. training and the parallelism core: (a) K1's gradient: its two wrapped
+    forms (``encoder_attention_blf``, ``encoder_attention(bhld_inputs=True)``)
+    at ViT-B ``(32, 784, 768)``, H = 12, in f32 and bf16, the
+    ``KernelAttention`` backward's dQ/dK/dV against autograd of the plain
+    version (f32 within ``TRAIN_F32_GRAD_RTOL`` of the largest |g|; bf16 no
+    farther from the f32 gradient than ``TRAIN_BF16_GRAD_FACTOR`` times the
+    plain bf16 autograd's), forward, backward and plain ms, SDPA forward +
+    backward as context; every wrapper without a backward called under grad
+    with an input that requires one: each raises, naming itself, and launches
+    nothing; (b) ``ContrastiveTrainer`` at ``DualEncoderConfig.base()``
+    (ViT-B/16 at 448, the 6×512 text tower, vocab 32,000), f32 with TF32
+    off, a global batch of 32 seeded pairs, mesh (1, 1) over a one-rank NCCL
+    group: every gradient leaf finite and non-zero, K1 BLF exactly 12
+    launches a step, mesh (1, 1) EQUAL to ``mesh=None``, the card's step-1
+    gradient against the CPU trainer's on the same weights (per leaf within
+    ``TRAIN_CARD_CPU_RTOL`` of its largest |g|), 5 steps on the batch with
+    the loss falling, step ms and peak memory; (c) ``pp_greedy_generate(
+    n_stages=1)`` at the Qwen2.5-VL-32B int4 widths with 4 of 64 decoder
+    layers (reduced depth), 2 rows of a 2048-token prompt and 8 new tokens: tokens
+    EQUAL to ``greedy_generate`` on the same model, K3 261 and K4 4
+    launches.
+
 Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
@@ -370,6 +392,11 @@ the last line.
 
 runs phase 1, K1's and K2's builds and phase 19 only, then prints the card
 line and the last line.
+
+    python3 chip_smoke.py --train
+
+runs phase 1, K1's, K3's and K4's builds and phase 20 only, then prints
+the card line and the last line.
 
     python3 chip_smoke.py --k6
 
@@ -4865,6 +4892,339 @@ def _swap(module, name: str, value):
     setattr(module, name, old)
 
 
+# phase 20: K1's gradient. f32: the kernel route's dQ/dK/dV against autograd
+# of the plain version on the card, within TRAIN_F32_GRAD_RTOL of the
+# tensor's largest |g| (the same f32 function summed in other orders; CPU
+# reading at (2, 784, 768) 5e-7). bf16: both routes against the f32
+# gradient of the plain version on the same bf16 inputs, the kernel route's
+# largest and mean error within TRAIN_BF16_GRAD_FACTOR times the plain bf16
+# autograd's (which rounds e and its gradient to bf16; the kernel route
+# rounds only the output; CPU readings 2.5-3.0e-3 of the largest |g| for the
+# backward's route, 3.1-3.4e-3 for plain autograd)
+TRAIN_F32_GRAD_RTOL = 1e-5
+TRAIN_BF16_GRAD_FACTOR = 2.0
+# phase 20: the trainer at DualEncoderConfig.base(): a global batch of 32
+# seeded pairs, and the card's step-1 gradient against the CPU's (f32, TF32
+# off; both plain-code sums in other orders through 12 + 6 blocks): each
+# leaf within TRAIN_CARD_CPU_RTOL of the leaf's largest |g|
+TRAIN_BATCH = 32
+TRAIN_STEPS = 5
+TRAIN_CARD_CPU_RTOL = 1e-3
+# phase 20: pp_greedy_generate at the 32B int4 widths, the decoder cut to 4
+# of 64 layers (the vision tower built, unused by a text prompt), 2 rows of a
+# 2048-token text prompt (the causal prefill at L >= 2048 takes K4), 8 new
+# tokens
+PP_LAYERS = 4
+PP_PROMPT = 2048
+PP_NEW = 8
+
+
+def k1_gradient_checks(k1) -> dict:
+    """Phase 20a: K1's two wrapped forms with their gradient at ViT-B
+    (32, 784, 768), H = 12, in f32 and bf16, against autograd of the plain
+    version on the card; forward, backward, plain and SDPA times."""
+    import torch
+    import torch.nn.functional as F
+
+    phase("20a. K1's gradient (KernelAttention) at ViT-B (32, 784, 768) H=12, "
+          "both wrapped forms")
+    b, l, heads, d = TRAIN_BATCH, 784, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, l, heads * d, device="cuda", generator=gen).to(dtype)
+                       for _ in range(4))
+        for form in ("blf", "bhld"):
+            def route(q, k, v, form=form):
+                if form == "blf":
+                    return k1.encoder_attention_blf(q, k, v, heads)
+                views = (t.view(b, l, heads, d).permute(0, 2, 1, 3) for t in (q, k, v))
+                return k1.encoder_attention(*views, bhld_inputs=True).permute(0, 2, 1, 3) \
+                    .reshape(b, l, heads * d)
+
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = route(*leaves)
+            check(out.grad_fn is not None, f"K1 {form}: the kernel's output has no grad_fn")
+            got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            plain_out = k1.encoder_attention_blf_reference(*plain_leaves, heads)
+            want = torch.autograd.grad(plain_out, plain_leaves, do, retain_graph=True)
+            name = f"{form} {str(dtype).split('.')[-1]}"
+            res = {}
+            if dtype == torch.float32:
+                worst = max(((g - w).abs().max() / w.abs().max()).item()
+                            for g, w in zip(got, want))
+                check(worst <= TRAIN_F32_GRAD_RTOL,
+                      f"K1 gradient {name}: {worst:.3g} of the largest |g| > "
+                      f"{TRAIN_F32_GRAD_RTOL}")
+                res["max_rel_err"] = worst
+                note = f"max |dX - plain| / max |plain| {worst:.3g} (gate {TRAIN_F32_GRAD_RTOL})"
+            else:
+                f32_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+                truth = torch.autograd.grad(
+                    k1.encoder_attention_blf_reference(*f32_leaves, heads), f32_leaves,
+                    do.float())
+                del f32_leaves
+                ratios = []
+                for g, w, t in zip(got, want, truth):
+                    scale = t.abs().max()
+                    e_got = ((g.float() - t).abs().max() / scale).item()
+                    e_plain = ((w.float() - t).abs().max() / scale).item()
+                    m_got = ((g.float() - t).abs().mean() / t.abs().mean()).item()
+                    m_plain = ((w.float() - t).abs().mean() / t.abs().mean()).item()
+                    ratios.append((e_got, e_plain, m_got, m_plain))
+                    check(e_got <= TRAIN_BF16_GRAD_FACTOR * e_plain
+                          and m_got <= TRAIN_BF16_GRAD_FACTOR * m_plain,
+                          f"K1 gradient {name}: max {e_got:.3g} / mean {m_got:.3g} from the f32 "
+                          f"gradient, plain bf16 autograd {e_plain:.3g} / {m_plain:.3g}")
+                res["max_rel_err"] = max(r[0] for r in ratios)
+                res["plain_bf16_max_rel_err"] = max(r[1] for r in ratios)
+                note = ("from the f32 gradient, max/mean per dQ,dK,dV: " + "; ".join(
+                    f"{a:.3g}/{c:.3g} (plain bf16 {p:.3g}/{m:.3g})" for a, p, c, m in ratios))
+                del truth
+            with torch.no_grad():
+                fwd = median_ms(lambda: route(q, k, v))
+            bwd = median_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+            plain = median_ms(lambda: torch.autograd.grad(
+                k1.encoder_attention_blf_reference(*plain_leaves, heads), plain_leaves, do))
+            sdpa_leaves = [t.view(b, l, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                           for t in (q, k, v)]
+            sdpa_do = do.view(b, l, heads, d).transpose(1, 2)
+            sdpa = median_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*sdpa_leaves), sdpa_leaves, sdpa_do))
+            res.update(forward_ms=fwd, backward_ms=bwd, plain_fwd_bwd_ms=plain,
+                       sdpa_fwd_bwd_ms_context=sdpa)
+            print(f"K1 {name}: {note}; forward {fwd:.3f} ms, backward {bwd:.3f} ms, plain "
+                  f"fwd+bwd {plain:.3f} ms, SDPA fwd+bwd {sdpa:.3f} ms (context)")
+            results[name] = res
+            del leaves, plain_leaves, out, plain_out, got, want, sdpa_leaves
+            gc_cuda()
+    return results
+
+
+def guarded_wrappers_raise(k1, k2, k3, k4, k5, k6, k7, counters) -> None:
+    """Phase 20a: every kernel wrapper without a backward, called on the card
+    with an input that requires a gradient in grad mode, raises naming itself
+    and launches nothing."""
+    import torch
+
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+
+    def g(*shape, **kw):
+        return torch.randn(*shape, **(kw or bf16)).requires_grad_()
+
+    qkv4 = [g(1, 64, 2, 32) for _ in range(3)]
+    cl = dict(memory_format=torch.channels_last)
+    calls = {
+        "encoder_attention_blf_packed": lambda: k1.encoder_attention_blf_packed(
+            g(1, 64, 2 * 48), 2, 16, 16),
+        "encoder_attention": lambda: k1.encoder_attention(*qkv4, valid_len=60),
+        "encoder_attention (bhld)": lambda: k1.encoder_attention(
+            *(t.transpose(1, 2) for t in qkv4), valid_len=60, bhld_inputs=True),
+        "encoder_attention_blhd": lambda: k1.encoder_attention_blhd(*qkv4),
+        "int8_matmul": lambda: k2.int8_matmul(
+            g(8, 64), torch.ones(64, 32, device="cuda", dtype=torch.int8),
+            torch.ones(32, device="cuda")),
+        "stochastic_round_quantize": lambda: k2._sr_quantize_2d(
+            g(16, 32, device="cuda", dtype=torch.float32), torch.ones(1, 32, device="cuda"),
+            torch.rand(16, 32, device="cuda")),
+        "int4_matmul": lambda: k3.int4_matmul(
+            g(8, 128), torch.zeros(64, 32, device="cuda", dtype=torch.uint8),
+            torch.ones(1, 32, device="cuda")),
+        "flash_attention": lambda: k4.flash_attention(*(g(1, 128, 2, 64) for _ in range(3))),
+        "flash_attention_v2": lambda: k4.flash_attention_v2(
+            *(g(1, 128, 2, 64) for _ in range(3))),
+        "conv3x3_nchw": lambda: k5.conv3x3_nchw(
+            torch.randn(1, 16, 8, 8, **bf16).to(**cl).requires_grad_(), g(32, 16, 3, 3)),
+        "conv3x3_s2_nchw": lambda: k5.conv3x3_s2_nchw(
+            torch.randn(1, 16, 8, 8, **bf16).to(**cl).requires_grad_(), g(32, 16, 3, 3)),
+        "ln_matmul": lambda: k6.ln_matmul(g(16, 64), torch.ones(64, device="cuda"),
+                                          torch.zeros(64, device="cuda"), g(64, 32)),
+        "ln_stats": lambda: k7.ln_stats(g(1, 8, 64)),
+    }
+    zero(counters)
+    for name, call in calls.items():
+        wrapper = name.split(" ")[0]
+        raised = None
+        try:
+            call()
+        except RuntimeError as err:
+            raised = str(err)
+        check(raised is not None and raised.startswith(wrapper)
+              and "no backward" in raised, f"{name} under grad: {raised!r}")
+    check(counts(counters) == only(counters, {}), f"launches {counts(counters)}")
+    print(f"the {len(calls)} wrappers without a backward each raised under grad, naming "
+          "itself, and launched nothing")
+
+
+def trainer_phase(counters) -> dict:
+    """Phase 20b: ``ContrastiveTrainer`` at ``DualEncoderConfig.base()`` on
+    the card, f32 (TF32 off), a global batch of 32 seeded pairs, mesh (1, 1)
+    over a one-rank NCCL group."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.config import MeshConfig
+    from multimodal_embeddings_tpu_torch.core.mesh import ProcessGroup, make_mesh
+    from multimodal_embeddings_tpu_torch.models.tokenizer import ByteTokenizer
+    from multimodal_embeddings_tpu_torch.models.vision_encoder import DualEncoderConfig
+    from multimodal_embeddings_tpu_torch.training.contrastive import (
+        ContrastiveTrainer,
+        TrainerConfig,
+    )
+
+    phase("20b. ContrastiveTrainer at DualEncoderConfig.base() (ViT-B/16 at 448, text 6x512), "
+          f"f32, global batch {TRAIN_BATCH}, mesh (1, 1) on a one-rank NCCL group")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    config = DualEncoderConfig.base()
+    tconfig = TrainerConfig(warmup_steps=1, total_steps=100)
+    rng = np.random.default_rng(20)
+    size = config.vision.image_size
+    images = rng.uniform(0, 1, (TRAIN_BATCH, size, size, 3)).astype(np.float32)
+    ids, mask = ByteTokenizer().encode_batch(
+        [f"page {i}: region text of the archive" * (1 + i % 3) for i in range(TRAIN_BATCH)],
+        config.text.max_len)
+    batch = (images, ids, mask)
+    t0 = time.perf_counter()
+    cpu = ContrastiveTrainer(config, tconfig, seed=0, device="cpu")
+    params = cpu.jax_params()  # the same weights on the card, through the bridge
+    print(f"{cpu.num_params():,} parameters in {len(params)} leaves; CPU init "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    # deterministic kernels (the embedding's and the patch conv's gradients
+    # accumulate by atomics otherwise), so that two trainers compare bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with tempfile.TemporaryDirectory() as tmp, \
+            ProcessGroup(0, 1, "cuda", store_path=os.path.join(tmp, "store")):
+        mesh = make_mesh(MeshConfig(shape=(1, 1)))
+        trainer = ContrastiveTrainer(config, tconfig, mesh=mesh, device="cuda", params=params)
+        zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, grads = trainer.value_and_grad(*batch)
+        first_s = time.perf_counter() - t0
+        launches = counts(counters)
+        want = only(counters, {"encoder_attention_blf": config.vision.layers})
+        check(launches == want, f"trainer step launches {launches} != {want}")
+        bad = [k for k, g in grads.items() if not np.isfinite(g).all() or not np.abs(g).max() > 0]
+        check(not bad, f"{len(bad)} gradient leaves zero or not finite, e.g. {bad[:5]}")
+        print(f"step-1 gradient: loss {metrics['loss']:.6f}, all {len(grads)} leaves finite "
+              f"and non-zero (q/k/v of all 12 ViT blocks included), K1 BLF "
+              f"{launches['encoder_attention_blf']} launches, no other kernel "
+              f"({first_s:.1f} s, the first step)")
+        plain = ContrastiveTrainer(config, tconfig, mesh=None, device="cuda", params=params)
+        p_metrics, p_grads = plain.value_and_grad(*batch)
+        check(p_metrics == metrics and all(np.array_equal(p_grads[k], g)
+                                           for k, g in grads.items()),
+              "mesh (1, 1) and mesh=None differ")
+        print("mesh (1, 1) against mesh=None: metrics and every gradient leaf EQUAL")
+        del plain, p_grads
+        gc_cuda()
+        t0 = time.perf_counter()
+        c_metrics, c_grads = cpu.value_and_grad(*batch)
+        cpu_s = time.perf_counter() - t0
+        worst, worst_key = 0.0, None
+        for key, ref in c_grads.items():
+            err = float(np.abs(grads[key] - ref).max() / np.abs(ref).max())
+            if err > worst:
+                worst, worst_key = err, key
+        check(worst <= TRAIN_CARD_CPU_RTOL,
+              f"card vs CPU gradient: {worst_key} {worst:.3g} of its largest |g|")
+        print(f"card vs CPU (plain attention, f32, {cpu_s:.1f} s on the CPU): loss "
+              f"{metrics['loss']:.7f} / {c_metrics['loss']:.7f}; worst leaf {worst_key} at "
+              f"{worst:.3g} of its largest |g| (gate {TRAIN_CARD_CPU_RTOL})")
+        del cpu, c_grads
+        losses, step_ms = [], []
+        zero(counters)
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(*batch)["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = counts(counters)
+        want = only(counters, {"encoder_attention_blf": config.vision.layers * TRAIN_STEPS})
+        check(launches == want, f"{TRAIN_STEPS} steps' launches {launches} != {want}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"the loss did not fall on a repeated batch: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{TRAIN_STEPS} steps on one batch: losses {', '.join(f'{x:.6f}' for x in losses)} "
+              f"(update 0 has learning rate 0); step ms {', '.join(f'{x:.1f}' for x in step_ms)}"
+              f" (median {statistics.median(step_ms):.1f}); peak {peak:.2f} GiB; K1 BLF "
+              f"{launches['encoder_attention_blf']} launches ({config.vision.layers} a step)")
+        out = {"launches": counts(counters), "losses": losses, "step_ms": step_ms,
+               "peak_gib": peak, "card_cpu_rel_err": worst}
+        del trainer
+    torch.use_deterministic_algorithms(False)
+    gc_cuda()
+    return out
+
+
+def pp_phase(counters) -> dict:
+    """Phase 20c: ``pp_greedy_generate(n_stages=1)`` on the card at the
+    Qwen2.5-VL-32B int4 widths, the decoder cut to PP_LAYERS layers, a
+    PP_PROMPT-token text prompt, PP_NEW new tokens: tokens EQUAL to
+    ``greedy_generate`` on the same model, K3 and K4 launches exact."""
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.qwen_pp import pp_greedy_generate
+    from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig, greedy_generate
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen
+    from multimodal_embeddings_tpu_torch.parallel.pipeline import make_pp_mesh
+
+    phase(f"20c. pp_greedy_generate(n_stages=1) at the Qwen2.5-VL-32B int4 widths, "
+          f"{PP_LAYERS} of 64 decoder layers, 2 rows of a {PP_PROMPT}-token prompt, {PP_NEW} new tokens")
+    full = QwenVLConfig.qwen25_vl_32b_int4()
+    config = dataclasses.replace(full, text=dataclasses.replace(full.text, layers=PP_LAYERS))
+    model = build_qwen(config, torch.bfloat16, "cuda", seed=0)
+    # the seeded 1-D leaves (0.02) make the model emit one token over and
+    # over (PR 23's first call); norm scales 1 and biases 0, as phase 12b
+    # sets them, give tokens that vary
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0 if name.endswith("scale") else 0.0)
+    prompt = np.random.default_rng(21).integers(6, 4096, (2, PP_PROMPT))
+    want = greedy_generate(model, prompt, max_new_tokens=PP_NEW)
+    torch.cuda.synchronize()
+    zero(counters)
+    t0 = time.perf_counter()
+    got = pp_greedy_generate(config, model, prompt, mesh=make_pp_mesh(1), n_stages=1,
+                             max_new_tokens=PP_NEW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(counters)
+    per_pass = 7 * PP_LAYERS + 1
+    expect = only(counters, {"int4_matmul": per_pass * (1 + PP_NEW),
+                             "flash_attention": PP_LAYERS})
+    check(launches == expect, f"pp launches {launches} != {expect}")
+    check(np.array_equal(got, want), f"pp tokens {got} != greedy {want}")
+    check(len(np.unique(got)) > 2, f"the tokens hardly vary: {got}")
+    print(f"tokens EQUAL to greedy_generate: {got.tolist()}; K3 {launches['int4_matmul']} "
+          f"({per_pass} per pass x {1 + PP_NEW} passes), K4 {launches['flash_attention']} "
+          f"(the prefill's causal attention at L = {PP_PROMPT}); {seconds:.2f} s")
+    del model
+    gc_cuda()
+    return launches
+
+
+def train_phase(k1, k2, k3, k4, k5, k6, k7, counters, smi: str) -> dict:
+    """Phase 20: K1's gradient, the guard, the trainer at full width, PP
+    generation; returns its numbers and launches. ``smi``: the card's name
+    and power limit, printed beside the phase's numbers."""
+    start = time.perf_counter()
+    grads = k1_gradient_checks(k1)
+    guarded_wrappers_raise(k1, k2, k3, k4, k5, k6, k7, counters)
+    trainer = trainer_phase(counters)
+    pp = pp_phase(counters)
+    print(f"phase 20: {time.perf_counter() - start:.1f} s; every number of it on {smi}")
+    return {"k1_grad": grads, "trainer": trainer, "pp": pp}
+
+
 def gc_cuda() -> None:
     import gc
 
@@ -4962,6 +5322,18 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
+    if sys.argv[1:] == ["--train"]:
+        build(("K1", k1), ("K3", k3), ("K4", k4))
+        train_phase(k1, k2, k3, k4, k5, k6, k7, kernel_counters(k1, k2, k3, k4, k5, k6, k7),
+                    smi)
+        print(f"phase 20 alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
@@ -5027,6 +5399,8 @@ def main() -> int:
     workflow_launches = workflow_run(counters)
     gc_cuda()
     parity_launches = parity_phase(counters)
+    gc_cuda()
+    train = train_phase(k1, k2, k3, k4, k5, k6, k7, counters, smi)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -5050,7 +5424,9 @@ def main() -> int:
              "serve_mme5_2_pages": serve_launches_by_run["mme5"],
              "stage_chain_4_pages": stage_launches,
              "workflow_6_pages": workflow_launches,
-             **parity_launches}
+             **parity_launches,
+             f"trainer_{TRAIN_STEPS}_steps": train["trainer"]["launches"],
+             "pp_greedy_generate": train["pp"]}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a
@@ -5152,6 +5528,14 @@ def main() -> int:
     by_name["flash_attention_v2"]["flash_attention_v1_ms_context"] = v2_head["v1_ms"]
     for name, res in (("encoder_attention_blf", vit), ("encoder_attention", masked[torch.bfloat16])):
         by_name[name]["flash_attention_v1_ms_context"] = res["flash_attention_v1_ms_context"]
+    # phase 20: the gradient of K1's two wrapped forms at ViT-B (32,784,768),
+    # its backward plain tensor code; the trainer's launches per step
+    by_name["encoder_attention_blf"]["gradient"] = {
+        k: v for k, v in train["k1_grad"].items() if k.startswith("blf")}
+    by_name["encoder_attention (bhld)"]["gradient"] = {
+        k: v for k, v in train["k1_grad"].items() if k.startswith("bhld")}
+    by_name["encoder_attention_blf"]["trainer_launches_per_step"] = (
+        train["trainer"]["launches"]["encoder_attention_blf"] // TRAIN_STEPS)
     by_name["ln_stats"]["shapes"] = {
         s: {key: route["k7"][s][key] for key in (
             "ms", "warm_ms", "median_ms", "library_ms", "library_warm_ms",

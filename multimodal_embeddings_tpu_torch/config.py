@@ -18,7 +18,8 @@ is no faster than the one stem the port keeps (``nn.Conv2d``; timed by
 (``OrientationConfig``, ``EdgeFilterConfig``, ``CombineConfig``,
 ``MedianWidthConfig``, ``ColumnConfig``) and the store's and the
 analysis passes' settings (``StoreConfig``, ``AnalysisConfig``) are copied
-whole.
+whole, and so is ``MeshConfig``, the (data, model) layout of the ranks
+that ``core/mesh.py`` lays out over ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -191,3 +192,14 @@ class AnalysisConfig:
     pair_top_k: int = 10  # top-10 matches per pair (ref :207-212)
     pair_accept_threshold: float = 0.1  # distance <= 1 - 0.1 accepted (ref :151,223)
     prefix_skip_fraction: float = 0.2  # same-publication filename prefix skip
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) layout of the ranks (``core/mesh.py::make_mesh``):
+    the batch over ``data``, tensor parallelism over ``model``."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # (-1, 1) → all ranks on the data axis; set model>1 for tensor parallelism
+    shape: Tuple[int, int] = (-1, 1)

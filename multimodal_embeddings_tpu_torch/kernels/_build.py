@@ -7,6 +7,10 @@ the native host code of ``utils/native.py`` with ``g++``). The hash covers
 the sources and the flags, so an edited source rebuilds and an unchanged one
 is reused. The build directory is listed in ``.gitignore``;
 ``MMTPU_TORCH_BUILD_DIR`` moves it.
+
+``refuse_grad`` is the guard of every kernel wrapper without a backward:
+on the card such a kernel's output has no ``grad_fn``, so a gradient that
+would have to pass through it is refused instead of dropped.
 """
 
 from __future__ import annotations
@@ -106,3 +110,18 @@ def load(name: str):
             info = build(name)
             _loaded[name] = (ctypes.CDLL(str(info.path)), info)
         return _loaded[name]
+
+
+def refuse_grad(wrapper: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``wrapper``'s kernel,
+    which has none: grad mode is on and an input (None is skipped) requires
+    a gradient. Called on the CUDA branch only: on the CPU the plain version
+    carries the gradient. Under ``torch.no_grad()`` or
+    ``torch.inference_mode()`` it passes."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{wrapper}: its CUDA kernel has no backward and an input requires a gradient; "
+            "run it under torch.no_grad() or torch.inference_mode(), or on CPU tensors"
+        )

@@ -359,6 +359,7 @@ def conv3x3_nchw(
         raise ValueError(f"dilation {dilation}")
     if x.device.type == "cpu":
         return conv3x3_reference(x, w, bias, act, dilation)
+    _build.refuse_grad("conv3x3_nchw", x, w, bias)
     out = _launch(x, w.to(x.dtype), bias, act, 1, dilation, dilation, x.shape[2:])
     conv3x3_nchw.launches += 1
     return out
@@ -383,6 +384,7 @@ def conv3x3_s2_nchw(
         raise ValueError(f"the stride-2 conv takes even H and W, got {h}x{width}")
     if x.device.type == "cpu":
         return conv3x3_s2_reference(x, w, bias, act)
+    _build.refuse_grad("conv3x3_s2_nchw", x, w, bias)
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32)
     out = _launch(x, w.to(x.dtype), bias, act, 2, 0, 1, (h // 2, width // 2))

@@ -50,6 +50,17 @@ Dispatch: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``; ``encoder_attention`` counts its (B, L, H, D) form
 there and its BHLD form in ``encoder_attention.bhld.launches``.
+
+Gradients: the two forms the ViT's forward reaches, ``encoder_attention_blf``
+and ``encoder_attention(bhld_inputs=True)`` over all keys, run on the card
+through ``KernelAttention``, an ``autograd.Function`` whose forward is the
+kernel launch and whose backward is plain tensor code (``attention_backward``:
+the scores recomputed in f32 from the saved q and k, no kernel launch). The
+JAX package has no backward to port: ``jax.grad`` cannot linearize its Pallas
+kernels, so its gradient, where it has one, is XLA's autodiff of the einsum
+path. Every other form raises on the card when grad mode is on and an input
+requires a gradient (``_build.refuse_grad``); on the CPU the plain version
+carries the gradient.
 """
 
 from __future__ import annotations
@@ -201,6 +212,30 @@ def encoder_attention_blhd_reference(q, k, v, sm_scale=None) -> torch.Tensor:
     return o.transpose(1, 2)
 
 
+def attention_backward(q, k, v, o, do, scale: float) -> tuple:
+    """The gradient of K1's contract over all keys, in plain tensor code:
+    (B, H, L, D) q, k, (B, H, L, Dv) v, the forward's output o and its
+    gradient do → (dq, dk, dv) in f32. The f32 scores are recomputed from q
+    and k; ``P = e / denom`` with the denominator of the unrounded ``e`` (the
+    cast of ``e`` to the input dtype is taken as the identity); ``dV = Pᵀ·dO``,
+    ``dP = dO·Vᵀ``, ``dS = P ⊙ (dP − rowsum(dO ⊙ O))``, ``dQ = dS·K·scale``,
+    ``dK = dSᵀ·Q·scale``. Batch items go in chunks of at most 2²⁷ scores."""
+    b, h, l, _ = q.shape
+    chunk = max(1, (1 << 27) // (h * l * k.shape[2]))
+    grads = []
+    for i in range(0, b, chunk):
+        qf, kf, vf, of, dof = (t[i : i + chunk].float() for t in (q, k, v, o, do))
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        dv = torch.matmul(p.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+        grads.append((torch.matmul(ds, kf) * scale,
+                      torch.matmul(ds.transpose(-1, -2), qf) * scale, dv))
+    return tuple(torch.cat(g) for g in zip(*grads))
+
+
 def encoder_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len=None,
     bhld_inputs: bool = False,
@@ -270,6 +305,42 @@ def _launch_blf(q, k, v, heads, d, dv, head_strides, scale) -> torch.Tensor:
     return _launch(q, k, v, out, (b, l, heads, d, dv), strides, scale, l)
 
 
+class KernelAttention(torch.autograd.Function):
+    """K1 over all keys with a gradient: the forward launches the kernel (a
+    CPU tensor takes the plain version, so the backward can be held against
+    autograd there), the backward is ``attention_backward`` and launches no
+    kernel. ``form`` is ``"blf"`` (q, k, v ``(B, L, H·D)``, ``heads`` heads)
+    or ``"bhld"`` (``(B, H, L, D)`` views). The wrappers count the launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, form: str, heads: int):
+        d = q.shape[2] // heads if form == "blf" else q.shape[3]
+        scale = 1.0 / math.sqrt(d)
+        if not q.is_cuda:
+            out = (encoder_attention_blf_reference(q, k, v, heads) if form == "blf"
+                   else encoder_attention_reference(q, k, v, bhld_inputs=True))
+        elif form == "blf":
+            dv = v.shape[2] // heads
+            out = _launch_blf(q, k, v, heads, d, dv, (d, d, dv), scale)
+        else:
+            out = _launch_4d(q, k, v, True, scale, q.shape[2])
+        ctx.form, ctx.heads, ctx.scale = form, heads, scale
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if ctx.form == "blf":
+            h = ctx.heads
+            dq, dk, dv = attention_backward(_heads(q, h), _heads(k, h), _heads(v, h),
+                                            _heads(o, h), _heads(do, h), ctx.scale)
+            dq, dk, dv = _merge(dq), _merge(dk), _merge(dv)
+        else:
+            dq, dk, dv = attention_backward(q, k, v, o, do, ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def encoder_attention_blf(
     q: torch.Tensor,  # (B, L, H·D)
     k: torch.Tensor,  # (B, L, H·D)
@@ -277,17 +348,17 @@ def encoder_attention_blf(
     heads: int,
 ) -> torch.Tensor:
     """Unmasked whole-row attention over head-major ``(B, L, H·D)`` slabs,
-    scale ``1/√D``. Returns ``(B, L, H·Dv)`` in q's dtype."""
+    scale ``1/√D``. Returns ``(B, L, H·Dv)`` in q's dtype; on the card it
+    carries a gradient (``KernelAttention``)."""
     b, l, f = q.shape
     if f % heads or v.shape[2] % heads or k.shape != q.shape:
         raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape} / {heads}")
     if v.shape[:2] != (b, l):
         raise ValueError(f"v {tuple(v.shape)} does not match q {tuple(q.shape)}")
-    d, dv = f // heads, v.shape[2] // heads
     if q.device.type == "cpu":
         return encoder_attention_blf_reference(q, k, v, heads)
     _check_cuda(q, k, v)
-    out = _launch_blf(q, k, v, heads, d, dv, (d, d, dv), 1.0 / math.sqrt(d))
+    out = KernelAttention.apply(q, k, v, "blf", heads)
     encoder_attention_blf.launches += 1
     return out
 
@@ -311,6 +382,7 @@ def encoder_attention_blf_packed(
     if qkv.device.type == "cpu":
         return encoder_attention_blf_packed_reference(qkv, heads, key_dim, head_dim)
     _check_cuda(qkv)
+    _build.refuse_grad("encoder_attention_blf_packed", qkv)
     q = qkv[..., :key_dim]
     k = qkv[..., key_dim : 2 * key_dim]
     v = qkv[..., 2 * key_dim :]
@@ -348,7 +420,9 @@ def encoder_attention(
 ) -> torch.Tensor:
     """Whole-row attention over the keys ``[0, valid_len)`` (all L when
     None), scale ``1/√D``; every row is a query. Returns ``(B, L, H, Dv)``
-    (``(B, H, L, Dv)`` with ``bhld_inputs``) in q's dtype."""
+    (``(B, H, L, Dv)`` with ``bhld_inputs``) in q's dtype. On the card the
+    BHLD form over all keys carries a gradient (``KernelAttention``); the
+    other forms raise under grad."""
     l = q.shape[2] if bhld_inputs else q.shape[1]
     if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape}")
@@ -358,7 +432,11 @@ def encoder_attention(
     if q.device.type == "cpu":
         return encoder_attention_reference(q, k, v, valid_len, bhld_inputs)
     _check_cuda(q, k, v)
-    out = _launch_4d(q, k, v, bhld_inputs, 1.0 / math.sqrt(q.shape[3]), n)
+    if bhld_inputs and n == l:
+        out = KernelAttention.apply(q, k, v, "bhld", q.shape[1])
+    else:
+        _build.refuse_grad("encoder_attention", q, k, v)
+        out = _launch_4d(q, k, v, bhld_inputs, 1.0 / math.sqrt(q.shape[3]), n)
     counter = encoder_attention.bhld if bhld_inputs else encoder_attention
     counter.launches += 1
     return out
@@ -411,6 +489,7 @@ def encoder_attention_blhd(
     if q.device.type == "cpu":
         return encoder_attention_blhd_reference(q, k, v, scale)
     _check_cuda(q, k, v)
+    _build.refuse_grad("encoder_attention_blhd", q, k, v)
     out = _launch_4d(q, k, v, False, scale, l)
     encoder_attention_blhd.launches += 1
     return out

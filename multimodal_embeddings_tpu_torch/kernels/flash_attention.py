@@ -265,6 +265,8 @@ def _flash(launch: str, q, k, v, lengths, causal) -> tuple:
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention runs on cpu or one cuda device, not {q.device}")
     _kernel_checks(q, k, v)
+    _build.refuse_grad("flash_attention_v2" if launch == "flash_attn_v2_launch"
+                       else "flash_attention", q, k, v)
     lens = None
     if lengths is not None:
         lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()

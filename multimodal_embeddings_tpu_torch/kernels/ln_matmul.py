@@ -255,6 +255,7 @@ def ln_matmul(
         return ln_matmul_reference(x, gamma, beta, w, bias, eps)
     if not x.is_cuda:
         raise ValueError(f"ln_matmul runs on cpu or cuda, not {x.device}")
+    _build.refuse_grad("ln_matmul", x, gamma, beta, w, bias)
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(f"x {x.dtype} and w {w.dtype} must share a dtype (f32 or bf16)")
     if bias is not None and bias.dtype != x.dtype:

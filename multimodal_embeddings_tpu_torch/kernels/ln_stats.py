@@ -92,6 +92,7 @@ def ln_stats(x: torch.Tensor, eps: float = 1e-6):
         return ln_stats_reference(x, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_stats runs on cpu or cuda, not {x.device}")
+    _build.refuse_grad("ln_stats", x)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {x.dtype} (float32 or bfloat16)")
     if not x.is_contiguous():

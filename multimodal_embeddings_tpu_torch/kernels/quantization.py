@@ -362,6 +362,7 @@ def int8_matmul(
         if x.device.type == "cpu":
             return int8_matmul_reference(x, q, scale)
         raise ValueError(f"int8_matmul runs on cpu or one cuda device, not {x.device}")
+    _build.refuse_grad("int8_matmul", x, scale)
     index = x.get_device()
     if q.get_device() != index or scale.get_device() != index:
         raise ValueError(f"int8_matmul runs on one cuda device: x on {x.device}, "
@@ -436,6 +437,7 @@ def _sr_quantize_2d(
         return sr_quantize_reference(w, scale_row, u)
     if w.device.type != "cuda" or scale_row.device != w.device or u.device != w.device:
         raise ValueError(f"stochastic rounding runs on cpu or one cuda device, not {w.device}")
+    _build.refuse_grad("stochastic_round_quantize", w, scale_row, u)
     if w.dtype not in _DTYPE_CODES or scale_row.dtype != torch.float32 or u.dtype != torch.float32:
         raise ValueError(f"w must be float32 or bfloat16 ({w.dtype}), scale and u float32")
     w, scale_row, u = w.contiguous(), scale_row.contiguous(), u.contiguous()

@@ -340,6 +340,7 @@ def int4_matmul(
         return int4_matmul_reference(x, packed, scale)
     if x.device.type != "cuda" or packed.device != x.device or scale.device != x.device:
         raise ValueError(f"int4_matmul runs on cpu or one cuda device, not {x.device}")
+    _build.refuse_grad("int4_matmul", x, scale)
     if x.dtype not in _DTYPE_CODES or scale.dtype != torch.float32:
         raise ValueError("x must be float32 or bfloat16 and scale float32")
     xb, packed, scale = _kernel_operands(x, packed, scale)

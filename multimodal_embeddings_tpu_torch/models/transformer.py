@@ -103,6 +103,13 @@ class Dense(nn.Module):
         b = None if self.bias is None else self.bias.reshape(-1).to(w.dtype)
         return F.linear(x.to(w.dtype), w.t(), b)
 
+    def reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """``y``, a product with this layer's weight computed outside
+        ``forward``, as the product over the whole contraction: the identity
+        here; a row-parallel shard (``parallel/sharding.py``) sums it over
+        the model axis."""
+        return y
+
 
 def _dense(in_f, out_f, bias, kernel_shape, quantize, dtype, bias_shape=None):
     """A float ``Dense``, or for ``quantize`` True/``"int8"``/``"int4"`` its
@@ -389,7 +396,7 @@ class Attention(nn.Module):
         o = encoder_attention(
             *(t.view(b, l, h, d).permute(0, 2, 1, 3) for t in (q, k, v)), bhld_inputs=True
         )
-        return torch.einsum("bhld,hdc->blc", o, self.o.weight.view(h, d, -1))
+        return self.o.reduce(torch.einsum("bhld,hdc->blc", o, self.o.weight.view(h, d, -1)))
 
     def _fused_prologue(self, x, mask, causal, key_valid_len, pre_ln):
         b, l, width = x.shape

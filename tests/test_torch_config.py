@@ -21,6 +21,7 @@ LEFT_OUT = {
     "ColumnConfig": set(),
     "StoreConfig": set(),
     "AnalysisConfig": set(),
+    "MeshConfig": set(),
 }
 
 

@@ -361,3 +361,133 @@ def test_plan_shared_memory_and_lengths():
     assert k1._plan(torch.float32, 4096, 128, 128, ops).smem > k1._MAX_SMEM
     assert k1._plan(torch.float32, 1608, 64, 64, ops).smem < k1._plan(
         torch.float32, 4096, 64, 64, ops).smem
+
+
+# ---------------------------------------------------------------------------
+# K1's gradient (KernelAttention) and the guard of the kernels without one
+# ---------------------------------------------------------------------------
+
+# f32 gradients of the same function by two orders of summation (L <= 64
+# keys of O(1) terms): 2e-5 absolute
+GRAD_ATOL = 2e-5
+
+
+def _jax_attention_grads(q, k, v, do, heads=None):
+    """``jax.grad`` of JAX's XLA attention path (``transformer.sdpa`` off
+    the TPU) on (B, L, H, D) operands, or (B, L, H·D) slabs with ``heads``."""
+    import jax
+
+    def f(q, k, v):
+        if heads is None:
+            return jnp.sum(jtr.sdpa(q, k, v) * do)
+        b, l, _ = q.shape
+        split = [x.reshape(b, l, heads, -1) for x in (q, k, v)]
+        return jnp.sum(jtr.sdpa(*split).reshape(b, l, -1) * do)
+
+    return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("b,l,heads,d,dv", [(2, 16, 2, 32, 32), (1, 40, 3, 16, 24)])
+def test_kernel_attention_blf_gradient_equals_jax(b, l, heads, d, dv):
+    """``KernelAttention`` in its BLF form (the forward the plain version on
+    the CPU) against ``jax.grad`` of JAX's XLA path and against autograd of
+    the port's plain version; dv != d covered."""
+    rng = np.random.default_rng(l)
+    q, k = (rng.normal(size=(b, l, heads * d)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(b, l, heads * dv)).astype(np.float32)
+    do = rng.normal(size=(b, l, heads * dv)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = k1.KernelAttention.apply(tq, tk, tv, "blf", heads)
+    out.backward(torch.from_numpy(do))
+    want = _jax_attention_grads(q, k, v, do, heads)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=GRAD_ATOL)
+    pq, pk, pv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    k1.encoder_attention_blf(pq, pk, pv, heads).backward(torch.from_numpy(do))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), (pq.grad, pk.grad, pv.grad)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=GRAD_ATOL)
+
+
+def test_kernel_attention_bhld_gradient_equals_jax():
+    """The BHLD form on permuted (B, H, L, D) views (the proj-BHLD route)
+    against ``jax.grad`` of JAX's XLA path; the gradients come back in the
+    views' shapes."""
+    rng = np.random.default_rng(3)
+    b, l, h, d = 2, 24, 2, 16
+    q, k, v, do = (rng.normal(size=(b, l, h, d)).astype(np.float32) for _ in range(4))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = k1.KernelAttention.apply(*(t.permute(0, 2, 1, 3) for t in (tq, tk, tv)), "bhld", h)
+    out.permute(0, 2, 1, 3).backward(torch.from_numpy(do))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), _jax_attention_grads(q, k, v, do)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=GRAD_ATOL)
+
+
+def test_attention_backward_takes_the_forward_contract():
+    """``attention_backward`` is the derivative of K1's plain version (the
+    denominator of the unrounded e): equal to autograd of
+    ``_attend_plain`` in f32."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, 3, 20, 8)).astype(np.float32))
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = k1._attend_plain(*leaves, 0.25)
+    out.backward(do)
+    got = k1.attention_backward(q, k, v, out.detach(), do, 0.25)
+    for g, ref in zip(got, (t.grad for t in leaves)):
+        torch.testing.assert_close(g, ref, atol=GRAD_ATOL, rtol=0)
+
+
+def test_jax_cannot_differentiate_its_pallas_k1():
+    """Why the port's gradient through K1 is its own tensor code: ``jax.grad``
+    of JAX's Pallas K1 (interpret mode) fails to linearize."""
+    import jax
+
+    x = jnp.ones((1, 16, 64), jnp.float32)
+    with pytest.raises(ValueError, match="Linearization failed"):
+        jax.grad(lambda q: jnp.sum(jax_blf(q, x, x, heads=2, interpret=True)))(x)
+
+
+def test_refuse_grad_guard():
+    """The guard every kernel wrapper without a backward calls on its CUDA
+    branch: it raises, naming the wrapper, for an input that requires a
+    gradient while grad mode is on, and passes under ``no_grad`` and
+    ``inference_mode``, for inputs without one and for None."""
+    from multimodal_embeddings_tpu_torch.kernels import _build
+
+    w = torch.ones(3, requires_grad=True)
+    x = torch.ones(3)
+    with pytest.raises(RuntimeError, match="int8_matmul"):
+        _build.refuse_grad("int8_matmul", x, w)
+    _build.refuse_grad("int8_matmul", x, None)
+    with torch.no_grad():
+        _build.refuse_grad("int8_matmul", x, w)
+    with torch.inference_mode():
+        _build.refuse_grad("int8_matmul", x, w)
+    with pytest.raises(RuntimeError, match="ln_matmul"):
+        _build.refuse_grad("ln_matmul", x * w)  # an activation that carries a gradient
+
+
+@pytest.mark.parametrize("module,wrappers", [
+    ("encoder_attention", ["encoder_attention_blf_packed", "encoder_attention",
+                           "encoder_attention_blhd"]),
+    ("quantization", ["int8_matmul", "stochastic_round_quantize"]),
+    ("quantization_int4", ["int4_matmul"]),
+    ("flash_attention", ["flash_attention_v2", "flash_attention"]),
+    ("conv", ["conv3x3_nchw", "conv3x3_s2_nchw"]),
+    ("ln_matmul", ["ln_matmul"]),
+    ("ln_stats", ["ln_stats"]),
+])
+def test_every_wrapper_without_a_backward_is_guarded(module, wrappers):
+    """Each kernel wrapper's CUDA branch either carries a gradient (K1's BLF
+    and BHLD forms, through ``KernelAttention``) or calls the guard under
+    its own name, after its CPU branch returned."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"multimodal_embeddings_tpu_torch.kernels.{module}")
+    src = inspect.getsource(mod)
+    for name in wrappers:
+        assert f'refuse_grad("{name}"' in src or f'else "{name}"' in src, name
+    if module == "encoder_attention":
+        for name in ("encoder_attention_blf", "encoder_attention"):
+            assert "KernelAttention.apply" in inspect.getsource(getattr(mod, name))

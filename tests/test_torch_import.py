@@ -46,6 +46,7 @@ def test_twin_scripts_import_without_jax():
     assert any(s.endswith("torch_attn_candidates_bench.py") for s in scripts)
     assert any(s.endswith("torch_enc_attn_blhd_probe.py") for s in scripts)
     assert any(s.endswith("torch_parse_bench.py") for s in scripts)
+    assert any(s.endswith("torch_dryrun_multichip.py") for s in scripts)
     code = (
         "import importlib.util, sys\n"
         f"for path in {scripts!r}:\n"
@@ -83,6 +84,8 @@ def test_module_list_covers_the_slice():
         "analysis.cross_compare", "analysis.region_compare", "analysis.demo_queries",
         "cli.workflow", "cli.demo", "ops.hough", "models.hf_port", "analysis.activations",
         "analysis.parity", "cli.parity", "utils.flops", "utils.trace_analysis",
+        "core.mesh", "parallel.sharding", "parallel.pipeline", "parallel.dryrun",
+        "training.contrastive", "models.qwen_pp",
     ):
         assert f"multimodal_embeddings_tpu_torch.{name}" in MODULES
 
