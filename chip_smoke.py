@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and stochastic-rounding quantization (K8), each compiled by its own
    ``nvcc`` for ``sm_90a`` from ``multimodal_embeddings_tpu_torch/csrc``,
    all started together; each kernel's registers, stack and spills as
-   ``ptxas`` reports them;
+   ``ptxas`` reports them. K4's ``nvcc`` takes the longest, so the run
+   waits for the others only and runs phases 4 to 8d, which do not call
+   K4, while it builds; phases 3, 3a and 6 follow phase 8d. Every phase's
+   header carries the seconds since the start;
 3. K1 against its plain PyTorch version at the ViT page's shapes — ViT
    ``(48, 784, 768)`` H=12 in bf16 and f32, PSA ``(30, 1024, 576)``
    4×(36|36|72) in bf16 — errors against stated tolerances, the median
@@ -147,7 +150,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    default route on the same chunk (≥ 0.999 per crop);
 9. the card against the CPU for mmE5: the 11B widths at reduced depth,
    for each of ``int8-mixed``, ``int8``, ``int4`` and ``int4-mixed``,
-   built in f32 on the CPU from a seed, carried to the card in bf16
+   built on the CPU in f32 from one float tree drawn from a seed on the
+   card (quantized at load for each storage), carried to the card in bf16
    through the weight bridge; two of the page's crops, cosine ≥ 0.999;
 14. the full-width mmE5-11B page on ``mme5_11b_int4()``, ``int4-mixed``
    and ``mme5_11b_int8()``, one model at a time (each freed before the
@@ -156,8 +160,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the prefix 240 and K1 packed 1 on each), ms per page, the detect /
    vision / text split, peak memory, parameter bytes, a ``torch.profiler``
    breakdown of one int4 page;
-15. a float checkpoint quantized at load: a float tree at the 11B widths
-   and reduced depth drawn on the CPU from a seed, loaded into an int4 and
+15. a float checkpoint quantized at load: phase 9's float tree at the 11B
+   widths and reduced depth, loaded into an int4 and
    an int8 model with the CPU and with the card as the target; the int8 and
    uint8 values and the scales EQUAL between the two builds, and two crops
    embedded on the card against the CPU build (cosine ≥ 0.999);
@@ -199,18 +203,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. the full-width Qwen2.5-VL-32B int4 page parse at native resolution:
     the model built on the card from seed 0, a 2200×1700 synthetic page
     smart-resized to 1120×868 (4960 patches, a 1535-token prompt); one
-    warm-up page through ``DocumentParser.parse``, then 2 timed pages of
-    prefill + 128 steps of the fixed-length loop; prefill ms, ms per step,
+    warm-up page through ``DocumentParser.parse`` at 16 new tokens, then 2
+    timed pages of prefill + 64 steps of the fixed-length loop; prefill ms, ms per step,
     s per page, peak memory; launch counts (K4 4 per page, K3 449 per
     prefill and per step, K1 and K2 none); finite logits; the early-exit
-    loop with EOS forced at step 64 equal to the fixed loop; profiles of
+    loop with EOS forced at step 32 equal to the fixed loop; profiles of
     the prefill and of 8 decode steps;
 12b. continuous batching at full width on phase 12's model, its norm
     scales set to 1 and its biases to 0 (the seeded 0.02 makes every page
     emit one token; at 1 and 0 the tokens are decisive): 16 pages of
-    its size (pixels from seed 12, one bucket), 128 new tokens each, stops
-    cycling over 16, 32, ..., 128, through ``continuous_generate`` with 8
-    rows and chunks of 64, in both chunk forms (early exit, fixed), and as
+    its size (pixels from seed 12, one bucket), 64 new tokens each, stops
+    cycling over 8, 16, ..., 64, through ``continuous_generate`` with 8
+    rows and chunks of 32, in both chunk forms (early exit, fixed), and as
     the reference in waves of 8 through ``build_generate_fns(prefill_chunk=1,
     early_stop=True)`` under the same stops: every page's tokens EQUAL to
     the waves', bit for bit, in both forms, with the pages' tokens pairwise
@@ -225,8 +229,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     9 page files at 16 new tokens (one refill): 9 results in input order,
     tokens EQUAL to ``continuous_generate``'s on the same inputs, K3 449 per
     prefill and per decode step of that run;
-13. the card against the CPU for Qwen: the 32B widths at 2 vision (one
-    full-attention) and 2 text layers, f32 on the CPU with the plain
+13. the card against the CPU for Qwen: the 32B widths at 1 vision (a
+    full-attention one) and 1 text layer, the weights drawn from a seed on
+    the card, f32 on the CPU with the plain
     kernels, bf16 on the card, same weights and page; last-position logit
     cosine ≥ 0.999;
 16. the serving CLI at full width on its defaults (``cli.serve``:
@@ -272,8 +277,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     one; ms per page of
     each stage, stage 0 split into decode / estimate / rotation / encode and
     stage 1 into decode / detect / write, stage-1 pages/s with prefetch (the
-    chain's) and without (a profiled ``prefetch=False`` run, which gives
-    stage 1's device idle share) and peak memory.
+    chain's) and without (a profiled ``prefetch=False`` run over the first
+    two oriented pages, which gives stage 1's device idle share) and peak
+    memory.
 18. the integrated workflow through ``cli.workflow.main([..., "--device",
     "cuda", "--run_cross_compare", "--run_region_compare", "--run_demo",
     "--demo_image", page 0, "--trace_dir", ...])`` on its defaults
@@ -337,15 +343,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
     off, a global batch of 32 seeded pairs, mesh (1, 1) over a one-rank NCCL
     group: every gradient leaf finite and non-zero, K1 BLF exactly 12
     launches a step, mesh (1, 1) EQUAL to ``mesh=None``, the card's step-1
-    gradient against the CPU trainer's on the same weights (per leaf within
+    gradient against the CPU trainer's on the same weights at the base
+    widths and 2 ViT and 1 text layers (per leaf within
     ``TRAIN_CARD_CPU_RTOL`` of its largest |g|), 5 steps on the batch with
     the loss falling, step ms and peak memory; (c) ``pp_greedy_generate(
     n_stages=1)`` at the Qwen2.5-VL-32B int4 widths with 4 of 64 decoder
     layers (reduced depth), 2 rows of a 2048-token prompt and 8 new tokens: tokens
     EQUAL to ``greedy_generate`` on the same model, K3 261 and K4 4
     launches.
+21. The scale-out serving and parse: (a) ``build_fused_batch_fn(mesh=None)``
+    at the headline config (v10-m, 30 letterboxed views, ViT-B/16
+    ``DualEncoderConfig.base()``, 48 regions; the class head fitted on page
+    0 as in phase 17) on 4 pages of 2200×1700, each page held against
+    ``build_fused_page_fn`` (boxes matched one to one within a class at
+    IoU ≥ 0.99, their embeddings' cosine ≥ 0.999, at least
+    ``BATCH_MATCH_MIN`` of a page's boxes so matched; precision, recall and
+    mean matched IoU at 0.5 printed), ms per page batched and single, peak memory; K1 packed
+    1 and K1 BLF 12 for the batch; (b) ``build_split_batch_fn(mesh=None)``
+    at the mmE5-11B widths, ``int8-mixed``, ``reduced_mme5``'s depth, on 2
+    pages against ``build_split_page_fn`` with the same gates, the launches
+    of one page per batch call; (c) on a one-rank NCCL world, mesh (1, 1):
+    both batch functions EQUAL to ``mesh=None``; ``Collection.set_mesh`` at
+    100,000 × 768, 64 queries, k = 10, ids and distances EQUAL to the
+    unsharded ``masked_topk`` with a planted tie in row order;
+    ``MultimodalEmbedder(mesh=)`` mme5 bf16 at the 11B widths and reduced
+    depth EQUAL to ``mesh=None`` (single-tile crops: K1 prefix one a tower
+    layer; the host API on 2 images); ``DocumentParser(dp_mesh=)`` and
+    ``DocumentParser(pp_mesh=make_pp_mesh(1), pp_stages=1)`` at the
+    Qwen2.5-VL-32B int4 widths, 4 of 64 decoder layers, 2 native-resolution
+    pages, 8 new tokens: text EQUAL to ``parse_batch``'s, K3 and K4 exact;
+    (d) ``cli.serve`` and ``cli.parse`` with ``--data_parallel 2`` on one
+    card exit with JAX's words.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18) sets the launch
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18, 21) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -398,6 +428,11 @@ line and the last line.
 runs phase 1, K1's, K3's and K4's builds and phase 20 only, then prints
 the card line and the last line.
 
+    python3 chip_smoke.py --scaleout
+
+runs phase 1, K1's to K4's builds and phase 21 only, then prints the card
+line and the last line.
+
     python3 chip_smoke.py --k6
 
 runs phase 1, K6's build and K6's part of phase 4a only, and prints no
@@ -416,6 +451,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -464,6 +500,7 @@ MME5_API_BATCH = 2  # phase 8d: each image is a 4-tile stack; 16 would not fit
 # phase 17: the rotation of each synthetic page (degrees; 0 = clean) and the
 # skew estimator's gate, the JAX test's bound
 STAGE_ANGLES = (-2.5, 2.0, 5.0, 0.0)
+STAGE_PROFILED_PAGES = 2  # phase 17's profiled sequential stage 1
 STAGE_ANGLE_TOL = 0.3
 # phase 17: a random head gives every anchor of a class nearly one score,
 # so each view keeps max_detections boxes or none, of whatever class that
@@ -509,8 +546,16 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"== {title}", flush=True)
+    """The phase's header with the seconds since the script started, on
+    standard output and, shortened, on standard error (whose tail is what
+    remains of a run stopped at its time limit)."""
+    t = time.perf_counter() - START
+    print(f"== {title} [t = {t:.1f} s]", flush=True)
+    print(f"chip_smoke: t = {t:.1f} s: {title[:60]}", file=sys.stderr, flush=True)
 
 
 def kernel_counters(k1, k2, k3, k4, k5, k6, k7) -> dict:
@@ -648,14 +693,20 @@ def card() -> str:
     return smi
 
 
-def build(*modules) -> None:
+def build(*modules, later=()):
     """Build every kernel library, one ``nvcc`` per source, all at once:
-    ``modules`` are (label, kernel module) pairs."""
+    ``modules`` are (label, kernel module) pairs. Waits for all but the
+    labels in ``later``, whose builds run on in the background; returns a
+    function that waits for those and prints their reports. A kernel called
+    before its build ends waits for it (``_build.load`` holds a lock per
+    source)."""
     phase("2. build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        infos = list(pool.map(lambda lm: lm[1].build_info(), modules))
-    for (label, _), info in zip(modules, infos):
+    pool = ThreadPoolExecutor(len(modules))
+    futures = [(label, pool.submit(module.build_info)) for label, module in modules]
+    pool.shutdown(wait=False)
+
+    def report(label, info):
         print(f"{label} library {info.path.name}: nvcc {info.seconds:.1f} s")
         for line in info.log.splitlines():
             if "Compiling entry function" in line:
@@ -667,7 +718,21 @@ def build(*modules) -> None:
         fences = info.log.count("C7519")
         if fences:
             print(f"  ptxas inserted {fences} warpgroup.arrive fences (C7519) before wgmma")
-    print(f"build wall time {time.perf_counter() - t0:.1f} s")
+
+    for label, future in futures:
+        if label not in later:
+            report(label, future.result())
+    print(f"build wall time {time.perf_counter() - t0:.1f} s"
+          + (f" ({', '.join(later)} still building)" if later else ""))
+
+    def finish():
+        for label, future in futures:
+            if label in later:
+                report(label, future.result())
+        print(f"build of {', '.join(later)} done {time.perf_counter() - t0:.1f} s after "
+              "the builds started")
+
+    return finish
 
 
 def k1_bf16_gate(name, got, want, weighted) -> tuple:
@@ -1558,10 +1623,13 @@ def normalised(crops):
     return (crops - mean) / std
 
 
-def mme5_card_vs_cpu(crops, config) -> None:
-    """Phase 9: each storage at the 11B widths and reduced depth, built in
-    f32 on the CPU from a seed and carried to the card in bf16 through the
-    bridge; two crops, card against CPU."""
+def mme5_card_vs_cpu(crops, config) -> dict:
+    """Phase 9: each storage at the 11B widths and reduced depth, built on
+    the CPU in f32 from one float tree (drawn once from a seed on the card:
+    2-3 s on an H100, 36 s on its machine's CPU; quantized at load
+    for each storage) and carried to the card in bf16 through the bridge;
+    two crops, card against CPU. Returns the float tree, which phase 15
+    loads again."""
     import torch
 
     from multimodal_embeddings_tpu_torch.config import EmbedderConfig
@@ -1569,13 +1637,23 @@ def mme5_card_vs_cpu(crops, config) -> None:
     from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
 
     phase("9. mmE5: card (bf16) against the CPU (f32, plain kernels), per storage")
+    t0 = time.perf_counter()
+    source = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32"),
+                                model_config=reduced_mme5(dataclasses.replace(
+                                    config, quantize=False)),
+                                device="cuda", seed=0)
+    flat = export_jax_params(source.model)
+    del source
+    gc_cuda()
+    print(f"float tree: {len(flat)} leaves, {sum(v.nbytes for v in flat.values()) / 1e9:.2f} "
+          f"GB f32 ({time.perf_counter() - t0:.1f} s)")
     two = crops[:2]
     for quantize in ("int8-mixed", True, "int4", "int4-mixed"):
         reduced = reduced_mme5(dataclasses.replace(config, quantize=quantize))
         t0 = time.perf_counter()
         cpu = MultimodalEmbedder(
             EmbedderConfig(family="mme5", dtype="float32", quantize=quantize),
-            model_config=reduced, device="cpu", seed=0,
+            model_config=reduced, device="cpu", params=flat,
         )
         gpu = MultimodalEmbedder(
             EmbedderConfig(family="mme5", dtype="bfloat16", quantize=quantize),
@@ -1584,33 +1662,28 @@ def mme5_card_vs_cpu(crops, config) -> None:
         got = gpu.encode_image(normalised(two))
         ref = cpu.encode_image(normalised(two.float().cpu()))
         cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, dim=-1)
-        print(f"quantize={quantize!r}: set-up (CPU f32 build, bridge to the card in bf16) "
-              f"{time.perf_counter() - t0:.1f} s; cosine card vs cpu: "
+        print(f"quantize={quantize!r}: set-up (CPU f32 build from the float tree, bridge to "
+              f"the card in bf16) {time.perf_counter() - t0:.1f} s; cosine card vs cpu: "
               f"{[round(c, 6) for c in cos.tolist()]}")
         check(bool((cos >= COSINE_MIN).all()), f"{quantize!r}: cosine {cos.tolist()} "
               f"< {COSINE_MIN}")
         del cpu, gpu
+    return flat
 
 
-def mme5_float_checkpoint(crops, config) -> None:
-    """Phase 15: a float tree at the 11B widths and reduced depth, drawn on
-    the CPU from a seed, loaded into an int4 and an int8 model with the CPU
-    and with the card as the target (quantized at load on each)."""
+def mme5_float_checkpoint(crops, config, flat) -> None:
+    """Phase 15: phase 9's float tree at the 11B widths and reduced depth,
+    loaded into an int4 and an int8 model with the CPU and with the card as
+    the target (quantized at load on each)."""
     import torch
 
     from multimodal_embeddings_tpu_torch.config import EmbedderConfig
     from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
-    from multimodal_embeddings_tpu_torch.models.weights import export_jax_params
 
     phase("15. a float checkpoint quantized at load: card against CPU")
     float_config = reduced_mme5(dataclasses.replace(config, quantize=False))
-    t0 = time.perf_counter()
-    source = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32"),
-                                model_config=float_config, device="cpu", seed=0)
-    flat = export_jax_params(source.model)
-    del source
-    print(f"float tree: {len(flat)} leaves, {sum(v.nbytes for v in flat.values()) / 1e9:.2f} "
-          f"GB f32 ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 9's float tree: {len(flat)} leaves, "
+          f"{sum(v.nbytes for v in flat.values()) / 1e9:.2f} GB f32")
     two = crops[:2]
     for quantize in ("int4", "int8"):
         cfg = dataclasses.replace(float_config, quantize=quantize)
@@ -2109,9 +2182,10 @@ def int4_checks(k3) -> dict:
 
 QWEN_PAGE_HW = PAGE_HW  # a 2200x1700 page, smart-resized to 1120x868
 QWEN_MAX_PIXELS = 1280 * 28 * 28  # the notebook's native-resolution budget
-QWEN_NEW_TOKENS = 128
+QWEN_NEW_TOKENS = 64
 QWEN_TIMED_PAGES = 2
-QWEN_FORCE_EOS_AT = 64
+QWEN_WARMUP_TOKENS = 16
+QWEN_FORCE_EOS_AT = 32
 QWEN_PEAK_LIMIT = 30 * 2**30
 
 
@@ -2174,12 +2248,14 @@ def qwen_page(kernels: dict):
               f"{(in_h // 14) * (in_w // 14)} patches, prompt {prompt_len} tokens "
               f"({n_pad} image pads)")
 
-        # warm-up: the user entry point, DocumentParser.parse (early-exit loop)
+        # warm-up: the user entry point, DocumentParser.parse (early-exit
+        # loop), at QWEN_WARMUP_TOKENS: every decode step runs the same code
         t0 = time.perf_counter()
-        html, h0, w0 = parser.parse(paths[0], max_new_tokens=QWEN_NEW_TOKENS)
+        html, h0, w0 = parser.parse(paths[0], max_new_tokens=QWEN_WARMUP_TOKENS)
         torch.cuda.synchronize()
         check((h0, w0) == (in_h, in_w), f"warm-up input size {(h0, w0)}")
-        print(f"warm-up parse(): {time.perf_counter() - t0:.1f} s, {len(html)} characters "
+        print(f"warm-up parse() at {QWEN_WARMUP_TOKENS} new tokens: "
+              f"{time.perf_counter() - t0:.1f} s, {len(html)} characters "
               f"of HTML, {len(extract_bbox_elements(html))} bbox elements, "
               f"{len(clean_and_format_html(html))} characters cleaned")
 
@@ -2260,12 +2336,12 @@ def qwen_page(kernels: dict):
 
 
 # phase 12b: P pages of phase 12's size through B rows in chunks of C steps,
-# every page 128 new tokens with its stop cycling over 16, 32, ..., 128;
+# every page 64 new tokens with its stop cycling over 8, 16, ..., 64;
 # parse_continuous on 9 page files at 16 new tokens (8 rows: one refill)
 QWEN_CONT_PAGES = 16
 QWEN_CONT_BATCH = 8
-QWEN_CONT_CHUNK = 64
-QWEN_CONT_STOPS = tuple(range(16, QWEN_NEW_TOKENS + 1, 16))
+QWEN_CONT_CHUNK = 32
+QWEN_CONT_STOPS = tuple(range(8, QWEN_NEW_TOKENS + 1, 8))
 QWEN_CONT_PARSE_PAGES = 9
 QWEN_CONT_PARSE_TOKENS = 16
 # peak memory: the parameters, the decoder's caches (B rows; the waves hold a
@@ -2492,6 +2568,11 @@ def qwen_continuous(counters: dict, model, parser, ids, pixels, config) -> dict:
     return launches, result
 
 
+# phase 13's depth: the last vision block full-attention, the others
+# windowed; the CPU's f32 prefill of the page is most of the phase's time
+QWEN_CPU_VISION_LAYERS, QWEN_CPU_TEXT_LAYERS = 1, 1
+
+
 def qwen_card_vs_cpu(ids, pixels, config) -> None:
     """Prefill logits of the 32B widths at reduced depth: the card in bf16
     against the CPU in f32 with the plain kernels, same weights."""
@@ -2502,13 +2583,21 @@ def qwen_card_vs_cpu(ids, pixels, config) -> None:
     phase("13. Qwen2.5-VL-32B int4: card (bf16) against the CPU (f32, plain kernels)")
     reduced = dataclasses.replace(
         config,
-        vision=dataclasses.replace(config.vision, layers=2, fullatt_block_indexes=(1,)),
-        text=dataclasses.replace(config.text, layers=2),
+        vision=dataclasses.replace(config.vision, layers=QWEN_CPU_VISION_LAYERS,
+                                   fullatt_block_indexes=(QWEN_CPU_VISION_LAYERS - 1,)),
+        text=dataclasses.replace(config.text, layers=QWEN_CPU_TEXT_LAYERS),
     )
     t0 = time.perf_counter()
-    cpu = build_qwen(reduced, torch.float32, "cpu", seed=0)
-    gpu = build_qwen(reduced, torch.bfloat16, "cuda", params=export_jax_params(cpu))
-    print(f"set-up (CPU f32 build, bridge to the card in bf16): {time.perf_counter() - t0:.1f} s")
+    # the weights drawn from a seed on the card (an H100 machine's CPU took
+    # 33 s to draw them), then loaded into the CPU's f32 model and the card's
+    # bf16 one
+    flat = export_jax_params(build_qwen(reduced, torch.float32, "cuda", seed=0))
+    gc_cuda()
+    cpu = build_qwen(reduced, torch.float32, "cpu", params=flat)
+    gpu = build_qwen(reduced, torch.bfloat16, "cuda", params=flat)
+    del flat
+    print(f"set-up (weights drawn on the card, loaded into the CPU's f32 model and the "
+          f"card's bf16 one): {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         t0 = time.perf_counter()
         want, _, _ = cpu(torch.from_numpy(ids).long(), torch.from_numpy(pixels),
@@ -4054,9 +4143,14 @@ def stage_chain(counters) -> dict:
         print("stage 0 per page (host clock): " + ", ".join(
             f"{k} {statistics.mean(v):.1f} ms" for k, v in split.items()))
 
-        # stage 1 sequential (prefetch=False) over the oriented pages, its
-        # forward and its writer timed inside the run, under the profiler
+        # stage 1 sequential (prefetch=False) over the first
+        # STAGE_PROFILED_PAGES oriented pages, its forward and its writer
+        # timed inside the run, under the profiler
         split = {"detect": [], "write": []}
+        seq_in, m = os.path.join(tmp, "s1_seq_in"), STAGE_PROFILED_PAGES
+        os.makedirs(seq_in)
+        for name in sorted(f for f in os.listdir("0_oriented_images") if f.endswith(".png"))[:m]:
+            shutil.copy(os.path.join("0_oriented_images", name), seq_in)
 
         def timed(key, fn):
             def call(*args, **kwargs):
@@ -4072,19 +4166,18 @@ def stage_chain(counters) -> dict:
         def sequential():
             t0 = time.perf_counter()
             seq["stats"] = stage1.run_detect_stage(
-                "0_oriented_images", os.path.join(tmp, "s1_seq"), detector=detector,
-                prefetch=False)
+                seq_in, os.path.join(tmp, "s1_seq"), detector=detector, prefetch=False)
             seq["s"] = time.perf_counter() - t0
 
         with _swap(stage1, "write_page_artifacts",
                    timed("write", stage1.write_page_artifacts)):
-            profile_run(f"stage 1 over {n} pages (run_detect_stage, prefetch=False)",
+            profile_run(f"stage 1 over {m} pages (run_detect_stage, prefetch=False)",
                         sequential)
         stats = seq["stats"]
-        check(stats.processed == n and stats.errors == 0, f"stage 1 {stats}")
-        other = 1e3 * seq["s"] / n - statistics.mean(split["detect"]) - statistics.mean(
+        check(stats.processed == m and stats.errors == 0, f"stage 1 {stats}")
+        other = 1e3 * seq["s"] / m - statistics.mean(split["detect"]) - statistics.mean(
             split["write"])
-        print(f"stage 1 sequential (profiled): {n / seq['s']:.3f} pages/s; per page (host "
+        print(f"stage 1 sequential (profiled): {m / seq['s']:.3f} pages/s; per page (host "
               f"clock) detect {statistics.mean(split['detect']):.1f} ms, write "
               f"{statistics.mean(split['write']):.1f} ms, decode and the rest {other:.1f} ms")
         del detector
@@ -4840,13 +4933,21 @@ def parity_phase(counters) -> dict:
               f"traced = plain = {only_nonzero(traced)}")
         del engine, traced_out, plain_out
         gc_cuda()
+        # the weights drawn from a seed on the card (an H100 machine's CPU
+        # took ~25 s to draw them), then loaded into the CPU's f32 engine and
+        # the card's
         reduced = reduced_mme5(MllamaConfig.mme5_11b_int8_mixed())
+        flat = export_jax_params(MultimodalEmbedder(
+            EmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
+            model_config=reduced, device="cuda", seed=0).model)
+        gc_cuda()
         cpu_engine = MultimodalEmbedder(
             EmbedderConfig(family="mme5", dtype="float32", quantize="int8-mixed"),
-            model_config=reduced, device="cpu", seed=0)
+            model_config=reduced, device="cpu", params=flat)
         card_engine = MultimodalEmbedder(
             EmbedderConfig(family="mme5", dtype="bfloat16", quantize="int8-mixed"),
-            model_config=reduced, device="cuda", params=export_jax_params(cpu_engine.model))
+            model_config=reduced, device="cuda", params=flat)
+        del flat
         trace, traced_out, traced, plain_out, plain = traced_and_plain(
             counters, lambda: acts.mme5_trace(card_engine), card_engine.model,
             lambda: card_engine.model(*args))
@@ -4904,12 +5005,15 @@ def _swap(module, name: str, value):
 TRAIN_F32_GRAD_RTOL = 1e-5
 TRAIN_BF16_GRAD_FACTOR = 2.0
 # phase 20: the trainer at DualEncoderConfig.base(): a global batch of 32
-# seeded pairs, and the card's step-1 gradient against the CPU's (f32, TF32
-# off; both plain-code sums in other orders through 12 + 6 blocks): each
-# leaf within TRAIN_CARD_CPU_RTOL of the leaf's largest |g|
+# seeded pairs, and the card's step-1 gradient against the CPU's at the
+# base widths and TRAIN_CPU_*_LAYERS' depth (f32, TF32 off; both plain-code
+# sums in other orders): each leaf within TRAIN_CARD_CPU_RTOL of the leaf's
+# largest |g|
 TRAIN_BATCH = 32
 TRAIN_STEPS = 5
 TRAIN_CARD_CPU_RTOL = 1e-3
+# phase 20b's card-against-CPU gradient: the base widths at this depth
+TRAIN_CPU_VISION_LAYERS, TRAIN_CPU_TEXT_LAYERS = 2, 1
 # phase 20: pp_greedy_generate at the 32B int4 widths, the decoder cut to 4
 # of 64 layers (the vision tower built, unused by a text prompt), 2 rows of a
 # 2048-token text prompt (the causal prefill at L >= 2048 takes K4), 8 new
@@ -5092,6 +5196,13 @@ def trainer_phase(counters) -> dict:
     params = cpu.jax_params()  # the same weights on the card, through the bridge
     print(f"{cpu.num_params():,} parameters in {len(params)} leaves; CPU init "
           f"{time.perf_counter() - t0:.1f} s")
+    del cpu
+    # the card against the CPU at reduced depth: the CPU's f32 step of the
+    # whole model took 78-98 s on an H100 machine's CPU
+    shallow = dataclasses.replace(
+        config, vision=dataclasses.replace(config.vision, layers=TRAIN_CPU_VISION_LAYERS),
+        text=dataclasses.replace(config.text, layers=TRAIN_CPU_TEXT_LAYERS))
+    cpu = ContrastiveTrainer(shallow, tconfig, seed=0, device="cpu")
     out = {}
     # deterministic kernels (the embedding's and the patch conv's gradients
     # accumulate by atomics otherwise), so that two trainers compare bit for bit
@@ -5123,20 +5234,25 @@ def trainer_phase(counters) -> dict:
         print("mesh (1, 1) against mesh=None: metrics and every gradient leaf EQUAL")
         del plain, p_grads
         gc_cuda()
+        card = ContrastiveTrainer(shallow, tconfig, mesh=mesh, device="cuda",
+                                  params=cpu.jax_params())
+        s_metrics, s_grads = card.value_and_grad(*batch)
+        del card
         t0 = time.perf_counter()
         c_metrics, c_grads = cpu.value_and_grad(*batch)
         cpu_s = time.perf_counter() - t0
         worst, worst_key = 0.0, None
         for key, ref in c_grads.items():
-            err = float(np.abs(grads[key] - ref).max() / np.abs(ref).max())
+            err = float(np.abs(s_grads[key] - ref).max() / np.abs(ref).max())
             if err > worst:
                 worst, worst_key = err, key
         check(worst <= TRAIN_CARD_CPU_RTOL,
               f"card vs CPU gradient: {worst_key} {worst:.3g} of its largest |g|")
-        print(f"card vs CPU (plain attention, f32, {cpu_s:.1f} s on the CPU): loss "
-              f"{metrics['loss']:.7f} / {c_metrics['loss']:.7f}; worst leaf {worst_key} at "
-              f"{worst:.3g} of its largest |g| (gate {TRAIN_CARD_CPU_RTOL})")
-        del cpu, c_grads
+        print(f"card vs CPU at {TRAIN_CPU_VISION_LAYERS} ViT and {TRAIN_CPU_TEXT_LAYERS} text "
+              f"layers, all {len(c_grads)} leaves (plain attention, f32, {cpu_s:.1f} s on the "
+              f"CPU): loss {s_metrics['loss']:.7f} / {c_metrics['loss']:.7f}; worst leaf "
+              f"{worst_key} at {worst:.3g} of its largest |g| (gate {TRAIN_CARD_CPU_RTOL})")
+        del cpu, c_grads, s_grads
         losses, step_ms = [], []
         zero(counters)
         for _ in range(TRAIN_STEPS):
@@ -5223,6 +5339,425 @@ def train_phase(k1, k2, k3, k4, k5, k6, k7, counters, smi: str) -> dict:
     pp = pp_phase(counters)
     print(f"phase 20: {time.perf_counter() - start:.1f} s; every number of it on {smi}")
     return {"k1_grad": grads, "trainer": trainer, "pp": pp}
+
+
+SCALEOUT_PAGES = 4  # phase 21a: the fused batch's pages
+SCALEOUT_MME5_PAGES = 2  # phase 21b: the split batch's pages
+SCALEOUT_PARSE_PAGES = 2  # phase 21c: the parse meshes' pages
+
+
+BATCH_MATCH_MIN = 0.75  # phase 21: least share of a page's boxes matched at IoU >= IOU_MIN
+
+
+def batch_parity(label, batch, singles, timing) -> dict:
+    """Each page of a batch result against its page function's result. The
+    detector's cuDNN convs take other algorithms at 120 views than at 30
+    (bf16; K1 is EQUAL across batch sizes), so near-tied boxes may swap:
+    boxes are matched one to one within a class at IoU ≥ IOU_MIN
+    (``match_boxes``), their embeddings' cosine must be ≥ COSINE_MIN, and at
+    least BATCH_MATCH_MIN of each page's boxes must match; SERVE_PARITY.json's
+    precision, recall and mean matched IoU at its floor of 0.5 are printed
+    beside."""
+    import numpy as np
+
+    from multimodal_embeddings_tpu_torch.analysis.parity import match_boxes
+    from multimodal_embeddings_tpu_torch.ops.iou import iou_matrix_np
+
+    worst_share, worst_cos, rows = 1.0, 1.0, []
+    for b, single in enumerate(singles):
+        ref = {k: getattr(single, k).float().cpu().numpy() for k in single._fields}
+        got = {k: getattr(batch, k)[b].float().cpu().numpy() for k in batch._fields}
+        rv, gv = ref["valid"] > 0, got["valid"] > 0
+        rb, gb = ref["boxes"][rv].astype(np.float64), got["boxes"][gv].astype(np.float64)
+        rc, gc = ref["classes"][rv], got["classes"][gv]
+        loose = match_boxes(rb, gb, 0.5, rc, gc)
+        tight = match_boxes(rb, gb, IOU_MIN, rc, gc)
+        iou = np.where(rc[:, None] == gc[None], iou_matrix_np(rb, gb), 0.0)
+        re, ge = ref["embeddings"][rv], got["embeddings"][gv]
+        cos = [float(re[i] @ ge[j] / np.linalg.norm(re[i]) / np.linalg.norm(ge[j]))
+               for i, j in zip(*np.nonzero(iou >= IOU_MIN))]
+        share = min(tight.precision, tight.recall)
+        check(len(cos) == tight.n_matched, f"{label} page {b}: ambiguous matches at {IOU_MIN}")
+        worst_share = min(worst_share, share)
+        worst_cos = min([worst_cos, *cos])
+        rows.append(f"page {b}: {tight.n_reference} / {tight.n_candidate} boxes; at IoU >= "
+                    f"{IOU_MIN}: {tight.n_matched} matched (precision {tight.precision:.4f}, "
+                    f"recall {tight.recall:.4f}), min cosine "
+                    f"{min(cos) if cos else float('nan'):.6f}; at 0.5: precision "
+                    f"{loose.precision:.4f}, recall {loose.recall:.4f}, mean matched IoU "
+                    f"{loose.mean_matched_iou:.6f}")
+    print(f"{label}, batched vs its page function per page:\n  " + "\n  ".join(rows))
+    print(f"{label}: {timing}")
+    check(worst_share >= BATCH_MATCH_MIN,
+          f"{label}: {worst_share} of a page's boxes matched at {IOU_MIN} < {BATCH_MATCH_MIN}")
+    check(worst_cos >= COSINE_MIN, f"{label}: embedding cosine {worst_cos} < {COSINE_MIN}")
+    return {"matched_share": worst_share, "min_cosine": worst_cos}
+
+
+def batch_invariance(detector, pages) -> None:
+    """Why a batched page is not bit-equal to its page alone: the first
+    detector module to finish whose output for page 0's 30 views differs
+    inside the batch of all pages' views (forward hooks, compared on the
+    fly), and K1's two page forms on a page's rows alone and inside the
+    batch (EQUAL)."""
+    import torch
+
+    from multimodal_embeddings_tpu_torch.kernels import encoder_attention as k1
+    from multimodal_embeddings_tpu_torch.ops.image import letterbox_views_matmul
+    from multimodal_embeddings_tpu_torch.pipeline.fused import view_slice_bounds_for_page
+
+    cfg = detector.config
+    bounds = view_slice_bounds_for_page(PAGE_HW[1], PAGE_HW[0], cfg.grid_configs,
+                                        cfg.overlap_percentage)
+    views = [letterbox_views_matmul(p.to(torch.bfloat16), bounds, cfg.image_size)[0]
+             .to(torch.bfloat16) / 255.0 for p in pages]
+    n = views[0].shape[0]
+    ref, diffs, order = {}, {}, []
+
+    def tensors(o):
+        return [o] if isinstance(o, torch.Tensor) else [t for x in o for t in tensors(x)] \
+            if isinstance(o, (tuple, list)) else []
+
+    def keep(name):
+        def hook(m, a, o):
+            ref[name] = [t.clone() for t in tensors(o)]
+            order.append(name)  # the order the modules finish in
+        return hook
+
+    def compare(name):
+        def hook(m, a, o):
+            d = [float((x.float() - y[:n].float()).abs().max())
+                 for x, y in zip(ref.get(name, []), tensors(o))]
+            diffs[name] = max(d) if d else 0.0
+        return hook
+
+    mods = [(name, m) for name, m in detector.model.named_modules() if name]
+    with torch.inference_mode():
+        for hook, x in ((keep, views[0]), (compare, torch.cat(views))):
+            handles = [m.register_forward_hook(hook(name)) for name, m in mods]
+            detector.model(x)
+            for h in handles:
+                h.remove()
+    first = next((name for name in order if diffs.get(name, 0.0) > 0), None)
+    kinds = dict(mods)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    qkv = torch.randn(len(pages) * n, 1024, 4 * 144, device="cuda", generator=gen).bfloat16()
+    packed_equal = torch.equal(k1.encoder_attention_blf_packed(qkv[:n].contiguous(), 4, 36, 72),
+                               k1.encoder_attention_blf_packed(qkv, 4, 36, 72)[:n])
+    x = torch.randn(len(pages) * NUM_REGIONS, 784, 3 * 768, device="cuda",
+                    generator=gen).bfloat16()
+    q, k, v = x[..., :768], x[..., 768:1536], x[..., 1536:]
+    r = NUM_REGIONS
+    blf_equal = torch.equal(k1.encoder_attention_blf(q[:r], k[:r], v[:r], 12),
+                            k1.encoder_attention_blf(q, k, v, 12)[:r])
+    print(f"page 0's {n} views alone against inside the batch of {len(pages) * n}: "
+          f"{sum(d > 0 for d in diffs.values())} of {len(diffs)} detector modules differ, the "
+          f"first {first} ({type(kinds[first]).__name__ if first else '-'}, max |diff| "
+          f"{diffs.get(first, 0.0):.3g}); K1 packed on ({n}, 1024, 576) alone vs inside "
+          f"({len(pages) * n}, ...) EQUAL: {packed_equal}; K1 BLF on ({r}, 784, 768) alone vs "
+          f"inside ({len(pages) * r}, ...) EQUAL: {blf_equal}")
+    check(packed_equal and blf_equal, "K1 differs inside a larger batch")
+
+
+def timed_ms(fn, *args) -> tuple:
+    """(result, ms) of one call, host clock ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def scaleout_phase(counters, smi: str) -> dict:
+    """Phase 21: the batch page functions, the sharded store query, the
+    sharded embedder and the parse meshes on the card (the mesh paths on a
+    one-rank NCCL world), and the CLIs' refusal of a second card; returns
+    the launches of each path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_embeddings_tpu_torch.analysis.doc_parser import DocumentParser
+    from multimodal_embeddings_tpu_torch.cli import parse as parse_cli
+    from multimodal_embeddings_tpu_torch.cli import serve as serve_cli
+    from multimodal_embeddings_tpu_torch.config import EmbedderConfig, MeshConfig
+    from multimodal_embeddings_tpu_torch.core.mesh import ProcessGroup, make_mesh
+    from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
+    from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
+    from multimodal_embeddings_tpu_torch.models.qwen_vl import QwenVLConfig
+    from multimodal_embeddings_tpu_torch.models.tokenizer import ByteTokenizer
+    from multimodal_embeddings_tpu_torch.models.vision_encoder import DualEncoderConfig
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen
+    from multimodal_embeddings_tpu_torch.parallel.pipeline import make_pp_mesh
+    from multimodal_embeddings_tpu_torch.pipeline.fused import (
+        build_fused_batch_fn,
+        build_fused_page_fn,
+        build_split_batch_fn,
+        build_split_page_fn,
+    )
+    from multimodal_embeddings_tpu_torch.store.embedding_store import Collection, masked_topk
+
+    start = time.perf_counter()
+    out, launches = {}, {}
+
+    # -- a. the fused batch: the headline ViT page, 4 pages ------------------
+    phase(f"21a. build_fused_batch_fn(mesh=None) at the headline config (v10-m, 30 views "
+          f"letterboxed, ViT-B/16 DualEncoderConfig.base(), {NUM_REGIONS} regions) on "
+          f"{SCALEOUT_PAGES} pages of {PAGE_HW[0]}x{PAGE_HW[1]}")
+    t0 = time.perf_counter()
+    detector = make_detector()
+    pages_np = [synthetic_page(70 + i, 0.0) for i in range(SCALEOUT_PAGES)]
+    fit_head(detector, pages_np[0])  # scores spread (STAGE_VIEW_BOXES), not one tie
+    vit = MultimodalEmbedder(EmbedderConfig(family="siglip", dtype="bfloat16"),
+                             model_config=DualEncoderConfig.base(), device="cuda", seed=0)
+    batch_np = np.stack(pages_np)
+    pages = torch.from_numpy(batch_np).cuda()
+    fused = build_fused_batch_fn(detector, vit, PAGE_HW, NUM_REGIONS, letterbox=True)
+    single = build_fused_page_fn(detector, vit, PAGE_HW, NUM_REGIONS, letterbox=True)
+    fused(pages)  # warm-up
+    single(pages[0])
+    print(f"set-up and warm-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    got, batch_ms = timed_ms(fused, pages)
+    launches["serve_fused_batch_4_pages"] = counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = vit.model_config.vision.layers
+    want = only(counters, {"encoder_attention_blf_packed": 1, "encoder_attention_blf": layers})
+    check(launches["serve_fused_batch_4_pages"] == want,
+          f"fused batch launches {launches['serve_fused_batch_4_pages']} != {want}")
+    print(f"launches: K1 packed 1 (one detector call over {SCALEOUT_PAGES}x30 views), K1 BLF "
+          f"{layers} (one ViT call over {SCALEOUT_PAGES}x{NUM_REGIONS} crops, 1 a layer)")
+    zero(counters)
+    singles, single_ms = [], []
+    for page in pages:
+        res, ms = timed_ms(single, page)
+        singles.append(res)
+        single_ms.append(ms)
+    want = only(counters, {"encoder_attention_blf_packed": SCALEOUT_PAGES,
+                           "encoder_attention_blf": layers * SCALEOUT_PAGES})
+    check(counts(counters) == want, f"single-page launches {counts(counters)} != {want}")
+    for b in range(SCALEOUT_PAGES):
+        check_page(type(singles[b])(*(x[b] for x in got)), 768)
+    out["fused"] = batch_parity(
+        "21a fused batch", got, singles,
+        f"{batch_ms / SCALEOUT_PAGES:.1f} ms per page batched ({batch_ms:.1f} ms for "
+        f"{SCALEOUT_PAGES}), {statistics.mean(single_ms):.1f} ms per page single (pages: "
+        + ", ".join(f"{x:.1f}" for x in single_ms) + f"); peak {peak:.2f} GiB batched; {smi}")
+    out["fused"].update(batch_ms_per_page=batch_ms / SCALEOUT_PAGES,
+                        single_ms_per_page=statistics.mean(single_ms), peak_gib=peak)
+    batch_invariance(detector, pages)
+
+    # -- b. the split batch: mmE5-11B widths, int8-mixed, reduced depth ------
+    config = reduced_mme5(MllamaConfig.mme5_11b_int8_mixed())
+    phase(f"21b. build_split_batch_fn(mesh=None) at the mmE5-11B widths, int8-mixed, "
+          f"{config.vision.layers}+{config.vision.global_layers} tower and "
+          f"{config.text.layers} text layers, chunks of {MME5_CHUNK}, on {SCALEOUT_MME5_PAGES} "
+          "pages")
+    t0 = time.perf_counter()
+    mme5 = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="bfloat16",
+                                             quantize=config.quantize),
+                              model_config=config, device="cuda", seed=0)
+    split = build_split_batch_fn(detector, mme5, PAGE_HW, NUM_REGIONS, MME5_CHUNK,
+                                 letterbox=True)
+    split_single = build_split_page_fn(detector, mme5, PAGE_HW, NUM_REGIONS, MME5_CHUNK,
+                                       letterbox=True)
+    mme5_pages = pages[:SCALEOUT_MME5_PAGES]
+    split(mme5_pages)
+    split_single(mme5_pages[0])
+    print(f"set-up and warm-up {time.perf_counter() - t0:.1f} s")
+    zero(counters)
+    got2, batch2_ms = timed_ms(split, mme5_pages)
+    launches["serve_split_batch_mme5_2_pages"] = counts(counters)
+    chunks = NUM_REGIONS // MME5_CHUNK
+    per_call = mme5_launches(config, chunks, chunks)
+    check(launches["serve_split_batch_mme5_2_pages"] == only(counters, per_call),
+          f"split batch launches {launches['serve_split_batch_mme5_2_pages']} != {per_call}")
+    print(f"launches: {per_call} — per batch call, as per page: K1 packed 1, K1 prefix "
+          f"({config.vision.layers}+{config.vision.global_layers}) x {chunks} chunk calls of "
+          f"{SCALEOUT_MME5_PAGES}x{MME5_CHUNK} crops, K2 7 x {config.text.layers} x {chunks}")
+    zero(counters)
+    singles2, single2_ms = [], []
+    for page in mme5_pages:
+        res, ms = timed_ms(split_single, page)
+        singles2.append(res)
+        single2_ms.append(ms)
+    want = only(counters, {k: v * SCALEOUT_MME5_PAGES for k, v in per_call.items()})
+    check(counts(counters) == want, f"split single launches {counts(counters)} != {want}")
+    out["split"] = batch_parity(
+        "21b split batch (mmE5)", got2, singles2,
+        f"{batch2_ms / SCALEOUT_MME5_PAGES:.1f} ms per page batched, "
+        f"{statistics.mean(single2_ms):.1f} ms per page single; {smi}")
+
+    # -- c. the mesh paths on a world of one ----------------------------------
+    phase("21c. mesh (1, 1) on a one-rank NCCL world: both batch functions, "
+          "Collection.set_mesh, MultimodalEmbedder(mesh=), DocumentParser(dp_mesh=, pp_mesh=)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            ProcessGroup(0, 1, "cuda", store_path=os.path.join(tmp, "store")):
+        mesh = make_mesh(MeshConfig(shape=(1, 1)))
+        for label, fn, ref, inputs in (
+                ("fused", build_fused_batch_fn(detector, vit, PAGE_HW, NUM_REGIONS, mesh=mesh,
+                                               letterbox=True), got, batch_np),
+                ("split", build_split_batch_fn(detector, mme5, PAGE_HW, NUM_REGIONS,
+                                               MME5_CHUNK, letterbox=True, mesh=mesh), got2,
+                 batch_np[:SCALEOUT_MME5_PAGES])):
+            res = fn(inputs)
+            check(all(torch.equal(a, b) for a, b in zip(res, ref)),
+                  f"{label} batch on mesh (1, 1) != mesh=None")
+        print("both batch functions on mesh (1, 1): every field EQUAL to mesh=None")
+        del vit
+        gc_cuda()
+
+        rng = np.random.default_rng(21)
+        rows = rng.standard_normal((SERVE_STORE_ROWS, 768)).astype(np.float32)
+        rows[SERVE_STORE_ROWS - 7] = rows[11]  # a planted tie: row 11 must come first
+        queries = rng.standard_normal((SERVE_QUERIES, 768)).astype(np.float32)
+        queries[0] = rows[11]
+        col = Collection(tmp, "scaleout", device="cuda")
+        col.upsert(ids=[f"r{i}" for i in range(SERVE_STORE_ROWS)], embeddings=rows,
+                   metadatas=[{}] * SERVE_STORE_ROWS)
+        unit = torch.from_numpy(rows / np.linalg.norm(rows, axis=1, keepdims=True)).cuda()
+        qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        ws, wi = masked_topk(unit, torch.from_numpy(qn).cuda(),
+                             torch.ones(SERVE_STORE_ROWS, dtype=torch.bool, device="cuda"),
+                             SERVE_K)
+        col.set_mesh(mesh)
+        res = col.query(queries, n_results=SERVE_K)
+        check(res["ids"] == [[f"r{j}" for j in row] for row in wi.cpu().tolist()],
+              "sharded store ids != masked_topk")
+        check(res["distances"] == (1.0 - ws.cpu().numpy()).tolist(),
+              "sharded store distances != masked_topk")
+        check(res["ids"][0][:2] == ["r11", f"r{SERVE_STORE_ROWS - 7}"],
+              f"the planted tie: {res['ids'][0][:2]}")
+        print(f"Collection.set_mesh at {SERVE_STORE_ROWS} x 768, {SERVE_QUERIES} queries, "
+              f"k = {SERVE_K}: ids and distances EQUAL to the unsharded masked_topk; the "
+              "planted tie in row order")
+        del col, unit
+
+        ref_config = reduced_mme5(MllamaConfig.mme5_11b())
+        *_, crops = split_single.detect(mme5_pages[0])
+        crops = normalised(crops[:MME5_CHUNK])
+        images = [pages_np[0][200:760, 300:860], pages_np[1][900:1460, 100:660]]
+        embs = {}
+        for label, m in (("mesh", mesh), ("plain", None)):
+            emb = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="bfloat16"),
+                                     model_config=ref_config, device="cuda", seed=0, mesh=m)
+            zero(counters)
+            tiles = emb.encode_image(crops)
+            if label == "mesh":
+                launches["mesh1_embedder_tp"] = counts(counters)
+            embs[label] = (tiles, emb.get_image_embeddings(images, batch_size=2))
+            del emb
+            gc_cuda()
+        n_tower = ref_config.vision.layers + ref_config.vision.global_layers
+        want = only(counters, {"encoder_attention": n_tower})
+        check(launches["mesh1_embedder_tp"] == want,
+              f"mesh embedder launches {launches['mesh1_embedder_tp']} != {want}")
+        check(torch.equal(embs["mesh"][0], embs["plain"][0])
+              and embs["mesh"][1] == embs["plain"][1], "mme5 bf16 on mesh (1, 1) != mesh=None")
+        print(f"MultimodalEmbedder(mesh=(1, 1)) mme5 bf16 at the 11B widths, "
+              f"{ref_config.vision.layers}+{ref_config.vision.global_layers} tower and "
+              f"{ref_config.text.layers} text layers: {MME5_CHUNK} single-tile crops (K1 prefix "
+              f"{n_tower}, one a tower layer) and the host API on 2 images EQUAL to mesh=None")
+        del mme5, split, split_single, detector
+        gc_cuda()
+
+        full = QwenVLConfig.qwen25_vl_32b_int4()
+        qconfig = dataclasses.replace(full, text=dataclasses.replace(full.text,
+                                                                       layers=PP_LAYERS))
+        model = build_qwen(qconfig, torch.bfloat16, "cuda", seed=0)
+        with torch.no_grad():  # varying tokens, as in phases 12b and 20c
+            for name, p in model.named_parameters():
+                if p.dim() == 1:
+                    p.fill_(1.0 if name.endswith("scale") else 0.0)
+        paths = []
+        for i in range(SCALEOUT_PARSE_PAGES):
+            paths.append(os.path.join(tmp, f"parse{i}.png"))
+            Image.fromarray(pages_np[i]).save(paths[-1])
+        kw = dict(dynamic_resolution=True, max_pixels=QWEN_MAX_PIXELS, device="cuda")
+
+        def recording(parser):
+            """``parser`` with the token rows it decodes kept in ``parser.rows``."""
+            parser.rows, decode = [], parser.decode_tokens
+            parser.decode_tokens = lambda row: (parser.rows.append(np.array(row)), decode(row))[1]
+            return parser
+
+        # the DP parse runs parse_batch's one generate call over the pages; the
+        # PP ring runs one a page (JAX's rule), so it is held to the
+        # single-device parse of each page
+        base = recording(DocumentParser(model, ByteTokenizer(), **kw))
+        plain = base.parse_batch(paths, PP_NEW)
+        per_page = recording(DocumentParser(model, ByteTokenizer(), **kw))
+        plain_pages = [per_page.parse(p, PP_NEW) for p in paths]
+        per_pass = 7 * PP_LAYERS + 1
+        blocks = len(qconfig.vision.fullatt_block_indexes)
+        for label, parser, want, ref, ref_rows in (
+                ("mesh1_parse_dp", DocumentParser(model, ByteTokenizer(), dp_mesh=mesh, **kw),
+                 {"int4_matmul": per_pass * (1 + PP_NEW), "flash_attention": blocks},
+                 plain, base.rows),
+                ("mesh1_parse_pp", DocumentParser(model, ByteTokenizer(), pp_mesh=make_pp_mesh(1),
+                                                  pp_stages=1, **kw),
+                 {"int4_matmul": per_pass * (1 + PP_NEW) * SCALEOUT_PARSE_PAGES,
+                  "flash_attention": blocks * SCALEOUT_PARSE_PAGES},
+                 plain_pages, per_page.rows)):
+            recording(parser)
+            zero(counters)
+            res, ms = timed_ms(parser.parse_batch, paths, PP_NEW)
+            launches[label] = counts(counters)
+            check(launches[label] == only(counters, want),
+                  f"{label} launches {launches[label]} != {want}")
+            check(res == ref and all(np.array_equal(a, b) for a, b in zip(parser.rows, ref_rows)),
+                  f"{label}: {parser.rows} != {ref_rows}")
+            print(f"{label}: {SCALEOUT_PARSE_PAGES} pages' tokens and outputs EQUAL to the "
+                  f"single-device {'parse_batch' if label.endswith('dp') else 'parse a page'}; "
+                  f"{ms:.1f} ms; K3 {launches[label]['int4_matmul']}, K4 "
+                  f"{launches[label]['flash_attention']}")
+        same = [int(np.argmax(np.asarray(a) != np.asarray(b))) if not np.array_equal(a, b)
+                else len(a) for a, b in zip(base.rows, per_page.rows)]
+        print(f"parse_batch (one call, B = {SCALEOUT_PARSE_PAGES}) against parse a page (B = 1): "
+              f"the first {same} tokens of each page agree (bf16 on the card; EQUAL in f32 on "
+              "the CPU, tests/test_torch_doc_parser.py)")
+        from multimodal_embeddings_tpu_torch.kernels.quantization_int4 import int4_matmul
+
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        x = torch.randn(2, 5120, device="cuda", generator=gen).bfloat16()
+        packed = torch.randint(0, 256, (2560, 5120), device="cuda", generator=gen,
+                               dtype=torch.uint8)
+        scale = torch.rand(40, 5120, device="cuda", generator=gen) * 0.02
+        print(f"K3's decode form at (M, 5120) x (5120, 5120): row 0 at M = 1 EQUAL to row 0 at "
+              f"M = 2: {torch.equal(int4_matmul(x[:1], packed, scale), int4_matmul(x, packed, scale)[:1])}")
+        check(all(len(np.unique(r)) > 2 for r in base.rows),
+              f"the tokens hardly vary: {base.rows}")
+        print(f"tokens: {[r.tolist() for r in base.rows]}")
+        print(f"the 32B int4 widths, {PP_LAYERS} of 64 decoder layers, {PP_NEW} new tokens, pages "
+              f"at {plain[0][2]}x{plain[0][1]}: K3 = (7 x {PP_LAYERS} + 1) x (1 + {PP_NEW}) a "
+              f"generate call (dp: one call for both pages; pp: one a page), K4 = {blocks} "
+              "full-attention vision blocks a vision call")
+        del model
+        gc_cuda()
+    print(f"21c: {time.perf_counter() - t0:.1f} s")
+
+    # -- d. the CLIs refuse a second card -------------------------------------
+    phase("21d. cli.serve / cli.parse --data_parallel 2 on one card")
+    for name, main, argv, words in (
+            ("serve", serve_cli.main, ["--device", "cuda"], "needs 2 devices; only 1 visible"),
+            ("parse", parse_cli.main, ["--device", "cuda", "--size", "tiny"],
+             "--data_parallel 2: only 1 devices visible")):
+        try:
+            main(argv + ["--data_parallel", "2"])
+            check(False, f"cli.{name} --data_parallel 2 ran on one card")
+        except SystemExit as exc:
+            check(words in str(exc), f"cli.{name}: {exc}")
+            print(f"cli.{name} --data_parallel 2: exits with {str(exc)!r}")
+    seconds = time.perf_counter() - start
+    print(f"phase 21: {seconds:.1f} s; every number of it on {smi}")
+    out.update(launches=launches, seconds=seconds)
+    return out
 
 
 def gc_cuda() -> None:
@@ -5334,19 +5869,29 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
+    if sys.argv[1:] == ["--scaleout"]:
+        build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4))
+        scaleout_phase(kernel_counters(k1, k2, k3, k4, k5, k6, k7), smi)
+        print(f"phase 21 alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
         k7_checks(k7)
         print(f"K7 alone: {time.perf_counter() - start:.1f} s")
         return 0
-    build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
-          ("K8", SimpleNamespace(build_info=k2.sr_build_info)))
+    # K4 takes the longest nvcc by far: the phases that do not call it (4 to
+    # 8d) run while it builds, and phases 3, 3a and 6 follow them
+    k4_built = build(("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6),
+                     ("K7", k7), ("K8", SimpleNamespace(build_info=k2.sr_build_info)),
+                     later=("K4",))
     counters = kernel_counters(k1, k2, k3, k4, k5, k6, k7)
-    checks = kernel_checks(k1, k4)
-    last = last_port_checks(k1, k2, k4, k5)
-    gc.collect()
-    torch.cuda.empty_cache()
     vit_launches, crops, embs, model_config, detector, vit_embedder = full_slice(counters)
     card_vs_cpu(crops, embs, model_config)
     route = route_kernel_checks(k1, k5, k6, k7)
@@ -5357,7 +5902,6 @@ def main() -> int:
     del vit_embedder
     gc.collect()
     torch.cuda.empty_cache()
-    masked = masked_checks(k1, k4)
     int8 = int8_checks(k2)
     mme5_config = MllamaConfig.mme5_11b_int8_mixed()
     mme5_launches, mme5_crops, _, mme5_embedder, mme5_pages, mme5_ms = mme5_page(
@@ -5371,10 +5915,17 @@ def main() -> int:
     del mme5_embedder
     gc.collect()
     torch.cuda.empty_cache()
-    mme5_card_vs_cpu(mme5_crops, mme5_config)
+    k4_built()
+    checks = kernel_checks(k1, k4)
+    last = last_port_checks(k1, k2, k4, k5)
+    masked = masked_checks(k1, k4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    float_tree = mme5_card_vs_cpu(mme5_crops, mme5_config)
     gc.collect()
     storage_launches = mme5_storage_pages(counters, detector)
-    mme5_float_checkpoint(mme5_crops, mme5_config)
+    mme5_float_checkpoint(mme5_crops, mme5_config, float_tree)
+    del float_tree
     del detector, crops, embs, mme5_crops
     gc.collect()
     torch.cuda.empty_cache()
@@ -5401,6 +5952,8 @@ def main() -> int:
     parity_launches = parity_phase(counters)
     gc_cuda()
     train = train_phase(k1, k2, k3, k4, k5, k6, k7, counters, smi)
+    gc_cuda()
+    scaleout = scaleout_phase(counters, smi)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -5426,7 +5979,8 @@ def main() -> int:
              "workflow_6_pages": workflow_launches,
              **parity_launches,
              f"trainer_{TRAIN_STEPS}_steps": train["trainer"]["launches"],
-             "pp_greedy_generate": train["pp"]}
+             "pp_greedy_generate": train["pp"],
+             **scaleout["launches"]}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

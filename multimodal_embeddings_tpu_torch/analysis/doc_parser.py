@@ -12,9 +12,13 @@ byte tokens; pages whose model-input grids match run as one batch in
 ``models/qwen_serve.py`` in ``parse_continuous``.
 
 PIL is imported only inside the functions that open, resize or draw an
-image, so the module imports without it. The pipeline-parallel ring
-(``pp_mesh``/``pp_stages``) and the data-parallel mesh (``dp_mesh``) are
-not ported yet and raise.
+image, so the module imports without it.
+
+``pp_mesh``/``pp_stages`` pipeline the decoder stack over the stage ranks
+(``models/qwen_pp.py::pp_greedy_generate``); ``dp_mesh`` shards
+``parse_batch``'s pages over the data ranks (``core/mesh.py``), each rank
+generating its rows with its own copy of the weights and the tokens
+all-gathered, so every rank of the mesh returns every page's result.
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ from html.parser import HTMLParser
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from multimodal_embeddings_tpu_torch.core.mesh import DATA_AXIS, pad_to_multiple, shard_batch
+from multimodal_embeddings_tpu_torch.models.qwen_pp import pp_greedy_generate
 from multimodal_embeddings_tpu_torch.models.qwen_serve import continuous_generate
 from multimodal_embeddings_tpu_torch.models.qwen_vl import greedy_generate
 from multimodal_embeddings_tpu_torch.models.tokenizer import BYTE_OFFSET, EOS_ID
@@ -283,11 +290,26 @@ class DocumentParser:
         """``dynamic_resolution=True`` smart-resizes each page onto its own
         merged-patch grid (aspect kept, pixel budget ``max_pixels``, default
         image_size²) instead of a fixed square. ``prefill_chunk=C`` prefills
-        ``parse_batch`` C pages at a time (token-identical)."""
-        if pp_mesh is not None or pp_stages is not None or dp_mesh is not None:
-            raise NotImplementedError(
-                "the pipeline-parallel and data-parallel parse are not ported"
-            )
+        ``parse_batch`` C pages at a time (token-identical).
+
+        ``pp_stages``/``pp_mesh`` (``parallel/pipeline.py::make_pp_mesh``)
+        pipeline the decoder stack over a ``stage`` mesh axis
+        (``models/qwen_pp.py``) — the serving shape for the notebook's 32B
+        flagship. Token output equals the single-device decode.
+
+        ``dp_mesh`` data-parallels ``parse_batch`` over the mesh's ``data``
+        axis: pages shard on the batch dim (the batch padded by repeating
+        its last page), every rank holds the whole model, and the tokens are
+        all-gathered. Artifacts equal the single-device parse. Mutually
+        exclusive with the PP ring. ``prefill_chunk`` is ignored under
+        ``dp_mesh``, as in JAX. Every rank of a mesh makes the same calls."""
+        if (pp_mesh is None) != (pp_stages is None):
+            raise ValueError("pp_mesh and pp_stages must be set together")
+        if dp_mesh is not None and pp_mesh is not None:
+            raise ValueError("dp_mesh and pp_mesh are mutually exclusive")
+        self.pp_mesh = pp_mesh
+        self.pp_stages = pp_stages
+        self.dp_mesh = dp_mesh
         self.device = resolve_device(device)
         self.model = model
         self.tokenizer = tokenizer
@@ -339,7 +361,10 @@ class DocumentParser:
     def parse_batch(self, image_paths: List[str], max_new_tokens: int = 256
                     ) -> List[Tuple[str, int, int]]:
         """Pages whose model-input grids match run as one batch; results in
-        input order, the same tokens as per-page ``parse``."""
+        input order, the same tokens as per-page ``parse``. Under the PP ring
+        the pages run one by one (its microbatching is its own schedule)."""
+        if self.pp_stages:
+            return [self.parse(p, max_new_tokens) for p in image_paths]
         buckets: dict = {}
         for i, path in enumerate(image_paths):
             image = _open_rgb(path)
@@ -349,11 +374,29 @@ class DocumentParser:
             ids1 = self._prompt_ids(input_w, input_h, max_new_tokens)
             arr = np.concatenate([preprocess_page(img, input_w, input_h) for _, img in items])
             ids = np.tile(ids1, (len(items), 1))
-            out_tokens = greedy_generate(self.model, ids, arr, max_new_tokens=max_new_tokens,
-                                         prefill_chunk=self.prefill_chunk)
+            if self.dp_mesh is not None:
+                out_tokens = self._dp_generate(ids, arr, max_new_tokens)
+            else:
+                out_tokens = greedy_generate(self.model, ids, arr, max_new_tokens=max_new_tokens,
+                                             prefill_chunk=self.prefill_chunk)
             for row, (i, _) in zip(out_tokens, items):
                 results[i] = (self.decode_tokens(row), input_h, input_w)
         return results  # type: ignore[return-value]
+
+    def _dp_generate(self, ids: np.ndarray, arr: np.ndarray, max_new_tokens: int) -> np.ndarray:
+        """``greedy_generate`` of a page batch over ``dp_mesh``'s data axis:
+        the batch padded to the axis by repeating its last page, this rank's
+        rows generated, every rank's tokens gathered, the surplus dropped."""
+        n = ids.shape[0]
+        padded = pad_to_multiple(n, self.dp_mesh.shape[DATA_AXIS])
+        if padded != n:
+            # repeat the last page so the batch divides the data axis
+            ids = np.concatenate([ids, np.repeat(ids[-1:], padded - n, axis=0)])
+            arr = np.concatenate([arr, np.repeat(arr[-1:], padded - n, axis=0)])
+        local = greedy_generate(self.model, shard_batch(self.dp_mesh, ids),
+                                shard_batch(self.dp_mesh, arr), max_new_tokens=max_new_tokens)
+        tokens = torch.from_numpy(np.ascontiguousarray(local)).to(self.device)
+        return self.dp_mesh.all_gather(tokens, DATA_AXIS).cpu().numpy()[:n]
 
     def parse_continuous(
         self,
@@ -374,9 +417,9 @@ class DocumentParser:
         pixels are decoded and preprocessed only when a row takes it, so
         the host holds one preprocessed page at a time, not the queue.
         ``skip_errors=True`` gives None for a page that cannot be opened or
-        decoded, and the other pages stay in the decoder. The parser
-        refuses the pipeline- and data-parallel meshes when it is built, so
-        this loop always runs on one device."""
+        decoded, and the other pages stay in the decoder. The loop runs on
+        this rank's device alone, whatever the meshes (as in JAX; the CLI
+        refuses ``--continuous`` with either)."""
         buckets: dict = {}
         results: List[Optional[Tuple[str, int, int]]] = [None] * len(image_paths)
         for i, path in enumerate(image_paths):
@@ -401,7 +444,12 @@ class DocumentParser:
         input_w, input_h = self._input_size(image)
         arr = preprocess_page(image, input_w, input_h)
         ids = self._prompt_ids(input_w, input_h, max_new_tokens)
-        out_tokens = greedy_generate(self.model, ids, arr, max_new_tokens=max_new_tokens)
+        if self.pp_stages:
+            out_tokens = pp_greedy_generate(self.model.config, self.model, ids,
+                                            mesh=self.pp_mesh, n_stages=self.pp_stages,
+                                            max_new_tokens=max_new_tokens, images=arr)
+        else:
+            out_tokens = greedy_generate(self.model, ids, arr, max_new_tokens=max_new_tokens)
         return self.decode_tokens(out_tokens[0]), input_h, input_w
 
     def decode_tokens(self, tokens: np.ndarray) -> str:

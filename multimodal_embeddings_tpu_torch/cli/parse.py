@@ -22,21 +22,45 @@ that decoder.
         --output_folder out --size tiny --device cpu --max_new_tokens 8 \\
         --continuous --batch_size 2 --chunk 4
 
-``--pipeline_parallel`` and ``--data_parallel`` above 1 are not ported and
-exit with a message.
+``--data_parallel N`` shards the batched parse over N ranks (pages on the
+batch dim, the weights on every rank, ``--batch_size`` raised to N at
+least); ``--pipeline_parallel N`` pipelines the decoder stack over N stage
+ranks (``models/qwen_pp.py``; N must divide the decoder's layers). Either
+way ``main`` spawns the N ranks itself (``core/mesh.py::launch``: one card a
+rank over NCCL, gloo ranks under ``--device cpu``), or, started by a
+launcher that set ``RANK``/``WORLD_SIZE`` (``torchrun --nproc_per_node N``),
+joins that world as its rank. Rank 0 alone writes the outputs and logs; they
+are byte for byte those of a single-device run. The two are mutually
+exclusive, and ``--continuous`` takes neither, as in JAX.
+
+    python -m multimodal_embeddings_tpu_torch.cli.parse --input_folder pages \\
+        --output_folder out --size tiny --device cpu --max_new_tokens 8 \\
+        --batch_size 2 --data_parallel 2
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import logging
 import os
 
 import torch
+import torch.distributed as dist
 
+from multimodal_embeddings_tpu_torch.config import MeshConfig
+from multimodal_embeddings_tpu_torch.core.mesh import (
+    launch,
+    make_mesh,
+    quiet_other_ranks,
+    rank_device,
+    visible_devices,
+    world,
+)
 from multimodal_embeddings_tpu_torch.io.images import get_image_paths
+from multimodal_embeddings_tpu_torch.models.weights import resolve_device
 
 logger = logging.getLogger("multimodal_embeddings_tpu_torch.cli.parse")
 
@@ -59,8 +83,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dynamic_resolution", action="store_true",
                         help="Qwen2.5-VL native-aspect smart_resize grids")
     parser.add_argument("--max_pixels", type=int, default=None)
-    parser.add_argument("--pipeline_parallel", type=int, default=1, help="not ported")
-    parser.add_argument("--data_parallel", type=int, default=1, help="not ported")
+    parser.add_argument(
+        "--pipeline_parallel",
+        type=int,
+        default=1,
+        help="pipeline the decoder stack over this many chips (GPipe ring, "
+        "models/qwen_pp.py) — the 32B notebook flagship serves at int8 + 4 "
+        "stages ~ 10GB/chip, or int4 (the notebook's literal 4-bit storage "
+        "class) + 2 stages ~ 11GB/chip; layer count must divide evenly",
+    )
+    parser.add_argument(
+        "--data_parallel",
+        type=int,
+        default=1,
+        help="shard batched parsing over this many chips (mesh data axis: "
+        "pages shard on the batch dim, weights replicate, one SPMD "
+        "generate program) — compose with --batch_size >= N for per-chip "
+        "batching; mutually exclusive with --pipeline_parallel",
+    )
     parser.add_argument("--batch_size", type=int, default=1,
                         help="pages per generate call (DocumentParser.parse_batch)")
     parser.add_argument(
@@ -102,19 +142,61 @@ def make_config(size: str):
     }[size]()
 
 
+def check_scaleout(size: str, pipeline_parallel: int, data_parallel: int, continuous: bool,
+                   device) -> None:
+    """JAX's refusals of the parse meshes, with JAX's words and in JAX's
+    order."""
+    if data_parallel > 1:
+        if pipeline_parallel > 1:
+            raise SystemExit(
+                "--data_parallel and --pipeline_parallel are mutually "
+                "exclusive (dp replicates the weight tree; pp exists "
+                "because it does not fit)"
+            )
+        if visible_devices(device) < data_parallel:
+            raise SystemExit(
+                f"--data_parallel {data_parallel}: only "
+                f"{visible_devices(device)} devices visible"
+            )
+    if pipeline_parallel > 1:
+        layers = make_config(size).text.layers
+        if layers % pipeline_parallel:
+            raise SystemExit(
+                f"--pipeline_parallel {pipeline_parallel} must divide the "
+                f"{layers}-layer decoder evenly"
+            )
+        if visible_devices(device) < pipeline_parallel:
+            raise SystemExit(
+                f"--pipeline_parallel {pipeline_parallel}: only "
+                f"{visible_devices(device)} devices visible"
+            )
+    if continuous and (pipeline_parallel > 1 or data_parallel > 1):
+        raise SystemExit(
+            "--continuous schedules one device's rows; compose scale-out "
+            "by sharding the page list across chips instead"
+        )
+
+
 def make_document_parser(
     size: str,
     weights: str | None,
     image_size: int,
     dynamic_resolution: bool,
     max_pixels: int | None,
+    pipeline_parallel: int = 1,
+    data_parallel: int = 1,
     device="cuda",
 ):
+    """The parser of ``size`` on ``device``; under ``data_parallel`` or
+    ``pipeline_parallel`` above 1 it is this rank's, on its mesh (every rank
+    of a world of that size builds it)."""
     from multimodal_embeddings_tpu_torch.analysis.doc_parser import DocumentParser
     from multimodal_embeddings_tpu_torch.models.tokenizer import ByteTokenizer
-    from multimodal_embeddings_tpu_torch.models.weights import build_qwen, resolve_device
+    from multimodal_embeddings_tpu_torch.models.weights import build_qwen
+    from multimodal_embeddings_tpu_torch.parallel.pipeline import make_pp_mesh
 
-    dev = resolve_device(device)
+    scaled = data_parallel > 1 or pipeline_parallel > 1
+    dev = rank_device(device) if scaled else resolve_device(device)
     config = make_config(size)
     if size.startswith("tiny"):
         image_size = min(image_size, 56)
@@ -125,36 +207,51 @@ def make_document_parser(
         logger.warning("document parser (%s) running with seeded synthetic weights "
                        "(no checkpoint configured)", size)
     model = build_qwen(config, compute, dev, seed=0, weights_path=weights)
+    dp_mesh = make_mesh(MeshConfig(shape=(data_parallel, 1))) if data_parallel > 1 else None
+    pp_mesh = make_pp_mesh(pipeline_parallel) if pipeline_parallel > 1 else None
     return DocumentParser(model, ByteTokenizer(), image_size=image_size,
                           dynamic_resolution=dynamic_resolution, max_pixels=max_pixels,
-                          device=dev)
+                          pp_mesh=pp_mesh,
+                          pp_stages=pipeline_parallel if pipeline_parallel > 1 else None,
+                          dp_mesh=dp_mesh, device=dev)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    check_scaleout(args.size, args.pipeline_parallel, args.data_parallel, args.continuous,
+                   args.device)
+    ranks = max(args.pipeline_parallel, args.data_parallel)
+    if ranks > 1 and not dist.is_initialized():
+        # by its importable name, which a spawned rank unpickles
+        module = importlib.import_module("multimodal_embeddings_tpu_torch.cli.parse")
+        return launch(module.run, ranks, args, device=args.device, timeout=None)[0]
+    return run(args)
+
+
+def run(args) -> int:
+    """The parse of ``args`` on this process (this rank, under a mesh: rank
+    0 alone writes the outputs and logs)."""
     from multimodal_embeddings_tpu_torch.analysis.doc_parser import (
         clean_and_format_html,
         draw_bbox,
         extract_bbox_elements,
     )
 
-    if args.continuous and (args.pipeline_parallel > 1 or args.data_parallel > 1):
-        raise SystemExit(
-            "--continuous schedules one device's rows; compose scale-out "
-            "by sharding the page list across chips instead"
-        )
-    if args.pipeline_parallel > 1 or args.data_parallel > 1:
-        raise SystemExit("--pipeline_parallel and --data_parallel are not ported to the "
-                         "PyTorch package")
+    quiet_other_ranks()
+    writer = world()[0] == 0
     paths = get_image_paths(args.input_folder)
     if not paths:
         logger.error("no images in %s", args.input_folder)
         return 1
-    os.makedirs(args.output_folder, exist_ok=True)
+    if writer:
+        os.makedirs(args.output_folder, exist_ok=True)
     parser_obj = make_document_parser(
         args.size, args.weights, args.image_size, args.dynamic_resolution, args.max_pixels,
+        pipeline_parallel=args.pipeline_parallel, data_parallel=args.data_parallel,
         device=args.device,
     )
+    if args.data_parallel > 1 and args.batch_size < args.data_parallel:
+        args.batch_size = args.data_parallel  # one page per chip minimum
     n_done = 0
     index = []
     # continuous mode schedules the WHOLE queue in one call — refill
@@ -163,6 +260,8 @@ def main(argv=None) -> int:
     for start in range(0, len(paths), batch):
         chunk = paths[start : start + batch]
         parsed = _parse_chunk(parser_obj, chunk, batch, args)
+        if not writer:
+            continue
         for path, result in zip(chunk, parsed):
             stem = os.path.splitext(os.path.basename(path))[0]
             if result is None:
@@ -186,8 +285,9 @@ def main(argv=None) -> int:
             })
             n_done += 1
             logger.info("parsed %s: %d bbox elements", stem, n_boxes)
-    with open(os.path.join(args.output_folder, "parse_index.json"), "w") as f:
-        json.dump(index, f, indent=2)
+    if writer:
+        with open(os.path.join(args.output_folder, "parse_index.json"), "w") as f:
+            json.dump(index, f, indent=2)
     logger.info("parsed %d/%d pages", n_done, len(paths))
     return 0
 

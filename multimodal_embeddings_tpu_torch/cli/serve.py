@@ -26,13 +26,35 @@ sequence, the A/B reference.
 The package keeps no ``try``: a page that cannot be opened or decoded fails
 in ``_prepare``, on a worker thread whose future holds the error, and is
 logged and skipped; a failure on the device or in the store stops the run.
-``--data_parallel`` and ``--model_parallel`` above 1 are not ported and exit
-with a message.
+
+``--data_parallel N`` and ``--model_parallel M`` serve on a (N, M) mesh of
+ranks (``core/mesh.py``), one process and one card a rank: ``main`` spawns
+the N·M ranks itself (``core/mesh.py::launch``: NCCL on the cards, gloo
+ranks under ``--device cpu``), or, started by a launcher that set
+``RANK``/``WORLD_SIZE`` (``torchrun --nproc_per_node N·M``), joins that
+world as its rank. Pages are grouped by shape bucket into batches of N, each
+rank running its page of a batch through the batch program
+(``build_split_batch_fn`` for mme5, ``build_fused_batch_fn`` for siglip;
+a partial group is padded by repeating its first page, whose results are
+dropped), and the mme5 tree is tensor-sharded over the M ranks of the
+model axis (``MultimodalEmbedder(mesh=)``). Rank 0 alone reads and marks
+the progress file, writes the store and logs; every rank decodes every page
+of the run (the host work is repeated, not sent), and under M > 1 every
+rank also keeps an unwritten copy of the store so that the collective
+whole-page embedding runs on every rank in step. The store, the progress
+file and the logs are those of a single-device run. A rank that fails
+fails the run: ``launch`` raises and the CLI exits non-zero.
+
+    python -m multimodal_embeddings_tpu_torch.cli.serve --input_folder pages \\
+        --db_path db --device cpu --imgsz 64 --variant n --grid_configs "" \\
+        --num_regions 4 --embedder_size tiny --embedder_family mme5 \\
+        --data_parallel 2 --model_parallel 2
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -40,13 +62,35 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from multimodal_embeddings_tpu_torch.config import DetectorConfig, EmbedderConfig, ID_TO_NAMES
+from multimodal_embeddings_tpu_torch.config import (
+    DetectorConfig,
+    EmbedderConfig,
+    ID_TO_NAMES,
+    MeshConfig,
+)
 from multimodal_embeddings_tpu_torch.io.images import get_image_paths, load_image_rgb
+from multimodal_embeddings_tpu_torch.core.mesh import (
+    launch,
+    make_mesh,
+    quiet_other_ranks,
+    rank_device,
+    visible_devices,
+    world,
+)
 from multimodal_embeddings_tpu_torch.io.logging_setup import get_logger
 from multimodal_embeddings_tpu_torch.io.prefetch import Prefetcher
 from multimodal_embeddings_tpu_torch.io.progress import ProgressTracker
+from multimodal_embeddings_tpu_torch.models.weights import resolve_device
+from multimodal_embeddings_tpu_torch.pipeline.fused import PageResult
 from multimodal_embeddings_tpu_torch.pipeline.regions import region_metadata
+from multimodal_embeddings_tpu_torch.store.embedding_store import (
+    DEFAULT_COLLECTION,
+    HNSW_COMPAT_METADATA,
+    Collection,
+    initialize_db,
+)
 
 logger = get_logger("cli.serve")
 
@@ -61,23 +105,67 @@ def bucket_for(h: int, w: int, buckets) -> Tuple[int, int]:
     return buckets[-1]
 
 
+def check_scaleout(args) -> None:
+    """JAX's refusals of a serving mesh, with JAX's words."""
+    dp, mp = args.data_parallel, args.model_parallel
+    need = dp * mp
+    have = visible_devices(args.device)
+    if have < need:
+        raise SystemExit(
+            f"--data_parallel {dp} x --model_parallel {mp} needs "
+            f"{need} devices; only {have} visible"
+        )
+    if mp > 1 and args.embedder_family != "mme5":
+        raise SystemExit(
+            "--model_parallel tensor-shards the parity (mme5) "
+            "embedder; the siglip tower fits one chip — scale it "
+            "with --data_parallel"
+        )
+    if mp > 1 and args.quantize:
+        raise SystemExit(
+            "--model_parallel serves the bf16 tree; the int8 path "
+            "is single-chip (drop --quantize, or use "
+            "--data_parallel alone)"
+        )
+
+
+class _MirrorCollection(Collection):
+    """A rank's copy of rank 0's store under tensor parallelism: the same
+    upserts in the same order, in memory only, so that its dedup of the
+    whole-page embedding (a collective call) decides as rank 0's does."""
+
+    def persist(self) -> None:
+        pass
+
+
 class FusedServer:
     def __init__(self, args):
         from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
         from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
         from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
         from multimodal_embeddings_tpu_torch.models.vision_encoder import DualEncoderConfig
-        from multimodal_embeddings_tpu_torch.models.weights import resolve_device
         from multimodal_embeddings_tpu_torch.pipeline.regions import ImageProcessor
-        from multimodal_embeddings_tpu_torch.store.embedding_store import initialize_db
 
-        if args.data_parallel > 1 or args.model_parallel > 1:
-            raise SystemExit(
-                "--data_parallel and --model_parallel above 1 are not ported: the port "
-                "serves on one device"
-            )
         self.args = args
-        self.device = resolve_device(args.device)
+        self.mesh = None
+        self.rank = world()[0]
+        dp, mp = args.data_parallel, args.model_parallel
+        if dp > 1 or mp > 1:
+            # the serving mesh. Data axis: a page batch sharded one page per
+            # data rank (the reference's round-robin GPUs, embedder.py:
+            # 190-224; the split batch for mme5, the fused batch for siglip).
+            # Model axis: the parity embedder tensor-sharded by the
+            # Megatron-style rules (parallel/sharding.py)
+            check_scaleout(args)
+            if world()[1] != dp * mp:
+                raise RuntimeError(
+                    f"a (data {dp}, model {mp}) mesh needs a world of {dp * mp} ranks, "
+                    f"this one has {world()[1]}: run main(), which spawns them, or "
+                    "start one process a rank under a launcher"
+                )
+            self.mesh = make_mesh(MeshConfig(shape=(dp, mp)))
+        self.device = resolve_device(args.device) if self.mesh is None \
+            else rank_device(args.device)
         det_cfg = DetectorConfig(
             image_size=args.imgsz,
             variant=args.variant,
@@ -102,11 +190,22 @@ class FusedServer:
             ),
             model_config=model_config,
             device=self.device,
+            # tensor parallelism shards the embedder tree at load; dp-only
+            # meshes keep a whole tree on every rank
+            mesh=self.mesh if mp > 1 else None,
         )
-        _, self.collection = initialize_db(args.db_path, device=self.device)
+        if self.rank == 0:
+            _, self.collection = initialize_db(args.db_path, device=self.device)
+        else:
+            self.collection = _MirrorCollection(args.db_path, DEFAULT_COLLECTION,
+                                                HNSW_COMPAT_METADATA, device=self.device)
+        # every rank finalizes where the whole-page embedding is collective
+        # (a model-sharded embedder); else rank 0 alone
+        self._finalizes = self.rank == 0 or self.embedder.mesh is not None
         self._image_processor = ImageProcessor(self.embedder, self.collection)
         self.progress = ProgressTracker(os.path.join(args.db_path, "serve_progress.json"))
         self._page_fns: Dict[Tuple[int, int], object] = {}
+        self._batch_fns: Dict[Tuple[int, int], object] = {}
 
     def _embed_chunk(self) -> int:
         """mme5 region-embed chunk: the int8 11B vision attention's
@@ -176,6 +275,8 @@ class FusedServer:
 
     def _finalize(self, path: str, prepared, result) -> int:
         """Host stage 2: fetch results, map coordinates, upsert."""
+        if not self._finalizes:
+            return 0
         _, _, scale, h, w = prepared
         boxes = result.boxes.cpu().numpy().astype(np.float64)
         scores = result.scores.cpu().numpy().astype(np.float64)
@@ -208,12 +309,89 @@ class FusedServer:
         # whole-page embedding (is_region: False) for page-level analysis;
         # ImageProcessor gives the schema and the store-existence dedup
         self._image_processor.process_image(path)
-        self.progress.mark_completed(path)
+        if self.rank == 0:
+            self.progress.mark_completed(path)
         return len(ids)
 
+    def _batch_fn_for_bucket(self, bucket: Tuple[int, int]):
+        if bucket not in self._batch_fns:
+            from multimodal_embeddings_tpu_torch.pipeline.fused import (
+                build_fused_batch_fn,
+                build_split_batch_fn,
+            )
+
+            logger.info("building the dp=%d batch program(s) for bucket %s",
+                        self.args.data_parallel, bucket)
+            letterbox = not self.args.squeeze_views
+            if self.embedder.config.family == "mme5":
+                # parity embedder: the detect batch + embed chunks, one page
+                # per rank over the data axis
+                self._batch_fns[bucket] = build_split_batch_fn(
+                    self.detector, self.embedder, bucket,
+                    num_regions=self.args.num_regions,
+                    embed_chunk=self._embed_chunk(),
+                    letterbox=letterbox,
+                    mesh=self.mesh,
+                )
+            else:
+                self._batch_fns[bucket] = build_fused_batch_fn(
+                    self.detector, self.embedder, bucket,
+                    num_regions=self.args.num_regions,
+                    mesh=self.mesh,
+                    letterbox=letterbox,
+                )
+        return self._batch_fns[bucket]
+
+    def _run_batched(self, paths) -> int:
+        """Data-parallel ingest: pages grouped by shape bucket into batches
+        of ``data_parallel``, each batch one call of the batch program over
+        the mesh's data axis; the last partial group is padded by repeating
+        its first page (clone results are discarded). Every rank decodes the
+        same pages, so every rank forms the same batches."""
+        n = self.args.data_parallel
+        total = 0
+        queues: Dict[Tuple[int, int], list] = {}
+
+        def flush(bucket) -> None:
+            nonlocal total
+            entries = queues.pop(bucket, [])
+            if not entries:
+                return
+            padded_batch = np.stack(
+                [prep[0] for _, prep in entries]
+                + [entries[0][1][0]] * (n - len(entries))
+            )
+            result = self._batch_fn_for_bucket(bucket)(padded_batch)
+            for b, (path, prep) in enumerate(entries):
+                cnt = self._finalize(path, prep, PageResult(*(x[b] for x in result)))
+                total += cnt
+                logger.info("served %s: %d regions (dp batch)", os.path.basename(path), cnt)
+
+        with Prefetcher(paths, self._prepare, depth=2) as prefetcher:
+            for path, prepared, error in iter(prefetcher.next_entry, None):
+                if error is not None:
+                    logger.error("failed on %s: %s", error.item, error.cause)
+                    continue
+                bucket = prepared[1]
+                queues.setdefault(bucket, []).append((path, prepared))
+                if len(queues[bucket]) == n:
+                    flush(bucket)
+        for bucket in list(queues):
+            flush(bucket)
+        return total
+
     def process_page(self, path: str) -> int:
-        """Sequential single-page path (decode → execute → finalize)."""
+        """Sequential single-page path (decode → execute → finalize).
+
+        On a mesh the page runs through the batch program (a TP-sharded
+        embedder serves only over its mesh); the data axis is padded by
+        repeating the page and clone results are discarded."""
         prepared = self._prepare(path)
+        if self.mesh is not None:
+            fn = self._batch_fn_for_bucket(prepared[1])
+            batch = np.stack([prepared[0]] * self.args.data_parallel)
+            result = PageResult(*(x[0] for x in fn(batch)))
+            return self._finalize(path, prepared, result)
         return self._finalize(path, prepared, self._submit(prepared))
 
     def _log_rate(self, n_pages: int, start: float, mode: str) -> None:
@@ -231,6 +409,14 @@ class FusedServer:
             if not self.progress.is_completed(p)
         ]
         start = time.perf_counter()
+        if self.mesh is not None:
+            box = [paths]
+            dist.broadcast_object_list(box, src=0)  # rank 0's list on every rank
+            paths = box[0]
+            self._run_batched(paths)
+            self._log_rate(len(paths), start, f", dp={self.args.data_parallel} "
+                                              f"tp={self.args.model_parallel}")
+            return len(paths)
         if self.args.no_prefetch:
             # sequential A/B reference: each decode runs on a worker thread
             # (whose future holds a decode error) and is waited for
@@ -294,8 +480,22 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="aspect-squeeze view resize instead of the default letterbox",
     )
-    parser.add_argument("--data_parallel", type=int, default=1, help="not ported")
-    parser.add_argument("--model_parallel", type=int, default=1, help="not ported")
+    parser.add_argument(
+        "--data_parallel",
+        type=int,
+        default=1,
+        help="shard page batches of this size over the mesh data axis "
+        "(multi-chip serving; pages grouped by shape bucket)",
+    )
+    parser.add_argument(
+        "--model_parallel",
+        type=int,
+        default=1,
+        help="tensor-shard the parity (mme5) embedder over this many chips "
+        "per page (Megatron-style logical-axis rules; serves weight trees "
+        "one chip can't hold, e.g. bf16 11B at tp=2); composes with "
+        "--data_parallel on a (dp, tp) mesh",
+    )
     parser.add_argument(
         "--no_prefetch",
         action="store_true",
@@ -308,14 +508,28 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def serve(args) -> int:
+    """Build the server and ingest (with ``--watch``, forever); on a rank
+    other than 0 the port's loggers are silenced (rank 0 logs what JAX's
+    single controller logs)."""
+    quiet_other_ranks()
     server = FusedServer(args)
     server.run_once()
     while args.watch:
         time.sleep(args.poll_interval)
         server.run_once()
     return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    ranks = args.data_parallel * args.model_parallel
+    if ranks > 1 and not dist.is_initialized():
+        check_scaleout(args)
+        # by its importable name, which a spawned rank unpickles
+        module = importlib.import_module("multimodal_embeddings_tpu_torch.cli.serve")
+        return launch(module.serve, ranks, args, device=args.device, timeout=None)[0]
+    return serve(args)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ names, arguments and errors; a sharding is ``Sharding(mesh, spec)`` and
 from __future__ import annotations
 
 import dataclasses
+import logging
 import multiprocessing.connection
 import os
 import tempfile
@@ -58,6 +59,22 @@ def world() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def visible_devices(device="cuda") -> int:
+    """The devices a world of ranks may take: the CUDA cards, or the CPU's
+    cores for gloo ranks (asking for CUDA where there is none raises)."""
+    if resolve_device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def quiet_other_ranks() -> None:
+    """Silence the port's loggers on every rank but 0, which logs what JAX's
+    single controller logs."""
+    if world()[0] != 0:
+        for name in ("mmtpu", "multimodal_embeddings_tpu_torch"):
+            logging.getLogger(name).setLevel(logging.CRITICAL + 1)
 
 
 def rank_device(device="cuda") -> torch.device:

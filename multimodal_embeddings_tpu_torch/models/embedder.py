@@ -23,7 +23,16 @@ exists but does not decode raises where the JAX engine returns ``None``
 (it catches every exception of the decode). PyTorch runs eagerly, so a
 batch is not padded to ``batch_size`` as the JAX engine pads it for
 ``jit``: the rows of a batch are independent, so the results are the same.
-The JAX engine's ``mesh`` argument is not ported.
+
+``mesh`` (``core/mesh.py::Mesh``; every rank of it builds the engine and
+makes the same calls) shards the engine as the JAX engine's ``mesh`` does:
+the parameters are cut over the model axis by
+``parallel/sharding.py::shard_variables`` (attention heads, MLP columns,
+the vocab; each rank cuts its shard from the whole tree, loaded through the
+bridge), and ``get_image_embeddings`` pads each batch to a multiple of the
+data axis, embeds each rank's rows on its device and all-gathers them, so
+every rank returns the whole list. The quantized (``int8``/``int4``) trees
+refuse a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +46,12 @@ import numpy as np
 import torch
 
 from multimodal_embeddings_tpu_torch.config import EmbedderConfig
+from multimodal_embeddings_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    pad_to_multiple,
+    rank_device,
+    shard_batch,
+)
 from multimodal_embeddings_tpu_torch.io.images import resize_image_if_needed
 from multimodal_embeddings_tpu_torch.models.mllama_processor import preprocess_image
 from multimodal_embeddings_tpu_torch.models.mme5 import MllamaConfig
@@ -51,6 +66,7 @@ from multimodal_embeddings_tpu_torch.models.weights import (
     load_params,
     resolve_device,
 )
+from multimodal_embeddings_tpu_torch.parallel.sharding import shard_variables
 
 logger = logging.getLogger("multimodal_embeddings_tpu_torch.embedder")
 
@@ -67,9 +83,11 @@ class MultimodalEmbedder:
         device="cuda",
         params: Optional[Flat] = None,
         tokenizer=None,
+        mesh=None,
     ):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else rank_device(device)
         self.dtype = _DTYPES[config.dtype]
         self.tokenizer = tokenizer or ByteTokenizer()
         if config.family == "siglip":
@@ -83,6 +101,12 @@ class MultimodalEmbedder:
             mc = model_config or MllamaConfig.mme5_11b()
             if config.quantize and not mc.quantize:
                 mc = dataclasses.replace(mc, quantize=config.quantize)
+            if mc.quantize and mesh is not None:
+                raise ValueError(
+                    "the int8/int4 serving path is single-chip (quantized "
+                    "params carry no TP axis metadata); use bf16 + tensor "
+                    "parallelism on meshes"
+                )
             self.model_config = mc
             self.model = build_mme5(
                 mc, self.dtype, self.device, seed, params, config.weights_path
@@ -95,6 +119,8 @@ class MultimodalEmbedder:
             self.prompt_mask = torch.from_numpy(mask).to(self.device)
         else:
             raise ValueError(f"unknown embedder family {config.family!r}")
+        if mesh is not None:
+            shard_variables(self.model, mesh)
 
     # -- device entry points ------------------------------------------------
 
@@ -158,12 +184,25 @@ class MultimodalEmbedder:
 
     def _embed_batch(self, batch: list) -> np.ndarray:
         if self.config.family == "siglip":
-            x = torch.from_numpy(np.stack(batch)).to(self.device)
-            return self.encode_image(x).cpu().numpy()
-        tiles = torch.from_numpy(np.stack([t.tiles for t in batch])).to(self.device)
-        ar_ids = torch.tensor([t.aspect_ratio_id for t in batch], device=self.device)
-        tmask = torch.from_numpy(np.stack([t.tile_mask for t in batch])).to(self.device)
-        return self.encode_tiles(tiles, ar_ids, tmask).cpu().numpy()
+            inputs = (np.stack(batch),)
+        else:
+            inputs = (np.stack([t.tiles for t in batch]),
+                      np.asarray([t.aspect_ratio_id for t in batch], np.int64),
+                      np.stack([t.tile_mask for t in batch]))
+        n = len(batch)
+        if self.mesh is not None:
+            # pad to the data axis (tiles zero, aspect id 1, tile mask 0, as
+            # JAX pads), embed this rank's rows, gather every rank's
+            pad = pad_to_multiple(n, self.mesh.shape[DATA_AXIS]) - n
+            inputs = tuple(shard_batch(self.mesh, np.concatenate(
+                [x, np.full((pad, *x.shape[1:]), fill, x.dtype)]))
+                for x, fill in zip(inputs, (0, 1, 0)))
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in inputs]
+        emb = self.encode_image(*args) if self.config.family == "siglip" \
+            else self.encode_tiles(*args)
+        if self.mesh is not None:
+            emb = self.mesh.all_gather(emb, DATA_AXIS)
+        return emb[:n].cpu().numpy()
 
     def get_image_embeddings(
         self,
@@ -175,6 +214,9 @@ class MultimodalEmbedder:
         per input, None for a path that is not a readable file
         (``embedder.py:141-226``)."""
         batch_size = batch_size or self.config.batch_size
+        if self.mesh is not None:
+            # padded batches must divide evenly over the data axis
+            batch_size = pad_to_multiple(batch_size, self.mesh.shape[DATA_AXIS])
         results: List[Optional[List[float]]] = [None] * len(images)
         pending = [(i, p) for i, p in enumerate(map(self._prepare, images)) if p is not None]
         for start in range(0, len(pending), batch_size):

@@ -26,10 +26,19 @@ Step 1 squeezes each view to the detector's square input, or with
 canvas (``letterbox_views_matmul``), as in the JAX package: the page in
 bf16, the canvas in f32, then bf16 ``/255``.
 
+``build_fused_batch_fn`` and ``build_split_batch_fn`` run a batch of B
+pages: PyTorch has no ``vmap`` program to build, so the page batch is
+folded into the leading dimension of each device call: the detector runs
+the B·V views in one call, then each page's selection and crops, and the
+embedder runs chunk i of every page as one call of B·chunk crops (the
+fused batch: all B·K crops at once). With a ``mesh`` the pages are sharded
+over its data axis, one contiguous block a rank; every rank holds its own
+copy of the weights (a model-sharded embedder keeps its shard), and the
+results are all-gathered, so every rank returns the whole batch's result.
+
 PyTorch runs eagerly, so the JAX package's program-shaping arguments
 (``closure_weights``, ``embed_closure``, ``auto_layouts``) and its XLA cost
-analysis have no counterpart. The multi-page batch functions are not ported
-yet.
+analysis have no counterpart.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from multimodal_embeddings_tpu_torch.core.mesh import DATA_AXIS, shard_batch
 from multimodal_embeddings_tpu_torch.models.detector import LayoutDetector
 from multimodal_embeddings_tpu_torch.models.embedder import MultimodalEmbedder
 from multimodal_embeddings_tpu_torch.models.mllama_processor import (
@@ -109,7 +119,9 @@ def build_fused_detect_fn(
     ``edge_filter`` drops grid-cell boxes within 10 px of an internal cell
     edge before the cross-view NMS; ``candidate_cap`` bounds that NMS at
     ``cap·num_regions`` candidates (≤ 0: all view boxes). Pixels ride in
-    bf16 through the resampling, as in the JAX package's default."""
+    bf16 through the resampling, as in the JAX package's default.
+    ``fn.batch(pages)`` takes a (B, H, W, 3) batch: the detector runs its
+    B·V views in one call, and every output gains a leading page dim."""
     height, width = page_hw
     cfg = detector.config
     view_bounds = view_slice_bounds_for_page(
@@ -139,39 +151,28 @@ def build_fused_detect_fn(
     cells = torch.from_numpy(vb).to(dev)
     page_size = torch.tensor([float(width), float(height)], device=dev)
 
-    @torch.inference_mode()
-    def detect_and_crop(page: torch.Tensor):
-        pagef = page.to(torch.bfloat16)
+    def views_of(pagef: torch.Tensor) -> torch.Tensor:
         if letterbox:
-            view_imgs = (
-                letterbox_views_matmul(pagef, view_bounds, det_size)[0].to(torch.bfloat16)
-                / 255.0
-            )
-        else:
-            view_imgs = (
-                extract_views_matmul(pagef, view_bounds, det_size, dtype=torch.bfloat16)
-                / 255.0
-            )
-        det = decode_predictions(
-            detector.model(view_imgs),
-            max_det=cfg.max_detections,
-            conf_threshold=cfg.conf_threshold,
-            iou_threshold=cfg.iou_threshold,
-        )
-        b = det.boxes  # (V, M, 4) detector-input pixels
+            return (letterbox_views_matmul(pagef, view_bounds, det_size)[0].to(torch.bfloat16)
+                    / 255.0)
+        return extract_views_matmul(pagef, view_bounds, det_size, dtype=torch.bfloat16) / 255.0
+
+    def select_and_crop(pagef, det_boxes, det_scores, det_classes, det_valid):
+        """One page's V views' detections → its top regions and crops."""
+        b = det_boxes  # (V, M, 4) detector-input pixels
         view_page_boxes = torch.stack(
             [b[..., 0] * sx + ox, b[..., 1] * sy + oy,
              b[..., 2] * sx + ox, b[..., 3] * sy + oy],
             dim=-1,
         )
-        valid = det.valid
+        valid = det_valid
         if edge_filter:
             valid = valid & ~internal_edge_mask(
                 view_page_boxes, cells, page_size, threshold=10.0
             )
         page_boxes = view_page_boxes.reshape(-1, 4)
-        flat_scores = torch.where(valid, det.scores, -1.0).reshape(-1)
-        flat_classes = det.classes.reshape(-1)
+        flat_scores = torch.where(valid, det_scores, -1.0).reshape(-1)
+        flat_classes = det_classes.reshape(-1)
 
         # class-aware cross-view NMS (IoU combine_iou) over the strongest
         # candidates, then the top num_regions survivors
@@ -196,6 +197,30 @@ def build_fused_detect_fn(
         )
         return top_boxes, top_scores, cand_classes[sel_orig], top_scores > 0, crops
 
+    @torch.inference_mode()
+    def detect_and_crop_batch(pages: torch.Tensor):
+        """(B, H, W, 3) uint8 pages → each output with a leading page dim:
+        the detector runs all B·V views in one call, then each page's
+        selection and crops."""
+        pagesf = pages.to(torch.bfloat16)
+        views = [views_of(p) for p in pagesf]
+        n_views = views[0].shape[0]
+        det = decode_predictions(
+            detector.model(torch.cat(views) if len(views) > 1 else views[0]),
+            max_det=cfg.max_detections,
+            conf_threshold=cfg.conf_threshold,
+            iou_threshold=cfg.iou_threshold,
+        )
+        per_page = [
+            select_and_crop(pagef, *(x[i * n_views : (i + 1) * n_views] for x in det))
+            for i, pagef in enumerate(pagesf)
+        ]
+        return tuple(torch.stack(field) for field in zip(*per_page))
+
+    def detect_and_crop(page: torch.Tensor):
+        return tuple(x[0] for x in detect_and_crop_batch(page[None]))
+
+    detect_and_crop.batch = detect_and_crop_batch
     return detect_and_crop
 
 
@@ -260,6 +285,14 @@ def _region_embed_fn(embedder, num_regions, embed_chunk, embed_tiles, text_chunk
         # vision_mask None: every tile of a page crop is real
         return torch.cat([embedder.embed_vision_states(s) for s in chunks(states, text_chunk)])
 
+    def embed_batch(crops: torch.Tensor) -> torch.Tensor:
+        """(B, K, ...) crops of B pages → (B, K, D): chunk i of every page
+        in one call of B·chunk crops, pages outermost."""
+        b = crops.shape[0]
+        return torch.cat([embed_one(crops[:, i : i + embed_chunk].flatten(0, 1)).unflatten(0, (b, -1))
+                          for i in range(0, num_regions, embed_chunk)], dim=1)
+
+    embed.batch = embed_batch
     return embed
 
 
@@ -315,3 +348,84 @@ def build_split_page_fn(
     fn.detect = detect_fn
     fn.embed = embed
     return fn
+
+
+def _batch_fn(detect, embed_batch, device, mesh):
+    """``fn(pages (B, H, W, C) uint8, a tensor or numpy) → PageResult`` with
+    a leading page dim on every field; over ``mesh``, this rank's block of
+    the pages, the results gathered over its data axis."""
+
+    def batched(pages) -> PageResult:
+        boxes, scores, classes, valid, crops = detect.batch(torch.as_tensor(pages).to(device))
+        return PageResult(boxes, scores, classes, valid, embed_batch(crops))
+
+    if mesh is None:
+        fn = batched
+    else:
+
+        def gather(x: torch.Tensor) -> torch.Tensor:
+            if x.dtype == torch.bool:  # gloo gathers no bool
+                return mesh.all_gather(x.to(torch.uint8), DATA_AXIS).bool()
+            return mesh.all_gather(x, DATA_AXIS)
+
+        def fn(pages) -> PageResult:
+            return PageResult(*map(gather, batched(shard_batch(mesh, pages))))
+
+    fn.detect = detect.batch
+    fn.embed = embed_batch
+    return fn
+
+
+def build_fused_batch_fn(
+    detector: LayoutDetector,
+    embedder: MultimodalEmbedder,
+    page_hw: Tuple[int, int],
+    num_regions: int = 48,
+    mesh=None,
+    letterbox: bool = False,
+    edge_filter: bool = True,
+):
+    """Multi-page variant of ``build_fused_page_fn``: a page batch through
+    one detector call over all its views and one embedder call over all its
+    crops, optionally sharded over the mesh's data axis (the multi-card
+    serving path: each rank processes its block of pages).
+
+    Returns ``fn(pages_uint8 (B, H, W, C)) -> PageResult`` with leading
+    batch dims on every field; ``fn.detect`` and ``fn.embed`` are its two
+    halves."""
+    embed = _region_embed_fn(embedder, num_regions, 0, 1)
+    detect = build_fused_detect_fn(detector, page_hw, num_regions, embedder.image_size,
+                                   letterbox=letterbox, edge_filter=edge_filter)
+    return _batch_fn(detect, embed.batch, detector.device, mesh)
+
+
+def build_split_batch_fn(
+    detector: LayoutDetector,
+    embedder: MultimodalEmbedder,
+    page_hw: Tuple[int, int],
+    num_regions: int = 48,
+    embed_chunk: int = 8,
+    letterbox: bool = False,
+    edge_filter: bool = True,
+    mesh=None,
+):
+    """Data-parallel variant of the two-half split: a page BATCH runs the
+    detect+crop half at once, then each region chunk of every page runs as
+    one embedder call (``crops[:, i:i+embed_chunk]``, B·chunk crops) — with
+    a ``mesh`` every rank serves its own pages (the reference's per-GPU
+    round-robin, ``deprecated_package/embedder.py:190-224``). This is the
+    multi-card serving shape for the PARITY embedder: an 11B int8 tree
+    fills much of one card, so scaling is one page per card over the data
+    axis rather than intra-page parallelism.
+
+    Returns ``fn(pages_uint8 (B, H, W, C)) -> PageResult`` with leading
+    batch dims. Per-page results equal ``build_split_page_fn`` (the
+    single-page split) within the batched calls' reassociation tolerance."""
+    family = embedder.config.family
+    if family not in ("mme5", "siglip"):
+        raise ValueError(f"unsupported split-batch family: {family}")
+    assert num_regions % embed_chunk == 0, (num_regions, embed_chunk)
+    embed = _region_embed_fn(embedder, num_regions, embed_chunk, 1)
+    detect = build_fused_detect_fn(detector, page_hw, num_regions, embedder.image_size,
+                                   letterbox=letterbox, edge_filter=edge_filter)
+    return _batch_fn(detect, embed.batch, detector.device, mesh)

@@ -20,12 +20,18 @@ rows outside the filter set to −2, and one ``torch.topk`` over a key that
 orders by similarity, then by the lower row index on a tie — the order of
 ``jax.lax.top_k`` and of the native ``cosine_topk``, which ``torch.topk``
 alone does not promise on CUDA. k is not rounded up to a power of two (the
-JAX store does so to bound its compiled programs). ``index="hnsw"`` walks
+JAX store does so to bound its compiled programs); the sharded query
+rounds it, as JAX's ``_sharded_query`` does, then cuts it to k. ``index="hnsw"`` walks
 the native graph index (``utils/native.py::HnswIndex``) built with the
 collection's ``hnsw:*`` metadata; without the native library it raises.
-Distances are cosine distances (1 − cosine similarity). The JAX store's
-corpus sharding over a mesh (``set_mesh``, ``sharded_masked_topk``) is not
-ported.
+Distances are cosine distances (1 − cosine similarity).
+
+``set_mesh(mesh)`` shards the corpus rows over the mesh's data axis, as the
+JAX store does: each rank of the mesh keeps one contiguous block of the
+zero-padded rows on its device, scores it by one f32 matmul and a local
+top-k, and the ranks all-gather k candidates each (never the score matrix)
+for a final top-k (``sharded_masked_topk``). Every rank of the mesh runs the
+same ``query``; each gets the single-device answer, ties included.
 """
 
 from __future__ import annotations
@@ -83,20 +89,89 @@ def _matches(meta: Dict[str, Any], where: Optional[Dict[str, Any]]) -> bool:
 def masked_topk(corpus: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, k: int):
     """(N, D) unit corpus × (Q, D) unit queries → the top-k ``(similarities,
     indices)`` among mask-true rows, each (Q, k): descending similarity, the
-    lower index first on a tie.
+    lower index first on a tie."""
+    sims = torch.matmul(queries, corpus.T)
+    sims = torch.where(mask[None, :], sims, _MASKED)
+    rows = torch.arange(sims.shape[1], device=sims.device, dtype=torch.int64)
+    pos = _ordered_topk(sims, rows.expand_as(sims), k)
+    return torch.gather(sims, 1, pos), pos
+
+
+def _ordered_topk(sims: torch.Tensor, rows: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the top-k of each row of ``sims`` (Q, M): descending
+    similarity, the lower ``rows`` entry (Q, M), a non-negative row index
+    below 2³¹, first on a tie.
 
     The tie order is made explicit: each similarity's f32 bits are mapped to
     an int32 of the same order, shifted up by 31 bits, and the complement of
     the row index fills the low 31 bits, so every key is distinct and
     ``torch.topk`` over the int64 keys has one answer."""
-    sims = torch.matmul(queries, corpus.T)
-    sims = torch.where(mask[None, :], sims, _MASKED)
     bits = sims.view(torch.int32)
     ordered = torch.where(bits < 0, bits ^ _LOW31, bits).to(torch.int64)
-    rows = torch.arange(sims.shape[1], device=sims.device, dtype=torch.int64)
     keys = (ordered << 31) | (_LOW31 - rows)
-    idx = _LOW31 - (torch.topk(keys, k, dim=1).values & _LOW31)
-    return torch.gather(sims, 1, idx), idx
+    return torch.topk(keys, k, dim=1).indices
+
+
+def _pad_rows(arr: np.ndarray, n_shards: int) -> np.ndarray:
+    """Zero-pad the leading axis to a multiple of ``n_shards``."""
+    pad = (-arr.shape[0]) % n_shards
+    if not pad:
+        return arr
+    widths = [(0, pad)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, widths)
+
+
+def _k_bucket(k: int, n: int) -> int:
+    """k rounded up to a power of two, at most ``n``: JAX's bucket."""
+    bucket = 1
+    while bucket < k:
+        bucket *= 2
+    return min(bucket, n)
+
+
+def _sharded_query(corpus_blk: torch.Tensor, queries, mask, k: int, n: int, mesh,
+                   axis_name: str):
+    """The sharded top-k against this rank's block of the padded corpus
+    (on its device). ``mask`` is host-side with the corpus's PADDED length
+    (pads False); ``n`` is the true row count (bounds the k bucket).
+
+    Each rank scores its contiguous row block (one f32 matmul, the mask,
+    a local top-k), the ranks all-gather k candidates each, and a final
+    top-k merges them, ties by the lower global row: the single-device
+    result, values and indices."""
+    bucket = _k_bucket(k, n)
+    dev = corpus_blk.device
+    rows = corpus_blk.shape[0]
+    lo = mesh.axis_index(axis_name) * rows
+    mask_blk = torch.from_numpy(np.ascontiguousarray(mask[lo : lo + rows])).to(dev)
+    q = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
+    sims, idx = masked_topk(corpus_blk, q, mask_blk, min(bucket, rows))
+    s_all = mesh.all_gather(sims, axis_name, dim=1)
+    g_all = mesh.all_gather(idx + lo, axis_name, dim=1)
+    pos = _ordered_topk(s_all, g_all, bucket)
+    sims, idx = torch.gather(s_all, 1, pos), torch.gather(g_all, 1, pos)
+    if bucket != k:
+        sims, idx = sims[:, :k], idx[:, :k]
+    return sims, idx
+
+
+def sharded_masked_topk(corpus, queries, mask, k: int, mesh, axis_name: str = "data",
+                        device="cuda"):
+    """Masked cosine top-k with the corpus rows sharded over ``axis_name``
+    of ``mesh``: every rank of the mesh passes the same global ``corpus``
+    (N, D) and ``mask`` (N,) and keeps its block on ``device`` (this rank's
+    card, or the CPU). Pads the row count to the shard multiple (padded rows
+    are masked out) and returns exactly the single-device result."""
+    from multimodal_embeddings_tpu_torch.core.mesh import rank_device
+
+    n_shards = mesh.shape[axis_name]
+    n = corpus.shape[0]
+    corpus_p = _pad_rows(np.asarray(corpus, np.float32), n_shards)
+    mask_p = _pad_rows(np.asarray(mask, bool), n_shards)
+    rows = corpus_p.shape[0] // n_shards
+    lo = mesh.axis_index(axis_name) * rows
+    block = torch.from_numpy(corpus_p[lo : lo + rows]).to(rank_device(device))
+    return _sharded_query(block, queries, mask_p, k, n, mesh, axis_name)
 
 
 class Collection:
@@ -123,6 +198,8 @@ class Collection:
         self._embeddings: Optional[np.ndarray] = None  # (N, D) float32
         self._metadatas: List[Dict[str, Any]] = []
         self._device_cache: Optional[torch.Tensor] = None
+        self._mesh = None
+        self._mesh_axis = "data"
         # retrieval mode: "exact" (matmul + top-k on the device) or "hnsw"
         # (the native graph index, built with this collection's hnsw:*
         # metadata)
@@ -130,6 +207,16 @@ class Collection:
         self._hnsw = None
         self._hnsw_rows = 0  # corpus rows already inserted into the index
         self._load()
+
+    def set_mesh(self, mesh, axis_name: str = "data") -> None:
+        """Shard subsequent queries' corpus matmul over ``axis_name`` of
+        ``mesh`` (exact, tie-identical to single-device — see
+        ``sharded_masked_topk``). Pass ``None`` to return to one device.
+        Every rank of the mesh must run the same queries."""
+        with self._lock:
+            self._mesh = mesh
+            self._mesh_axis = axis_name
+            self._device_cache = None
 
     # -- persistence --------------------------------------------------------
 
@@ -307,11 +394,19 @@ class Collection:
             return out
 
     def _device_embeddings(self) -> torch.Tensor:
-        """The unit-normalised corpus, cached on the collection's device."""
+        """The unit-normalised corpus, cached on the collection's device:
+        whole by default; after ``set_mesh``, this rank's block of the rows
+        padded to the shard multiple."""
         with self._lock:
             if self._device_cache is None:
                 norms = np.linalg.norm(self._embeddings, axis=1, keepdims=True)
                 normed = self._embeddings / np.clip(norms, 1e-12, None)
+                if self._mesh is not None:
+                    n_shards = self._mesh.shape[self._mesh_axis]
+                    padded = _pad_rows(normed.astype(np.float32), n_shards)
+                    rows = padded.shape[0] // n_shards
+                    lo = self._mesh.axis_index(self._mesh_axis) * rows
+                    normed = padded[lo : lo + rows]
                 self._device_cache = torch.from_numpy(normed).to(self.device)
             return self._device_cache
 
@@ -349,10 +444,15 @@ class Collection:
             empty = [[] for _ in range(q.shape[0])]
             return {"ids": empty, "distances": empty, "metadatas": empty}
 
-        top_sims, top_idx = masked_topk(
-            corpus, torch.from_numpy(qn).to(self.device),
-            torch.from_numpy(mask).to(self.device), k,
-        )
+        if self._mesh is not None:
+            mask_p = _pad_rows(mask, self._mesh.shape[self._mesh_axis])
+            top_sims, top_idx = _sharded_query(corpus, qn, mask_p, k, n, self._mesh,
+                                               self._mesh_axis)
+        else:
+            top_sims, top_idx = masked_topk(
+                corpus, torch.from_numpy(qn).to(self.device),
+                torch.from_numpy(mask).to(self.device), k,
+            )
         top_sims, top_idx = top_sims.cpu().numpy(), top_idx.cpu().numpy()
 
         out: Dict[str, Any] = {"ids": [[ids[j] for j in row] for row in top_idx]}

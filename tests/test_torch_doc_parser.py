@@ -138,10 +138,13 @@ def test_parse_and_parse_batch_equal_jax(tmp_path, dynamic):
 
 
 def test_parser_options_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        td.DocumentParser(None, ByteTokenizer(), pp_stages=2, pp_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        td.DocumentParser(None, ByteTokenizer(), dp_mesh=object(), device="cpu")
+    """The mesh options are ported; JAX's checks of them raise as in JAX."""
+    for kwargs in (dict(pp_stages=2), dict(pp_mesh=object())):
+        with pytest.raises(ValueError, match="pp_mesh and pp_stages must be set together"):
+            td.DocumentParser(None, ByteTokenizer(), device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="dp_mesh and pp_mesh are mutually exclusive"):
+        td.DocumentParser(None, ByteTokenizer(), pp_stages=2, pp_mesh=object(),
+                          dp_mesh=object(), device="cpu")
     # continuous batching is ported (tests/test_torch_qwen_serve.py): an
     # empty queue gives no results
     assert td.DocumentParser(None, ByteTokenizer(), device="cpu").parse_continuous([]) == []
@@ -178,12 +181,82 @@ def test_cli_artifacts_equal_jax_cli(tmp_path, monkeypatch, extra):
     assert os.path.exists("out_port/doc0_bbox.jpg")
 
 
+# JAX's refusals of the parse meshes (cli/parse.py:178-225, :247-252), with
+# its words, before any rank is spawned
+PARSE_REFUSALS = [
+    (["--pipeline_parallel", "2", "--data_parallel", "2"],
+     "--data_parallel and --pipeline_parallel are mutually exclusive (dp replicates the "
+     "weight tree; pp exists because it does not fit)"),
+    (["--pipeline_parallel", "3"],
+     "--pipeline_parallel 3 must divide the 2-layer decoder evenly"),
+    (["--continuous", "--data_parallel", "2"],
+     "--continuous schedules one device's rows; compose scale-out by sharding the page "
+     "list across chips instead"),
+    (["--data_parallel", "4096"], f"--data_parallel 4096: only {os.cpu_count()} devices visible"),
+]
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flags in (["--pipeline_parallel", "2"], ["--data_parallel", "2"],
-                  ["--continuous", "--data_parallel", "2"]):
-        with pytest.raises(SystemExit):
+    """The flags are ported; what JAX refuses is refused, in its words."""
+    for flags, words in PARSE_REFUSALS:
+        with pytest.raises(SystemExit) as err:
             tcli.main(["--input_folder", str(tmp_path), "--size", "tiny", "--device", "cpu",
                        *flags])
+        assert str(err.value) == words
+
+
+def test_cli_refusals_are_jax_words(tmp_path, monkeypatch):
+    """JAX's CLI on the same flags (its model built first, as it does)
+    refuses with the same words; the 8 virtual devices stand for the
+    cores."""
+    monkeypatch.chdir(tmp_path)
+    _pages("pages", [(60, 60)])
+    monkeypatch.setattr(tcli, "visible_devices", lambda device: 8)
+    for flags, words in PARSE_REFUSALS[:3]:
+        argv = ["--input_folder", "pages", "--size", "tiny", *flags]
+        with pytest.raises(SystemExit) as jerr:
+            jcli.main(argv)
+        with pytest.raises(SystemExit) as terr:
+            tcli.main(argv + ["--device", "cpu"])
+        assert str(terr.value) == str(jerr.value) == words
+
+
+# -- --data_parallel 2 and --pipeline_parallel 2 over gloo ranks --------------
+#
+# JAX's tests/test_qwen_vl.py:719 and :743: each a ``main`` call that spawns
+# its 2 ranks, on 3 pages; the output tree byte-identical to the port's
+# single-device run and to JAX's CLI on the same .npz.
+
+
+@pytest.fixture(scope="module")
+def parse_scaleout(tmp_path_factory):
+    root = tmp_path_factory.mktemp("parse_scaleout")
+    _, flat = _weights(1)
+    np.savez(str(root / "tiny.npz"), **flat)
+    _pages(str(root / "pages"), [(120, 90), (90, 120), (140, 100)], seed=5)
+    base = ["--input_folder", str(root / "pages"), "--size", "tiny", "--weights",
+            str(root / "tiny.npz"), "--max_new_tokens", "8"]
+    runs = {"single": ["--batch_size", "2"], "dp2": ["--data_parallel", "2"],
+            "pp2": ["--pipeline_parallel", "2"]}
+    for name, flags in runs.items():
+        assert tcli.main([*base, *flags, "--output_folder", str(root / name), "--device",
+                          "cpu", "--draw_bbox"]) == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "eval_shape", lambda fn, *args: fn(*args))
+        assert jcli.main([*base, "--batch_size", "2", "--output_folder",
+                          str(root / "jax")]) == 0
+    return root
+
+
+@pytest.mark.parametrize("run", ["dp2", "pp2"])
+def test_scaleout_cli_outputs_byte_identical(parse_scaleout, run):
+    root = parse_scaleout
+    names = sorted(os.listdir(root / "single"))
+    assert names == sorted(os.listdir(root / run)) and len(names) == 10
+    for name in names:
+        assert (root / run / name).read_bytes() == (root / "single" / name).read_bytes(), name
+    for name in os.listdir(root / "jax"):
+        assert (root / run / name).read_bytes() == (root / "jax" / name).read_bytes(), name
 
 
 def test_cli_synthetic_weights_run(tmp_path, monkeypatch):

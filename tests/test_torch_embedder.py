@@ -281,3 +281,98 @@ def test_engine_takes_a_tokenizer():
                                  model_config=tm.MllamaConfig.tiny(), device="cpu")
     np.testing.assert_array_equal(port.get_text_embeddings("abc"),
                                   default.get_text_embeddings("ABC"))
+
+
+# -- MultimodalEmbedder(mesh=) over gloo ranks --------------------------------
+#
+# JAX's tests/test_embedder.py:141 (siglip on a mesh) and :161 (tiny mmE5
+# tensor-parallel): one spawn of 4 gloo ranks runs the port's engine on
+# (4, 1), (2, 2) and (1, 2) meshes. The mmE5 runs take the parameters of the
+# JAX engine on its (4, 2) mesh (trivial leaves randomized, re-placed on
+# JAX's shardings) and are held to it within 2e-5 (JAX's own bound against
+# its unsharded engine); the siglip runs take ``siglip_engines``' tree and
+# are held to its JAX engine; every run to the port's unsharded engine.
+
+TP_ATOL = 2e-5
+
+
+def _jax_on_mesh(config, model_config, devices8, seed):
+    """The JAX engine on a (4, 2) mesh with its trivial leaves randomized
+    (kept on their shardings); returns it and its flat parameters."""
+    from multimodal_embeddings_tpu.config import MeshConfig as JMeshConfig
+    from multimodal_embeddings_tpu.core.mesh import make_mesh as jmake_mesh
+
+    jemb = JEmbedder(config, mesh=jmake_mesh(JMeshConfig(shape=(4, 2)), devices=devices8),
+                     model_config=model_config)
+    flat = _randomized(flatten_params(jemb.variables), seed=seed)
+    jemb.variables = jax.tree.map(lambda old, new: jax.device_put(new, old.sharding),
+                                  jemb.variables, unflatten_params(flat))
+    return jemb, flat
+
+
+def _mesh_images(n):
+    rng = np.random.default_rng(7)
+    shapes = ((28, 28, 3), (56, 28, 3), (50, 60, 3), (40, 40, 3))
+    return [rng.integers(0, 256, size=shapes[i % 4], dtype=np.uint8) for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def mesh_engines(devices8, siglip_engines):
+    """The siglip runs are held to ``siglip_engines``' JAX engine (the same
+    randomized tree: JAX's own test holds its sharded engine to it), the
+    mmE5 runs to JAX's engine on its (4, 2) mesh."""
+    from multimodal_embeddings_tpu_torch.core.mesh import launch
+    from multimodal_embeddings_tpu_torch.parallel import dryrun
+
+    sig_cfg = dict(vision=VIT, text=TEXT, embed_dim=32)
+    jsig = siglip_engines[0]
+    sig_flat = flatten_params(jsig.variables)
+    jmme5, mme5_flat = _jax_on_mesh(JEmbedderConfig(family="mme5", dtype="float32"),
+                                    jm.MllamaConfig.tiny(), devices8, seed=0)
+    sig_model = tve.DualEncoderConfig(vision=tve.VisionConfig(**sig_cfg["vision"]),
+                                      text=tve.TextConfig(**sig_cfg["text"]), embed_dim=32)
+    sig = (EmbedderConfig(family="siglip", dtype="float32"), sig_model, _mesh_images(8), 8,
+           sig_flat)
+    mme5 = (EmbedderConfig(family="mme5", dtype="float32"), tm.MllamaConfig.tiny(),
+            _mesh_images(4), 4, mme5_flat)
+    runs = {"siglip (4, 1)": ((4, 1), sig), "siglip (2, 2)": ((2, 2), sig),
+            "mme5 (1, 2)": ((1, 2), mme5), "mme5 (2, 2)": ((2, 2), mme5)}
+    cases = [("embedder_case", dict(shape=shape, config=c, model_config=mc, images=imgs,
+                                    batch_size=bs, params=flat))
+             for shape, (c, mc, imgs, bs, flat) in runs.values()]
+    results = launch(dryrun.run_cases, 4, cases, device="cpu", timeout=300)
+    out = {}
+    for name, got in zip(runs, results[0]):
+        _, (c, mc, imgs, bs, flat) = runs[name]
+        jemb = jsig if name.startswith("siglip") else jmme5
+        single = MultimodalEmbedder(c, model_config=mc, device="cpu", params=flat)
+        out[name] = (got, np.asarray(jemb.get_image_embeddings(imgs, batch_size=bs)),
+                     np.asarray(single.get_image_embeddings(imgs, batch_size=bs)))
+    # every rank of a mesh returns the whole list
+    np.testing.assert_array_equal(results[3][1], results[0][1])
+    return out
+
+
+@pytest.mark.parametrize("name", ["siglip (4, 1)", "siglip (2, 2)", "mme5 (1, 2)",
+                                  "mme5 (2, 2)"])
+def test_embedder_on_a_mesh_matches_jax_and_single(mesh_engines, name):
+    got, want, single = mesh_engines[name]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=TP_ATOL, rtol=0)
+    np.testing.assert_allclose(got, single, atol=TP_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_engine_refuses_a_mesh_as_jax_does(devices8, quantize):
+    from multimodal_embeddings_tpu.config import MeshConfig as JMeshConfig
+    from multimodal_embeddings_tpu.core.mesh import make_mesh as jmake_mesh
+
+    with pytest.raises(ValueError) as jerr:
+        JEmbedder(JEmbedderConfig(family="mme5", dtype="float32", quantize=quantize),
+                  mesh=jmake_mesh(JMeshConfig(shape=(4, 2)), devices=devices8),
+                  model_config=jm.MllamaConfig.tiny())
+    with pytest.raises(ValueError) as terr:
+        # the refusal comes before the mesh is used
+        MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32", quantize=quantize),
+                           model_config=tm.MllamaConfig.tiny(), device="cpu", mesh=object())
+    assert str(terr.value) == str(jerr.value)

@@ -391,3 +391,140 @@ def test_view_boxes_for_page_equal_jax():
         np.testing.assert_array_equal(
             tfused.view_boxes_for_page(1700, 2200, grids, 20.0),
             jfused.view_boxes_for_page(1700, 2200, grids, 20.0))
+
+
+# -- the batch page functions (build_fused_batch_fn, build_split_batch_fn) ---
+#
+# JAX's tests/test_fused.py:202 and :331: a batch of pages against the page
+# function per page (1e-4), and the batch against JAX's batch program by
+# stage (the embeddings of JAX's crops, the sorted top-K scores per page);
+# then over gloo ranks (one spawn of 2): the pages on a (2, 1) mesh and the
+# mmE5 embedder tensor-sharded on (1, 2), against the page function.
+
+BATCH_ATOL = 1e-4
+N_BATCH = 3
+
+
+def _batch_pages(both):
+    return np.stack([both.page] + [make_page(*PAGE_HW, seed=s) for s in (2, 3)])
+
+
+@pytest.fixture(scope="module")
+def batches(both, mme5):
+    """The port's and JAX's batch functions on the same 3 pages: siglip
+    through the fused batch, the int8-mixed mme5 through the split batch."""
+    pages = _batch_pages(both)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMTPU_ENC_ATTN_BLF_INTERPRET", "1")
+        mp.setenv("MMTPU_PSA_BLF_INTERPRET", "1")
+        jdetect = jfused.build_fused_detect_fn(mme5.jdet, PAGE_HW, num_regions=K, emb_size=28)
+        jmme5 = jfused.build_split_batch_fn(mme5.jdet, mme5.jemb, PAGE_HW, num_regions=K,
+                                            embed_chunk=4)(jnp.asarray(pages))
+        out["mme5"] = dict(
+            jres=[np.array(x) for x in jmme5],
+            jcrops=np.stack([np.array(jdetect(jnp.asarray(p))[4]) for p in pages]),
+            fn=tfused.build_split_batch_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K,
+                                           embed_chunk=4),
+            page_fn=mme5.tfn)
+    out["siglip"] = dict(
+        fn=tfused.build_fused_batch_fn(both.tdet, both.temb, PAGE_HW, num_regions=K),
+        page_fn=tfused.build_fused_page_fn(both.tdet, both.temb, PAGE_HW, num_regions=K))
+    for case in out.values():
+        case["tres"] = case["fn"](pages)
+    out["pages"] = pages
+    return out
+
+
+@pytest.mark.parametrize("family", ["siglip", "mme5"])
+def test_batch_fn_equals_page_fn_per_page(batches, family):
+    """Every field of every page within 1e-4 of the page function's (JAX's
+    bound for its vmapped batch; on the CPU the two are equal)."""
+    case = batches[family]
+    got = case["tres"]
+    assert got.boxes.shape == (N_BATCH, K, 4) and got.valid.dtype == torch.bool
+    for b in range(N_BATCH):
+        want = case["page_fn"](torch.from_numpy(batches["pages"][b]))
+        for name, g, w in zip(got._fields, got, want):
+            torch.testing.assert_close(g[b], w, rtol=0, atol=BATCH_ATOL, msg=name)
+
+
+def test_split_batch_embeddings_of_jax_crops(batches):
+    """The split batch's embed half on JAX's crops of the 3 pages, chunk i
+    of every page in one call: within 1e-4 of JAX's split batch."""
+    case = batches["mme5"]
+    got = case["fn"].embed(torch.from_numpy(case["jcrops"]))
+    assert got.shape == (N_BATCH, K, 64)
+    np.testing.assert_allclose(got.numpy(), case["jres"][4], atol=BATCH_ATOL, rtol=0)
+
+
+def test_split_batch_sorted_top_k_scores_per_page(batches):
+    """Which near-tied boxes win may differ between the frameworks; the K
+    best scores of each page do not (2e-7, as the page test)."""
+    got, want = batches["mme5"]["tres"].scores.numpy(), batches["mme5"]["jres"][1]
+    np.testing.assert_allclose(np.sort(got, axis=1), np.sort(want, axis=1), rtol=0, atol=2e-7)
+
+
+def test_fused_batch_embeddings_of_jax_crops(both, batches):
+    """The fused batch's embed half (all 2·K crops of two pages in one
+    call) on JAX's crops: JAX's embeddings of them (its page program's, 4
+    crops a call) within 1e-4."""
+    got = batches["siglip"]["fn"].embed(torch.from_numpy(np.stack([both.jcrops] * 2)))
+    assert got.shape == (2, K, 64)
+    np.testing.assert_allclose(got.numpy(), np.stack([both.jres[4]] * 2), atol=BATCH_ATOL,
+                               rtol=0)
+
+
+def test_batch_fn_arguments_are_checked_as_jax(both, mme5):
+    class Other:
+        config = SimpleNamespace(family="other")
+
+    with pytest.raises(ValueError, match="unsupported split-batch family: other"):
+        tfused.build_split_batch_fn(both.tdet, Other(), PAGE_HW, num_regions=K)
+    with pytest.raises(AssertionError):
+        tfused.build_split_batch_fn(both.tdet, mme5.temb, PAGE_HW, num_regions=K, embed_chunk=3)
+
+
+@pytest.fixture(scope="module")
+def batch_ranks(both):
+    """One spawn of 2 gloo ranks: the fused batch (siglip) and the split
+    batch (the float tiny mmE5, seed 0) on a (2, 1) mesh, the split batch
+    with the mmE5 tree tensor-sharded on (1, 2)."""
+    from multimodal_embeddings_tpu_torch.core.mesh import launch
+    from multimodal_embeddings_tpu_torch.parallel import dryrun
+
+    pages = _batch_pages(both)[:2]
+    det_flat = export_jax_params(both.tdet.model)
+    sig = dict(embedder_config=EmbedderConfig(family="siglip", dtype="float32"),
+               model_config=DualEncoderConfig(vision=VisionConfig(**VIT), embed_dim=64),
+               embedder_params=export_jax_params(both.temb.model))
+    mme5 = dict(embedder_config=EmbedderConfig(family="mme5", dtype="float32"),
+                model_config=MllamaConfig.tiny(), embedder_params=None)
+    common = dict(pages=pages, page_hw=PAGE_HW, num_regions=K,
+                  detector_config=DetectorConfig(**DET), detector_params=det_flat)
+    runs = {"fused (2, 1)": dict(build="fused", shape=(2, 1), **sig),
+            "split (2, 1)": dict(build="split", shape=(2, 1), embed_chunk=4, **mme5),
+            "split (1, 2)": dict(build="split", shape=(1, 2), embed_chunk=4, **mme5)}
+    results = launch(dryrun.run_cases, 2, [("batch_case", dict(**common, **kw))
+                                           for kw in runs.values()],
+                     device="cpu", timeout=300)
+    for a, b in zip(results[0], results[1]):  # every rank holds the whole batch
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    plain_mme5 = MultimodalEmbedder(EmbedderConfig(family="mme5", dtype="float32"),
+                                    model_config=MllamaConfig.tiny(), device="cpu")
+    page_fns = {"fused (2, 1)": tfused.build_fused_page_fn(both.tdet, both.temb, PAGE_HW,
+                                                           num_regions=K)}
+    page_fns["split (2, 1)"] = page_fns["split (1, 2)"] = tfused.build_split_page_fn(
+        both.tdet, plain_mme5, PAGE_HW, num_regions=K, embed_chunk=4)
+    return {name: (got, page_fns[name], pages) for name, got in zip(runs, results[0])}
+
+
+@pytest.mark.parametrize("name", ["fused (2, 1)", "split (2, 1)", "split (1, 2)"])
+def test_batch_fn_on_a_mesh_equals_page_fn(batch_ranks, name):
+    got, page_fn, pages = batch_ranks[name]
+    assert got[4].shape == (2, K, 64)
+    for b in range(2):
+        want = page_fn(torch.from_numpy(pages[b]))
+        for field, g, w in zip(want._fields, got, want):
+            np.testing.assert_allclose(g[b], w.numpy(), rtol=0, atol=BATCH_ATOL, err_msg=field)

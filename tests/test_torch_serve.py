@@ -318,10 +318,113 @@ def test_pipelined_matches_sequential(served, sequential):
     assert ma == mb
 
 
+# JAX's refusals of a serving mesh (cli/serve.py:88-110), with its words,
+# before any rank is spawned: a mesh larger than the devices (the CPU's
+# cores for gloo ranks), --model_parallel with siglip, and with --quantize
+REFUSALS = {
+    "--data_parallel": (
+        ["--data_parallel", "4096"],
+        f"--data_parallel 4096 x --model_parallel 1 needs 4096 devices; only "
+        f"{os.cpu_count()} visible"),
+    "--model_parallel": (
+        ["--model_parallel", "2"],
+        "--model_parallel tensor-shards the parity (mme5) embedder; the siglip tower fits "
+        "one chip — scale it with --data_parallel"),
+    "--model_parallel --quantize": (
+        ["--embedder_family", "mme5", "--model_parallel", "2", "--quantize"],
+        "--model_parallel serves the bf16 tree; the int8 path is single-chip (drop "
+        "--quantize, or use --data_parallel alone)"),
+}
+
+
+def _refused(tmp_path, case):
+    flags, words = REFUSALS[case]
+    with pytest.raises(SystemExit) as err:
+        tserve.main(_tiny_args(str(tmp_path), str(tmp_path / "db"), "siglip", *flags))
+    assert str(err.value) == words
+    assert not os.path.exists(tmp_path / "db")  # refused before anything was built
+
+
 @pytest.mark.parametrize("flag", ["--data_parallel", "--model_parallel"])
 def test_parallel_serving_is_not_ported(tmp_path, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        _tiny_server(str(tmp_path), str(tmp_path / "db"), "siglip", flag, "2")
+    """The flags are ported; what JAX refuses is refused, in its words."""
+    _refused(tmp_path, flag)
+
+
+def test_model_parallel_refuses_quantize_as_jax(tmp_path):
+    _refused(tmp_path, "--model_parallel --quantize")
+
+
+def test_mesh_server_needs_its_world(tmp_path):
+    """Built outside a world of dp·tp ranks, the server says how to start
+    one (``main`` spawns them)."""
+    with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
+        _tiny_server(str(tmp_path), str(tmp_path / "db"), "siglip", "--data_parallel", "2")
+
+
+# -- the scale-out CLI over gloo ranks ----------------------------------------
+#
+# JAX's tests/test_serve.py:176, :201, :227: --data_parallel 2 (siglip, mme5)
+# and --data_parallel 2 --model_parallel 2 (mme5), each one ``main`` call
+# that spawns its ranks, on 3 pages (the last group padded), against the
+# port's single-device run at the same flags: ids, region metadata and the
+# progress file EQUAL, embeddings within JAX's tolerances (3e-5; under
+# tensor parallelism the bf16 partial sums are rounded apart: cosine ≥ 0.999
+# and 5e-3). The siglip run takes ``both_clis``' .npz weights, so its
+# single-device run is ``both_clis``' port run, and it is also held to the
+# JAX CLI's store on them (JAX's test holds its dp store to its
+# single-device one).
+
+SCALEOUT = {
+    "siglip dp2": ("siglip", ["--data_parallel", "2"], 3e-5),
+    "mme5 dp2": ("mme5", ["--data_parallel", "2"], 3e-5),
+    "mme5 dp2 tp2": ("mme5", ["--data_parallel", "2", "--model_parallel", "2"], 5e-3),
+}
+
+
+def _served(db):
+    with open(os.path.join(db, "serve_progress.json")) as f:
+        progress = f.read()
+    return dict(store=_open("torch", db).get(include=("embeddings", "metadatas")),
+                progress=progress)
+
+
+@pytest.fixture(scope="module")
+def scaleout(tmp_path_factory, both_clis):
+    root = tmp_path_factory.mktemp("serve_scaleout")
+    pages = str(both_clis["root"] / "pages")
+    out = {"siglip dp2": {"single": both_clis["torch"]}}
+    db = str(root / "db_siglip_dp2")
+    assert tserve.main(_tiny_args(pages, db, "siglip", *both_clis["weights"],
+                                  *SCALEOUT["siglip dp2"][1])) == 0
+    out["siglip dp2"]["mesh"] = _served(db)
+    db = str(root / "db_mme5_single")
+    assert tserve.main(_tiny_args(pages, db, "mme5")) == 0
+    single = _served(db)
+    for name in ("mme5 dp2", "mme5 dp2 tp2"):
+        db = str(root / f"db_{name.replace(' ', '_')}")
+        assert tserve.main(_tiny_args(pages, db, "mme5", *SCALEOUT[name][1])) == 0
+        out[name] = {"mesh": _served(db), "single": single}
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCALEOUT))
+def test_scaleout_cli_equals_single_device(scaleout, name):
+    a, b = scaleout[name]["mesh"], scaleout[name]["single"]
+    atol = SCALEOUT[name][2]
+    assert a["progress"] == b["progress"]
+    assert sorted(a["store"]["ids"]) == sorted(b["store"]["ids"]) and a["store"]["ids"]
+    ea = dict(zip(a["store"]["ids"], a["store"]["embeddings"]))
+    eb = dict(zip(b["store"]["ids"], b["store"]["embeddings"]))
+    for rid in ea:
+        va, vb = np.asarray(ea[rid]), np.asarray(eb[rid])
+        assert float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb))) >= PAGE_COS_MIN, rid
+        np.testing.assert_allclose(va, vb, atol=atol, rtol=0)
+    ma = {i: m for i, m in zip(a["store"]["ids"], a["store"]["metadatas"])
+          if i.startswith("region_")}
+    mb = {i: m for i, m in zip(b["store"]["ids"], b["store"]["metadatas"])
+          if i.startswith("region_")}
+    assert ma == mb and ma
 
 
 def test_cli_refuses_the_card_without_one(tmp_path):
@@ -382,6 +485,7 @@ def both_clis(tmp_path_factory):
             progress = f.read()
         store = _open(name, db).get(include=("embeddings", "metadatas"))
         out[name] = dict(store=store, progress=progress)
+    out.update(root=root, weights=weights)
     return out
 
 
@@ -413,6 +517,22 @@ def test_cli_metadata_schema_equal_jax(both_clis):
         return out
 
     assert schema(both_clis["torch"]["store"]) == schema(both_clis["jax"]["store"])
+
+
+def test_dp_cli_on_jax_weights_equals_jax_cli(both_clis, scaleout):
+    """``--data_parallel 2`` on the .npz weights the JAX CLI served: the
+    ids and progress file of the JAX CLI's store, page embeddings within
+    the bf16 bounds above."""
+    got = scaleout["siglip dp2"]["mesh"]
+    want = both_clis["jax"]
+    assert got["progress"] == want["progress"]
+    assert sorted(got["store"]["ids"]) == sorted(want["store"]["ids"])
+    eg = dict(zip(got["store"]["ids"], got["store"]["embeddings"]))
+    ew = dict(zip(want["store"]["ids"], want["store"]["embeddings"]))
+    for name in (i for i in ew if not i.startswith("region_")):
+        va, vb = np.asarray(eg[name]), np.asarray(ew[name])
+        assert float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb))) >= PAGE_COS_MIN, name
+        np.testing.assert_allclose(va, vb, atol=PAGE_ATOL, rtol=0)
 
 
 def test_cli_page_embeddings_close_to_jax(both_clis):

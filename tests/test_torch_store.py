@@ -307,3 +307,129 @@ def test_hnsw_index_equal(jlib):
         np.testing.assert_array_equal(got[1], want[1])
     with pytest.raises(ValueError):
         ports.add(np.zeros((2, 5), np.float32))
+
+
+# -- the sharded query over gloo ranks (set_mesh, sharded_masked_topk) -------
+#
+# JAX's tests/test_store.py:209, :229, :244 on 2 and 3 ranks (53 rows: a
+# padded row count on both), against JAX's sharded query on as many virtual
+# devices and the port's single-device query: values and ids EQUAL.
+
+SHARD_ROWS, SHARD_DIM = 53, 16
+SHARD_WHERES = [None, {"is_region": {"$eq": True}}]
+
+
+def _shard_corpus():
+    """Entries that are multiples of 1/8 below 2 in magnitude: every product
+    and partial sum of a similarity is exact in f32 whatever the order, so
+    the two frameworks' matmuls give equal bits, and equal similarities
+    (ties) are many."""
+    rng = np.random.default_rng(3)
+    corpus = (rng.integers(-12, 13, size=(37, 8)) / 8).astype(np.float32)
+    queries = (rng.integers(-12, 13, size=(4, 8)) / 8).astype(np.float32)
+    return corpus, queries, rng.random(37) > 0.3
+
+
+def _shard_collection(root):
+    rng = np.random.default_rng(0)
+    embs = rng.normal(size=(SHARD_ROWS, SHARD_DIM)).astype(np.float32)
+    ids = [f"item{i}" for i in range(SHARD_ROWS)]
+    metas = [{"is_region": i % 2 == 0, "parent_image_name": f"img{i % 5}"}
+             for i in range(SHARD_ROWS)]
+    queries = np.random.default_rng(1).normal(size=(3, SHARD_DIM)).astype(np.float32)
+    _, col = tstore.initialize_db(os.path.join(root, "db"), device="cpu")
+    col.upsert(ids=ids, embeddings=embs, metadatas=metas)
+    # 16 identical rows: every score ties, the lower row first
+    tie = np.eye(4, dtype=np.float32)[0]
+    _, ties = tstore.initialize_db(os.path.join(root, "db_tie"), device="cpu")
+    ties.upsert(ids=[f"t{i}" for i in range(16)], embeddings=[tie] * 16,
+                metadatas=[{} for _ in range(16)])
+    return queries, tie[None]
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(tmp_path_factory):
+    """One spawn of 3 gloo ranks: every case on a data mesh of 2 and of 3."""
+    from multimodal_embeddings_tpu_torch.core.mesh import launch
+    from multimodal_embeddings_tpu_torch.parallel import dryrun
+
+    root = str(tmp_path_factory.mktemp("sharded_store"))
+    queries, tie = _shard_collection(root)
+    corpus, cq, mask = _shard_corpus()
+    cases = []
+    for data in (2, 3):
+        cases.append(("store_case", dict(data=data, corpus=corpus, queries=cq, mask=mask, k=6)))
+        for n_results, where in ((7, None), (5, {"is_region": {"$eq": True}})):
+            cases.append(("store_case", dict(
+                data=data, path=os.path.join(root, "db"), name=tstore.DEFAULT_COLLECTION,
+                queries=queries, n_results=n_results, where=where)))
+        cases.append(("store_case", dict(
+            data=data, path=os.path.join(root, "db_tie"), name=tstore.DEFAULT_COLLECTION,
+            queries=tie, n_results=5)))
+    results = launch(dryrun.run_cases, 3, cases, device="cpu", timeout=240)
+    return dict(root=root, queries=queries, tie=tie, cases=cases, rank0=results[0],
+                rank1=results[1])
+
+
+def _jax_mesh(devices8, n):
+    from multimodal_embeddings_tpu.config import MeshConfig as JMeshConfig
+    from multimodal_embeddings_tpu.core.mesh import make_mesh as jmake_mesh
+
+    return jmake_mesh(JMeshConfig(shape=(n, 1)), devices=devices8[:n])
+
+
+def _by_data(sharded_ranks, data):
+    return [r for (_, kw), r in zip(sharded_ranks["cases"], sharded_ranks["rank0"])
+            if kw["data"] == data]
+
+
+@pytest.mark.parametrize("data", [2, 3])
+def test_sharded_topk_function_equals_jax_and_single(sharded_ranks, devices8, data):
+    """``sharded_masked_topk`` of 37 rows on 2 or 3 ranks: values and ids
+    EQUAL to JAX's on as many devices and to the port's ``masked_topk``;
+    every rank of the mesh gets the same answer."""
+    corpus, queries, mask = _shard_corpus()
+    got = _by_data(sharded_ranks, data)[0]
+    js, ji = jstore.sharded_masked_topk(corpus, queries, mask, 6, _jax_mesh(devices8, data),
+                                        "data")
+    np.testing.assert_array_equal(got["idx"], np.asarray(ji))
+    np.testing.assert_array_equal(got["sims"], np.asarray(js))
+    unit = torch.from_numpy(corpus)
+    ws, wi = tstore.masked_topk(unit, torch.from_numpy(queries), torch.from_numpy(mask), 6)
+    np.testing.assert_array_equal(got["idx"], wi.numpy())
+    np.testing.assert_array_equal(got["sims"], ws.numpy())
+    other = [r for (_, kw), r in zip(sharded_ranks["cases"], sharded_ranks["rank1"])
+             if kw["data"] == data][0]
+    np.testing.assert_array_equal(other["idx"], got["idx"])
+
+
+@pytest.mark.parametrize("data", [2, 3])
+@pytest.mark.parametrize("case", [0, 1], ids=["all", "where"])
+def test_set_mesh_query_equals_jax_and_single(sharded_ranks, devices8, data, case):
+    """``Collection.set_mesh`` on 53 rows (padded to 54 on 2 and 3 ranks):
+    the ids and distances of the single-device query, and JAX's sharded
+    query's ids."""
+    got = _by_data(sharded_ranks, data)[1 + case]
+    assert got["sharded"] == got["single"]
+    n_results, where = ((7, None), (5, {"is_region": {"$eq": True}}))[case]
+    _, jcol = jstore.initialize_db(os.path.join(sharded_ranks["root"], "db"))
+    jcol.set_mesh(_jax_mesh(devices8, data))
+    want = jcol.query(sharded_ranks["queries"], n_results=n_results, where=where)
+    _assert_same_query(want, got["sharded"])
+
+
+@pytest.mark.parametrize("data", [2, 3])
+def test_set_mesh_ties_keep_row_order(sharded_ranks, devices8, data):
+    """16 identical rows across the shards: items 0..4 in order, as JAX's
+    sharded query gives them."""
+    got = _by_data(sharded_ranks, data)[3]
+    assert got["sharded"]["ids"][0] == [f"t{i}" for i in range(5)]
+    _, jcol = jstore.initialize_db(os.path.join(sharded_ranks["root"], "db_tie"))
+    jcol.set_mesh(_jax_mesh(devices8, data))
+    assert jcol.query(sharded_ranks["tie"], n_results=5)["ids"] == got["sharded"]["ids"]
+
+
+def test_pad_rows_equals_jax():
+    for n, shards in ((53, 2), (54, 3), (7, 4)):
+        a = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
+        np.testing.assert_array_equal(tstore._pad_rows(a, shards), jstore._pad_rows(a, shards))

@@ -12,6 +12,8 @@ update to ~lr whatever |g|, so a gradient near zero whose last bits differ
 may flip its update's sign; the restored parameters are compared EQUAL
 before the next step instead."""
 
+import json
+import re
 import subprocess
 import sys
 
@@ -306,10 +308,21 @@ def test_trainer_asks_for_cuda_by_default():
 
 def test_dryrun_twin_passes_at_4():
     """``scripts/torch_dryrun_multichip.py 4``: 4 gloo ranks, the dp2×tp2
-    trainer step and the 4-stage pipeline, one summary line."""
+    trainer step, the 4-stage pipeline, the serving and parse checks; one
+    summary line with the JAX dryrun's keys in its order
+    (``MULTICHIP_r05.json``), each error under JAX's bound."""
     proc = subprocess.run([sys.executable, "scripts/torch_dryrun_multichip.py", "4"],
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = proc.stdout.strip().splitlines()[-1]
     assert line.startswith("dryrun_multichip ok: mesh={'data': 2, 'model': 2}"), line
     assert "pp_stages=4" in line
+    with open("MULTICHIP_r05.json") as f:
+        jax_line = json.load(f)["tail"].splitlines()[0]
+    pair = r"(\w+)=(\{[^}]*\}|\S+)"
+    assert [k for k, _ in re.findall(pair, line)] == [k for k, _ in re.findall(pair, jax_line)]
+    got = dict(re.findall(pair, line))
+    assert got["serving_dp_pages"] == got["dp_parse_pages"] == "4"
+    assert got["hybrid_mesh"] == "{'data': 2, 'model': 2}"
+    assert got["dp_parse_token_equal"] == "True"
+    assert float(got["mme5_tp_max_err"]) < 2e-5 and float(got["dp_tp_split_max_err"]) < 1e-4
