@@ -374,8 +374,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     pages, 8 new tokens: text EQUAL to ``parse_batch``'s, K3 and K4 exact;
     (d) ``cli.serve`` and ``cli.parse`` with ``--data_parallel 2`` on one
     card exit with JAX's words.
+22. Serve-vs-exact detection parity: (a) K1's wrappers
+    (``encoder_attention_blf``, ``_blf_packed``, ``encoder_attention`` in
+    both layouts) at a non-default ``sm_scale``, and
+    ``encoder_attention_padded``, against their plain versions with K1's
+    per-output bf16 gate; (b) ``scripts/torch_serve_parity.py`` and
+    ``scripts/torch_knife_edge_probe.py`` at ``--full`` (v10-m at 1024 px,
+    grids 2×2, 3×3 and 4×4, ``SERVE_PARITY_PAGES`` pages of 2200×1700, 48
+    regions, bf16, the class head fitted on page 0 as in phase 17; the
+    exact chain run once for both): the six serve variants' precision,
+    recall_topk, mean matched IoU and seconds, the exact chain's seconds,
+    the knife-edge experiments; every number finite and in [0, 1]; K1 packed
+    exactly once per detector call (11 calls a page) and no other kernel;
+    the ``return_candidates`` tap through the device ``nms_padded`` EQUAL to
+    the plain call's regions on every page. The values are measured, not
+    gated.
 
-Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18, 21) sets the launch
+Every page phase (4, 4b, 4c, 8, 8a, 8b, 8c, 8d, 12, 12b, 14, 16, 17, 18, 21, 22) sets the launch
 counts of all 14 kernel wrappers to 0 just before its timed run and holds
 them to exact values just after.
 
@@ -432,6 +447,11 @@ the card line and the last line.
 
 runs phase 1, K1's to K4's builds and phase 21 only, then prints the card
 line and the last line.
+
+    python3 chip_smoke.py --serve_parity
+
+runs phase 1, K1's build and phase 22 only, then prints the card line and
+the last line.
 
     python3 chip_smoke.py --k6
 
@@ -5760,6 +5780,179 @@ def scaleout_phase(counters, smi: str) -> dict:
     return out
 
 
+SERVE_PARITY_PAGES = 3  # phase 22: the JAX parity tools' default --pages
+
+
+def _script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def k1_scale_checks(k1) -> None:
+    """Phase 22's K1 part: each wrapper once at a scale other than 1/√D
+    against its plain version at that scale, bf16, K1's per-output and mean
+    gates, at a shape of its page path (fewer batch rows);
+    ``encoder_attention_padded``, which has no scale argument, at the
+    Mllama prefix."""
+    import torch
+
+    phase("22a. K1's wrappers at a non-default sm_scale against their plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def weighted(plain, q, k, v, *args, **kw):
+        return plain(q.float(), k.float(), v.float().abs(), *args, **kw)
+
+    blf = [randn(8, 784, 768) for _ in range(3)]
+    packed = randn(4, 1024, 576)
+    bhld = [randn(8, 784, 768).view(8, 784, 12, 64).permute(0, 2, 1, 3) for _ in range(3)]
+    prefix = [randn(2, 1608, 16, 80) for _ in range(3)]
+    cases = (
+        ("encoder_attention_blf", 0.05, tuple(blf[0].shape),
+         lambda s: k1.encoder_attention_blf(*blf, 12, sm_scale=s),
+         lambda s: k1.encoder_attention_blf_reference(*blf, 12, sm_scale=s),
+         lambda s: weighted(k1.encoder_attention_blf_reference, *blf, 12, sm_scale=s)),
+        ("encoder_attention_blf_packed", 0.1, tuple(packed.shape),
+         lambda s: k1.encoder_attention_blf_packed(packed, 4, 36, 72, sm_scale=s),
+         lambda s: k1.encoder_attention_blf_packed_reference(packed, 4, 36, 72, sm_scale=s),
+         lambda s: k1.encoder_attention_blf_packed_reference(
+             packed_abs_v(packed, 4, 36), 4, 36, 72, sm_scale=s)),
+        ("encoder_attention (bhld)", 0.05, tuple(bhld[0].shape),
+         lambda s: k1.encoder_attention(*bhld, bhld_inputs=True, sm_scale=s),
+         lambda s: k1.encoder_attention_reference(*bhld, bhld_inputs=True, sm_scale=s),
+         lambda s: weighted(k1.encoder_attention_reference, *bhld, bhld_inputs=True,
+                            sm_scale=s)),
+        ("encoder_attention valid 1601", 0.07, tuple(prefix[0].shape),
+         lambda s: k1.encoder_attention(*prefix, valid_len=1601, sm_scale=s),
+         lambda s: k1.encoder_attention_reference(*prefix, 1601, sm_scale=s),
+         lambda s: weighted(k1.encoder_attention_reference, *prefix, 1601, sm_scale=s)),
+        ("encoder_attention_padded valid 1601", None, tuple(prefix[0].shape),
+         lambda s: k1.encoder_attention_padded(*prefix, 1601),
+         lambda s: k1.encoder_attention_reference(*prefix, 1601),
+         lambda s: weighted(k1.encoder_attention_reference, *prefix, 1601)),
+    )
+    for name, scale, shape, kernel, plain, plain_abs in cases:
+        got, want = kernel(scale), plain(scale)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        _, note = k1_bf16_gate(f"{name} sm_scale {scale}", got, want, plain_abs(scale))
+        err = (got.float() - want.float()).abs()
+        check(err.mean().item() <= ATOL_BF16_MEAN, f"{name}: mean err {err.mean().item()}")
+        print(f"{name} {shape} bf16 at sm_scale {scale or '1/sqrt(D)'}: max_abs_err "
+              f"{err.max().item():.3e} mean_abs_err {err.mean().item():.3e} ({note})")
+
+
+def serve_parity_phase(k1, counters, smi: str) -> dict:
+    """Phase 22: ``scripts/torch_serve_parity.py`` and
+    ``scripts/torch_knife_edge_probe.py`` at ``--full`` on the card, the
+    class head fitted as in phase 17; the candidate tap against the serving
+    NMS; K1 at a non-default scale. Returns the twins' records and the
+    launches of their run."""
+    import numpy as np
+    import torch
+
+    from multimodal_embeddings_tpu_torch.models.yolo_decode import top_k
+    from multimodal_embeddings_tpu_torch.ops.nms import nms_padded
+
+    start = time.perf_counter()
+    k1_scale_checks(k1)
+    phase(f"22b. serve-vs-exact detection parity at --full (v10-m, 1024 px, grids 2x2/3x3/4x4, "
+          f"{SERVE_PARITY_PAGES} pages of 2200x1700, 48 regions, bf16; the head fitted on "
+          "page 0)")
+    sp, ke = _script("torch_serve_parity"), _script("torch_knife_edge_probe")
+    t0 = time.perf_counter()
+    page_hw, num_regions, detector = sp.setup(True, "cuda")
+    pages = sp.make_pages(page_hw, SERVE_PARITY_PAGES)
+    fit_head(detector, pages[0])  # scores spread (STAGE_VIEW_BOXES), not one tie
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    calls = [0]
+    hook = detector.model.register_forward_pre_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    t0 = time.perf_counter()
+    exact = sp.exact_chain(detector, pages)
+    serve = sp.run(detector, pages, page_hw, num_regions, full=True, exact=exact)
+    knife = ke.run(detector, pages, page_hw, num_regions, full=True, exact=exact)
+    torch.cuda.synchronize()
+    twins_s = time.perf_counter() - t0
+    launches = counts(counters)
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one detector call a page in the exact chain, each of the six variants,
+    # the three eps runs and the candidate tap
+    want_calls = (1 + len(sp.VARIANTS) + 4) * len(pages)
+    check(calls[0] == want_calls, f"{calls[0]} detector calls, not {want_calls}")
+    want = only(counters, {"encoder_attention_blf_packed": calls[0]})
+    check(launches == want, f"launches {launches} != {want}: K1 packed once a detect call")
+    print(f"both twins: {twins_s:.1f} s for {calls[0]} detector calls (the exact chain once, "
+          f"shared); K1 packed {launches['encoder_attention_blf_packed']}, every other kernel "
+          f"0; peak device memory {peak:.2f} GiB")
+    print(f"exact chain (stages 1-3): {exact[1]:.2f} s for {len(pages)} pages; boxes per page "
+          f"{[len(v[0]) for v in exact[0].values()]}")
+
+    def unit(name, x):
+        check(math.isfinite(x) and 0.0 <= x <= 1.0, f"{name} = {x}")
+
+    print("variant: precision, recall_topk, mean matched IoU, seconds")
+    for variant, *_ in sp.VARIANTS:
+        r = serve[variant]
+        for key in ("precision", "recall_topk", "mean_matched_iou"):
+            unit(f"{variant} {key}", r[key])
+            for row in r["pages"]:
+                unit(f"{variant} {row['page']} {key}", row[key])
+        print(f"  {variant}: {r['precision']} {r['recall_topk']} {r['mean_matched_iou']} "
+              f"{r['seconds_incl_compile']} s; serve boxes "
+              f"{[row['serve_boxes'] for row in r['pages']]}")
+    for key in ("iou_048", "iou_050", "iou_052", "host_remerge"):
+        for metric in ("precision", "recall_topk", "mean_matched_iou"):
+            unit(f"{key} {metric}", knife[key][metric])
+    unit("uncut_candidate_recall_topk", knife["host_remerge"]["uncut_candidate_recall_topk"])
+    for x in knife["unmatched_best_iou_at_050"]:
+        unit("unmatched best IoU", x)
+    for key in ("recall_gap_at_050", "recall_gap_after_host_f64_remerge", "recall_moved_by_eps"):
+        unit(key, knife["interpretation"][key])
+    print("knife edge: recall_topk " + ", ".join(
+        f"{k} {knife[k]['recall_topk']}" for k in ("iou_048", "iou_050", "iou_052",
+                                                    "host_remerge"))
+        + f"; uncut {knife['host_remerge']['uncut_candidate_recall_topk']}; flips "
+          f"{knife['eps_flips']}; {len(knife['unmatched_best_iou_at_050'])} unmatched exact "
+          f"top-K boxes, best IoUs {knife['unmatched_best_iou_at_050']}; "
+          f"{knife['interpretation']}")
+    print("serve parity record: " + json.dumps(serve))
+    print("knife edge record: " + json.dumps({"knife_edge": knife}))
+
+    # the tap holds what the serving NMS takes: the device NMS on it gives
+    # the plain call's regions, bit for bit
+    opts = dict(letterbox=True, edge_filter=True, candidate_cap=ke.CANDIDATE_CAP)
+    tap = sp.detect_fn(detector, page_hw, num_regions, return_candidates=True, **opts)
+    plain = sp.detect_fn(detector, page_hw, num_regions, **opts)
+    for i, page in enumerate(pages):
+        page = torch.from_numpy(page).cuda()
+        cb, cs, cc = tap(page)
+        keep, order = nms_padded(cb, cs, cc, cs > 0, iou_threshold=0.5, class_aware=True)
+        top, sel = top_k(torch.where(keep, cs[order], -1.0), num_regions)
+        boxes, scores, classes, valid, _ = plain(page)
+        check(torch.equal(cb[order[sel]], boxes) and torch.equal(top, scores)
+              and torch.equal(cc[order[sel]], classes),
+              f"page {i}: nms_padded on the candidate tap differs from the plain call")
+        print(f"page {i}: {int((cs > 0).sum())} live of {cs.numel()} candidates; nms_padded on "
+              f"the tap EQUAL to the plain call's {int(valid.sum())} regions")
+    del detector
+    gc_cuda()
+    seconds = time.perf_counter() - start
+    print(f"phase 22: {seconds:.1f} s; every number of it on {smi}")
+    return {"launches": {f"serve_parity_{len(pages)}_pages": launches}, "serve": serve,
+            "knife_edge": knife, "seconds": seconds}
+
+
 def gc_cuda() -> None:
     import gc
 
@@ -5880,6 +6073,17 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
+    if sys.argv[1:] == ["--serve_parity"]:
+        build(("K1", k1))
+        serve_parity_phase(k1, kernel_counters(k1, k2, k3, k4, k5, k6, k7), smi)
+        print(f"phase 22 alone: {time.perf_counter() - start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if sys.argv[1:] == ["--k7"]:
         build(("K7", k7))
         phase("4a. K7 alone: against its plain version, its times and its edges")
@@ -5954,6 +6158,8 @@ def main() -> int:
     train = train_phase(k1, k2, k3, k4, k5, k6, k7, counters, smi)
     gc_cuda()
     scaleout = scaleout_phase(counters, smi)
+    gc_cuda()
+    serve_parity = serve_parity_phase(k1, counters, smi)
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     src = "multimodal_embeddings_tpu_torch/csrc/encoder_attention.cu"
@@ -5980,7 +6186,8 @@ def main() -> int:
              **parity_launches,
              f"trainer_{TRAIN_STEPS}_steps": train["trainer"]["launches"],
              "pp_greedy_generate": train["pp"],
-             **scaleout["launches"]}
+             **scaleout["launches"],
+             **serve_parity["launches"]}
 
     def entry(name, source, replaces, home, shape, res, library=True):
         """``home``: the path whose launches the entry reports (None for a

@@ -20,11 +20,20 @@ is no faster than the one stem the port keeps (``nn.Conv2d``; timed by
 analysis passes' settings (``StoreConfig``, ``AnalysisConfig``) are copied
 whole, and so is ``MeshConfig``, the (data, model) layout of the ranks
 that ``core/mesh.py`` lays out over ``torch.distributed``.
+
+``PipelineConfig`` gathers the ten configs with JAX's JSON round trip
+(``from_json``, ``to_json``), copied as it is: ``to_json`` writes the
+tuple fields (``DetectorConfig.grid_configs``, ``MeshConfig.shape``) as
+lists and ``from_json`` keeps them so, so a loaded config is not ``==`` to
+the default; a JAX file's ``s2d_stem`` is dropped on load. ``hf_token``,
+``NUM_CLASSES`` and ``IMAGE_EXTENSIONS`` are JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Optional, Tuple
 
 # Class taxonomy (reference: 1_doclayout_bboxes.py:67-78)
@@ -41,6 +50,7 @@ ID_TO_NAMES = {
     9: "formula_caption",
 }
 NAMES_TO_ID = {v: k for k, v in ID_TO_NAMES.items()}
+NUM_CLASSES = len(ID_TO_NAMES)
 
 # Region classes forwarded to the embedder
 # (reference: deprecated_package/config.py:67-74)
@@ -52,6 +62,8 @@ REGION_TYPES_TO_PROCESS = (
     "table",
     "table_caption",
 )
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".webp", ".tiff", ".tif", ".bmp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,3 +215,59 @@ class MeshConfig:
     model_axis: str = "model"
     # (-1, 1) → all ranks on the data axis; set model>1 for tensor parallelism
     shape: Tuple[int, int] = (-1, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    orientation: OrientationConfig = dataclasses.field(default_factory=OrientationConfig)
+    detector: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
+    edge_filter: EdgeFilterConfig = dataclasses.field(default_factory=EdgeFilterConfig)
+    combine: CombineConfig = dataclasses.field(default_factory=CombineConfig)
+    median_width: MedianWidthConfig = dataclasses.field(default_factory=MedianWidthConfig)
+    columns: ColumnConfig = dataclasses.field(default_factory=ColumnConfig)
+    embedder: EmbedderConfig = dataclasses.field(default_factory=EmbedderConfig)
+    store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
+    analysis: AnalysisConfig = dataclasses.field(default_factory=AnalysisConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # Emit JSON byte-identically to the reference writers (float64 host math).
+    bit_exact_json: bool = True
+
+    @classmethod
+    def from_json(cls, path: str) -> "PipelineConfig":
+        with open(path, "r") as f:
+            raw = json.load(f)
+        return _dataclass_from_dict(cls, raw)
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+
+def _dataclass_from_dict(cls, raw):
+    if not dataclasses.is_dataclass(cls):
+        return raw
+    # `from __future__ import annotations` stringifies field.type — resolve
+    # real types via get_type_hints so nested dataclasses rehydrate.
+    import typing
+
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for field in dataclasses.fields(cls):
+        if field.name in raw:
+            value = raw[field.name]
+            ftype = hints.get(field.name, field.type)
+            if isinstance(ftype, type) and dataclasses.is_dataclass(ftype):
+                value = _dataclass_from_dict(ftype, value)
+            kwargs[field.name] = value
+    return cls(**kwargs)
+
+
+def hf_token() -> Optional[str]:
+    """HF token from env or HF_TOKEN.txt (reference: config.py:36-37)."""
+    token = os.environ.get("HF_TOKEN")
+    if token:
+        return token
+    if os.path.exists("HF_TOKEN.txt"):
+        with open("HF_TOKEN.txt") as f:
+            return f.read().strip()
+    return None

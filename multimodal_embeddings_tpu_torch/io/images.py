@@ -1,9 +1,9 @@
 """Image helpers on the host.
 
 Copies of the functions of the same names in
-``multimodal_embeddings_tpu/io/images.py`` and of ``IMAGE_EXTENSIONS`` from
-its ``config``: that module imports the JAX package's ``config``, so only the
-functions are copied, with PIL imported where an image is opened or resized
+``multimodal_embeddings_tpu/io/images.py``, which takes ``IMAGE_EXTENSIONS``
+from the package's ``config`` as this one does, with PIL imported where an
+image is opened or resized
 (``tests/test_torch_serve.py``, ``tests/test_torch_embedder.py`` and
 ``tests/test_torch_stages.py`` hold them equal). ``validate_image``
 suppresses PIL's error where the JAX function catches it: the package keeps
@@ -25,7 +25,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".webp", ".tiff", ".tif", ".bmp")
+from multimodal_embeddings_tpu_torch.config import IMAGE_EXTENSIONS
 
 
 def get_image_paths(input_folder: str) -> List[str]:

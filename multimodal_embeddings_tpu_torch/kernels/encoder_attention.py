@@ -19,7 +19,8 @@ kernel, ``csrc/encoder_attention.cu``, which addresses q, k and v through
 * ``encoder_attention``: ``(B, L, H, D)`` operands and a key prefix
   ``valid_len`` (the Mllama vision tower: 1601 valid of 1608 rows). The JAX
   ``encoder_attention_padded`` pads L to 16 for the TPU's sublanes; the
-  kernel takes any L, so this one wrapper stands for both. With
+  kernel takes any L, so the port's ``encoder_attention_padded`` is this
+  wrapper with ``valid_len`` and no padding. With
   ``bhld_inputs=True`` q/k/v and the output are ``(B, H, L, D)`` instead —
   the ViT's proj-BHLD route (``MMTPU_ENC_ATTN_BLF=0``) hands it permuted
   views of its ``(B, L, H·D)`` projections, read through their strides with
@@ -41,6 +42,9 @@ reach it. Numerics (both the kernel and the plain versions): f32 scores
 denominator of the unrounded ``e``, ``e`` cast to the input dtype before an
 f32-accumulated PV product, output ``/ max(denom, 1e-30)`` cast to the input
 dtype.
+
+``sm_scale`` (every wrapper and plain version; None: ``1/√D``, the key
+dim) is the scale the kernel takes as an argument.
 
 Keys at or past ``valid_len`` are left out, which is what the TPU kernel's
 score of −1e30 comes to (its ``e`` is exactly 0 in f32); every row is still
@@ -178,11 +182,15 @@ def _merge(o: torch.Tensor) -> torch.Tensor:
     return o.transpose(1, 2).reshape(b, l, h * d)
 
 
+def _scale(sm_scale, d: int) -> float:
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
 def encoder_attention_blf_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, sm_scale=None
 ) -> torch.Tensor:
     """Plain version of ``encoder_attention_blf``."""
-    scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    scale = _scale(sm_scale, q.shape[2] // heads)
     o = _attend_plain(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale)
     return _merge(o)
 
@@ -198,16 +206,16 @@ def _split_packed(qkv, heads, key_dim):
 
 
 def encoder_attention_blf_packed_reference(
-    qkv: torch.Tensor, heads: int, key_dim: int, head_dim: int
+    qkv: torch.Tensor, heads: int, key_dim: int, head_dim: int, sm_scale=None
 ) -> torch.Tensor:
     """Plain version of ``encoder_attention_blf_packed``."""
     q, k, v = _split_packed(qkv, heads, key_dim)
-    return _merge(_attend_plain(q, k, v, 1.0 / math.sqrt(key_dim)))
+    return _merge(_attend_plain(q, k, v, _scale(sm_scale, key_dim)))
 
 
 def encoder_attention_blhd_reference(q, k, v, sm_scale=None) -> torch.Tensor:
     """Plain version of ``encoder_attention_blhd``."""
-    scale = 1.0 / math.sqrt(q.shape[3]) if sm_scale is None else sm_scale
+    scale = _scale(sm_scale, q.shape[3])
     o = _attend_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale)
     return o.transpose(1, 2)
 
@@ -238,10 +246,10 @@ def attention_backward(q, k, v, o, do, scale: float) -> tuple:
 
 def encoder_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len=None,
-    bhld_inputs: bool = False,
+    bhld_inputs: bool = False, sm_scale=None,
 ) -> torch.Tensor:
     """Plain version of ``encoder_attention``."""
-    scale = 1.0 / math.sqrt(q.shape[3])
+    scale = _scale(sm_scale, q.shape[3])
     if bhld_inputs:
         return _attend_plain(q, k, v, scale, valid_len)
     o = _attend_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, valid_len)
@@ -310,15 +318,16 @@ class KernelAttention(torch.autograd.Function):
     CPU tensor takes the plain version, so the backward can be held against
     autograd there), the backward is ``attention_backward`` and launches no
     kernel. ``form`` is ``"blf"`` (q, k, v ``(B, L, H·D)``, ``heads`` heads)
-    or ``"bhld"`` (``(B, H, L, D)`` views). The wrappers count the launch."""
+    or ``"bhld"`` (``(B, H, L, D)`` views); ``sm_scale`` as the wrappers'.
+    The wrappers count the launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, form: str, heads: int):
+    def forward(ctx, q, k, v, form: str, heads: int, sm_scale=None):
         d = q.shape[2] // heads if form == "blf" else q.shape[3]
-        scale = 1.0 / math.sqrt(d)
+        scale = _scale(sm_scale, d)
         if not q.is_cuda:
-            out = (encoder_attention_blf_reference(q, k, v, heads) if form == "blf"
-                   else encoder_attention_reference(q, k, v, bhld_inputs=True))
+            out = (encoder_attention_blf_reference(q, k, v, heads, scale) if form == "blf"
+                   else encoder_attention_reference(q, k, v, bhld_inputs=True, sm_scale=scale))
         elif form == "blf":
             dv = v.shape[2] // heads
             out = _launch_blf(q, k, v, heads, d, dv, (d, d, dv), scale)
@@ -338,7 +347,7 @@ class KernelAttention(torch.autograd.Function):
             dq, dk, dv = _merge(dq), _merge(dk), _merge(dv)
         else:
             dq, dk, dv = attention_backward(q, k, v, o, do, ctx.scale)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def encoder_attention_blf(
@@ -346,19 +355,20 @@ def encoder_attention_blf(
     k: torch.Tensor,  # (B, L, H·D)
     v: torch.Tensor,  # (B, L, H·Dv)
     heads: int,
+    sm_scale=None,
 ) -> torch.Tensor:
     """Unmasked whole-row attention over head-major ``(B, L, H·D)`` slabs,
-    scale ``1/√D``. Returns ``(B, L, H·Dv)`` in q's dtype; on the card it
-    carries a gradient (``KernelAttention``)."""
+    scale ``sm_scale`` (``1/√D`` when None). Returns ``(B, L, H·Dv)`` in q's
+    dtype; on the card it carries a gradient (``KernelAttention``)."""
     b, l, f = q.shape
     if f % heads or v.shape[2] % heads or k.shape != q.shape:
         raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape} / {heads}")
     if v.shape[:2] != (b, l):
         raise ValueError(f"v {tuple(v.shape)} does not match q {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return encoder_attention_blf_reference(q, k, v, heads)
+        return encoder_attention_blf_reference(q, k, v, heads, sm_scale)
     _check_cuda(q, k, v)
-    out = KernelAttention.apply(q, k, v, "blf", heads)
+    out = KernelAttention.apply(q, k, v, "blf", heads, sm_scale)
     encoder_attention_blf.launches += 1
     return out
 
@@ -371,23 +381,24 @@ def encoder_attention_blf_packed(
     heads: int,
     key_dim: int,
     head_dim: int,
+    sm_scale=None,
 ) -> torch.Tensor:
     """Whole-row attention read straight off a packed per-head ``[q|k|v]``
-    slab, scale ``1/√key_dim``. Returns ``(B, L, heads·head_dim)`` in qkv's
-    dtype."""
+    slab, scale ``sm_scale`` (``1/√key_dim`` when None). Returns ``(B, L,
+    heads·head_dim)`` in qkv's dtype."""
     b, l, f = qkv.shape
     stride = 2 * key_dim + head_dim
     if f != heads * stride:
         raise ValueError(f"qkv width {f} != {heads}·(2·{key_dim}+{head_dim})")
     if qkv.device.type == "cpu":
-        return encoder_attention_blf_packed_reference(qkv, heads, key_dim, head_dim)
+        return encoder_attention_blf_packed_reference(qkv, heads, key_dim, head_dim, sm_scale)
     _check_cuda(qkv)
     _build.refuse_grad("encoder_attention_blf_packed", qkv)
     q = qkv[..., :key_dim]
     k = qkv[..., key_dim : 2 * key_dim]
     v = qkv[..., 2 * key_dim :]
     out = _launch_blf(q, k, v, heads, key_dim, head_dim, (stride,) * 3,
-                      1.0 / math.sqrt(key_dim))
+                      _scale(sm_scale, key_dim))
     encoder_attention_blf_packed.launches += 1
     return out
 
@@ -417,9 +428,10 @@ def encoder_attention(
     v: torch.Tensor,  # (B, L, H, Dv), or (B, H, L, Dv)
     valid_len=None,
     bhld_inputs: bool = False,
+    sm_scale=None,
 ) -> torch.Tensor:
     """Whole-row attention over the keys ``[0, valid_len)`` (all L when
-    None), scale ``1/√D``; every row is a query. Returns ``(B, L, H, Dv)``
+    None), scale ``sm_scale`` (``1/√D`` when None); every row is a query. Returns ``(B, L, H, Dv)``
     (``(B, H, L, Dv)`` with ``bhld_inputs``) in q's dtype. On the card the
     BHLD form over all keys carries a gradient (``KernelAttention``); the
     other forms raise under grad."""
@@ -430,13 +442,13 @@ def encoder_attention(
     if not 1 <= n <= l:
         raise ValueError(f"valid_len {valid_len} outside [1, {l}]")
     if q.device.type == "cpu":
-        return encoder_attention_reference(q, k, v, valid_len, bhld_inputs)
+        return encoder_attention_reference(q, k, v, valid_len, bhld_inputs, sm_scale)
     _check_cuda(q, k, v)
     if bhld_inputs and n == l:
-        out = KernelAttention.apply(q, k, v, "bhld", q.shape[1])
+        out = KernelAttention.apply(q, k, v, "bhld", q.shape[1], sm_scale)
     else:
         _build.refuse_grad("encoder_attention", q, k, v)
-        out = _launch_4d(q, k, v, bhld_inputs, 1.0 / math.sqrt(q.shape[3]), n)
+        out = _launch_4d(q, k, v, bhld_inputs, _scale(sm_scale, q.shape[3]), n)
     counter = encoder_attention.bhld if bhld_inputs else encoder_attention
     counter.launches += 1
     return out
@@ -444,6 +456,14 @@ def encoder_attention(
 
 encoder_attention.launches = 0  # the (B, L, H, D) form
 encoder_attention.bhld = SimpleNamespace(launches=0)  # the (B, H, L, D) form
+
+
+def encoder_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             valid_len: int) -> torch.Tensor:
+    """The JAX name of ``encoder_attention(q, k, v, valid_len=valid_len)``
+    on ``(B, L, H, D)`` operands: the kernel takes any L, so nothing is
+    padded. Launches are counted in ``encoder_attention.launches``."""
+    return encoder_attention(q, k, v, valid_len=valid_len)
 
 
 def _blhd_pick_hpb(l, h, d, dv, dtype):
@@ -485,7 +505,7 @@ def encoder_attention_blhd(
     b, l, h, d = q.shape
     if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != (b, l, h):
         raise ValueError(f"bad shapes {q.shape} {k.shape} {v.shape}")
-    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+    scale = _scale(sm_scale, d)
     if q.device.type == "cpu":
         return encoder_attention_blhd_reference(q, k, v, scale)
     _check_cuda(q, k, v)

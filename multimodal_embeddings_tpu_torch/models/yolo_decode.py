@@ -68,8 +68,11 @@ def decode_predictions(
     max_det: int = 300,
     conf_threshold: float = 0.1,
     iou_threshold: float = 0.45,
+    with_nms: bool = True,
 ) -> Detections:
-    """Raw head maps → padded detections, NMS'd and in selection order."""
+    """Raw head maps → padded detections, NMS'd and in selection order; with
+    ``with_nms=False``, the one-to-one top-``max_det`` in top-k order with
+    ``valid = score ≥ conf_threshold``."""
     regs, clss, shapes = [], [], []
     for reg, cls in level_outputs:
         b, h, w, _ = reg.shape
@@ -97,6 +100,8 @@ def decode_predictions(
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     top_classes = torch.gather(best_class, 1, top_idx)
     valid = top_scores >= conf_threshold
+    if not with_nms:
+        return Detections(top_boxes, top_scores, top_classes, valid)
     keep, order = batched_nms_padded(
         top_boxes, top_scores, top_classes, valid,
         iou_threshold=iou_threshold, class_aware=False,

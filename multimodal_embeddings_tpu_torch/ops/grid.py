@@ -1,5 +1,5 @@
 """Multi-grid tiling geometry — a verbatim copy of ``GridCell``,
-``grid_cells`` and ``translate_boxes`` from
+``grid_cells``, ``translate_boxes`` and ``translate_boxes_np`` from
 ``multimodal_embeddings_tpu/ops/grid.py``, whose package imports JAX.
 
 Reproduces the cell-coordinate float math of ``split_image_into_grid``
@@ -107,3 +107,11 @@ def translate_boxes(boxes, cell: GridCell):
             ]
         )
     return out
+
+
+def translate_boxes_np(boxes: np.ndarray, origins: np.ndarray) -> np.ndarray:
+    """Vectorized translation: ``boxes (..., N, 4)`` + per-view origins
+    ``(..., 2)`` → page coordinates. Used by the batched TPU detect path where
+    all grid views of a page run as one padded batch."""
+    offsets = np.concatenate([origins, origins], axis=-1)  # (..., 4) = x,y,x,y
+    return boxes + offsets[..., None, :]

@@ -12,6 +12,8 @@ is reached as the same Jacobi fixpoint —
 ``keep_i = valid_i ∧ ¬∃ j<i (keep_j ∧ suppress_ji)`` — which settles in
 (suppression-chain depth + 1) sweeps instead of N sequential steps. Each
 sweep's convergence test reads one flag back to the host.
+``nms_indices_from_padded`` (a copy of the JAX function) turns a device
+``(keep, order)`` pair into the kept indices in selection order.
 """
 
 from __future__ import annotations
@@ -135,3 +137,16 @@ def nms_padded(
         iou_threshold=iou_threshold, class_aware=class_aware,
     )
     return keep[0], order[0]
+
+
+def nms_indices_from_padded(keep: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """Convert a device ``(keep_mask, order)`` pair into kept original indices
+    in selection order (the host-path return convention).
+
+    ``keep`` is a mask over *sorted* positions (``keep[i]`` refers to box
+    ``order[i]``) and sorted order is selection order, so the kept original
+    indices in selection order are ``order`` at the true positions of ``keep``.
+    """
+    keep = np.asarray(keep)
+    order = np.asarray(order)
+    return order[np.nonzero(keep)[0]]

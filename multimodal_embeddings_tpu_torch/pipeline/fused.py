@@ -109,7 +109,9 @@ def build_fused_detect_fn(
     letterbox: bool = False,
     edge_filter: bool = True,
     candidate_cap: int = 4,
+    resize_dtype=torch.bfloat16,
     combine_iou: float = 0.5,
+    return_candidates: bool = False,
 ):
     """``fn(page_uint8) → (boxes, scores, classes, valid, crops)`` of the
     top ``num_regions`` regions, without the embedding forward; the page is
@@ -118,10 +120,16 @@ def build_fused_detect_fn(
     ``letterbox`` letterboxes each view instead of squeezing it;
     ``edge_filter`` drops grid-cell boxes within 10 px of an internal cell
     edge before the cross-view NMS; ``candidate_cap`` bounds that NMS at
-    ``cap·num_regions`` candidates (≤ 0: all view boxes). Pixels ride in
-    bf16 through the resampling, as in the JAX package's default.
-    ``fn.batch(pages)`` takes a (B, H, W, 3) batch: the detector runs its
-    B·V views in one call, and every output gains a leading page dim."""
+    ``cap·num_regions`` candidates (≤ 0: all view boxes). The page is cast
+    to ``resize_dtype`` (bf16 by default, as in the JAX package) before the
+    views are resampled and the regions cropped; the views enter the
+    detector in bf16 whatever that type. ``combine_iou`` is the cross-view
+    NMS's IoU threshold. ``return_candidates=True`` makes ``fn`` return the
+    set that NMS sees instead, ``(cand_boxes, cand_scores, cand_classes)``
+    after the edge filter and the candidate top-k (the serve-vs-exact
+    parity tools' tap). ``fn.batch(pages)`` takes a (B, H, W, 3) batch: the
+    detector runs its B·V views in one call, and every output gains a
+    leading page dim."""
     height, width = page_hw
     cfg = detector.config
     view_bounds = view_slice_bounds_for_page(
@@ -181,6 +189,8 @@ def build_fused_detect_fn(
         cand_scores, cand_idx = top_k(flat_scores, n_cand)
         cand_boxes = page_boxes[cand_idx]
         cand_classes = flat_classes[cand_idx]
+        if return_candidates:
+            return cand_boxes, cand_scores, cand_classes
         keep, order = nms_padded(
             cand_boxes, cand_scores, cand_classes, cand_scores > 0,
             iou_threshold=combine_iou, class_aware=True,
@@ -202,7 +212,7 @@ def build_fused_detect_fn(
         """(B, H, W, 3) uint8 pages → each output with a leading page dim:
         the detector runs all B·V views in one call, then each page's
         selection and crops."""
-        pagesf = pages.to(torch.bfloat16)
+        pagesf = pages.to(resize_dtype)
         views = [views_of(p) for p in pagesf]
         n_views = views[0].shape[0]
         det = decode_predictions(

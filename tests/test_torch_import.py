@@ -40,13 +40,16 @@ def test_every_module_imports_without_jax():
 
 
 def test_twin_scripts_import_without_jax():
-    """The port's twins of the JAX package's attention scripts
-    (``scripts/torch_*.py``) load in a fresh interpreter without JAX."""
+    """The port's twins of the JAX package's scripts (``scripts/torch_*.py``,
+    the serve-vs-exact parity tools among them) load in a fresh interpreter
+    without JAX."""
     scripts = sorted(str(p) for p in (REPO / "scripts").glob("torch_*.py"))
     assert any(s.endswith("torch_attn_candidates_bench.py") for s in scripts)
     assert any(s.endswith("torch_enc_attn_blhd_probe.py") for s in scripts)
     assert any(s.endswith("torch_parse_bench.py") for s in scripts)
     assert any(s.endswith("torch_dryrun_multichip.py") for s in scripts)
+    assert any(s.endswith("torch_serve_parity.py") for s in scripts)
+    assert any(s.endswith("torch_knife_edge_probe.py") for s in scripts)
     code = (
         "import importlib.util, sys\n"
         f"for path in {scripts!r}:\n"
