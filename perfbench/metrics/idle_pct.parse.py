@@ -1,0 +1,10 @@
+"""Share of the traced window (the window's own ``continuous_generate``
+call over the cell's queue) in which no operation ran on the device (the
+union of the device operations' intervals), in %."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.ops or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
